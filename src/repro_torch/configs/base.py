@@ -1,0 +1,105 @@
+"""Architecture configuration for the PyTorch port.
+
+Each registered architecture has one module in this package exporting
+CONFIG (the exact published shape). `get_reduced` derives a tiny
+same-family variant for CPU tests. The fields mirror the JAX package's
+`ArchConfig` for the layer kinds the port runs (causal, sliding-window and
+local attention with a dense SwiGLU FFN); dtypes are `torch.dtype`s.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+# Layer kinds usable in ArchConfig.layer_pattern.
+ATTN = "attn"              # global causal attention
+ATTN_SWA = "attn_swa"      # sliding-window causal attention
+ATTN_LOCAL = "attn_local"  # local attention (recurrentgemma-style window)
+
+ATTENTION_KINDS = (ATTN, ATTN_SWA, ATTN_LOCAL)
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                     # dense
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int                       # dense FFN hidden size
+    vocab_size: int
+    layer_pattern: Tuple[str, ...] = (ATTN,)
+    rope_theta: float = 10000.0
+    sliding_window: int = 0         # window for attn_swa / attn_local layers
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+    # window of the sliding-window variant dense archs use for long contexts
+    long_context_window: int = 0
+    param_dtype: torch.dtype = torch.bfloat16
+    compute_dtype: torch.dtype = torch.bfloat16
+    source: str = ""
+
+    def validate(self) -> None:
+        if self.n_layers < 1 or self.d_model < 1 or self.d_ff < 1:
+            raise ValueError(f"{self.name}: n_layers, d_model and d_ff must be >= 1")
+        if self.n_heads < 1 or self.head_dim < 1 or self.n_kv_heads < 1:
+            raise ValueError(f"{self.name}: heads and head_dim must be >= 1")
+        if self.n_heads % self.n_kv_heads:
+            raise ValueError(f"{self.name}: n_heads % n_kv_heads != 0")
+        for kind in self.layer_pattern:
+            if kind not in ATTENTION_KINDS:
+                raise ValueError(f"{self.name}: layer kind {kind!r} is not ported")
+        if (any(k in (ATTN_SWA, ATTN_LOCAL) for k in self.layer_pattern)
+                and self.sliding_window <= 0):
+            raise ValueError(f"{self.name}: windowed layers need sliding_window > 0")
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def reduce_config(cfg: ArchConfig) -> ArchConfig:
+    """Tiny same-family variant for CPU tests (<= 2 pattern repeats,
+    d_model <= 256, f32) — the same reduction as the JAX package's."""
+    pat = cfg.layer_pattern
+    n_layers = len(pat) if len(pat) > 1 else 2
+    d_model = min(cfg.d_model, 256)
+    n_heads = min(cfg.n_heads, 4)
+    n_kv = max(1, min(cfg.n_kv_heads, n_heads))
+    while n_heads % n_kv:
+        n_kv -= 1
+    head_dim = max(8, d_model // max(n_heads, 1))
+    return cfg.replace(
+        n_layers=n_layers, d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv,
+        head_dim=head_dim, d_ff=min(cfg.d_ff, 512),
+        vocab_size=min(cfg.vocab_size, 512),
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+        long_context_window=min(cfg.long_context_window, 64)
+        if cfg.long_context_window else 0,
+        param_dtype=torch.float32, compute_dtype=torch.float32,
+    )
+
+
+ARCH_IDS = ("llama3.2-1b",)
+
+
+def _module(arch_id: str):
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"{arch_id!r} is not ported; ported: {ARCH_IDS}")
+    mod_name = arch_id.replace("-", "_").replace(".", "_")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    cfg = _module(arch_id).CONFIG
+    cfg.validate()
+    return cfg
+
+
+def get_reduced(arch_id: str) -> ArchConfig:
+    return reduce_config(get_config(arch_id))

@@ -1,0 +1,77 @@
+"""Public kernel entry points of the port, and the build of the CUDA
+sources at first use.
+
+A wrapper takes its kernel's plain version (`ref.py`) only for tensors on
+the CPU. For CUDA tensors it builds the kernel (once per process, with
+`nvcc` for sm_90a, into `build/` beside the sources) and launches it, or
+raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+from repro_torch.kernels.flash_attention import check_inputs, flash_attention_fwd
+from repro_torch.kernels.ref import attention_ref
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libraries: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc (set CUDA_HOME or PATH)")
+
+
+def build(name: str) -> str:
+    """Compile `csrc/<name>.cu` into `build/lib<name>.so`. Returns the
+    compiler's report (ptxas registers / shared memory / spills)."""
+    src = CSRC / f"{name}.cu"
+    out = BUILD_DIR / f"lib{name}.so"
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{r.stdout}\n{r.stderr}")
+    os.replace(tmp, out)  # atomic: no process loads a partly written library
+    return r.stderr
+
+
+def kernel_library(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built if missing or stale."""
+    lib = _libraries.get(name)
+    if lib is None:
+        so = BUILD_DIR / f"lib{name}.so"
+        src = CSRC / f"{name}.cu"
+        if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
+            build(name)
+        lib = _libraries[name] = ctypes.CDLL(str(so))
+    return lib
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q (B,Hq,Sq,D); k,v (B,Hk,Sk,D) -> (B,Hq,Sq,D) in q's dtype.
+
+    Sq may be shorter than Sk (the q rows are the suffix of the kv range,
+    e.g. chunked prefill); rows are aligned at the end."""
+    check_inputs(q, k, v, window)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return flash_attention_fwd(kernel_library("flash_attention_fwd"), q, k, v,
+                               causal=causal, window=window)

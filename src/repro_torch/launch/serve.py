@@ -1,0 +1,56 @@
+"""Serving launcher of the port: batched generation from seeded parameters.
+
+  python -m repro_torch.launch.serve --full --batch 4 --prompt-len 1024 \
+      --max-new 32 [--temperature 0.8] [--device cpu]
+
+Runs on CUDA unless --device cpu is given. Without --full it serves the
+reduced config.
+"""
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+from repro_torch.models.lm import init_params
+from repro_torch.serve.engine import Engine, resolve_device
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b", choices=ARCH_IDS)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=64)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = init_params(cfg, gen, device)
+    eng = Engine(cfg, params, max_len=args.prompt_len + args.max_new,
+                 device=device)
+    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                            generator=gen, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, args.max_new, temperature=args.temperature,
+                       generator=gen)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    toks = out.shape[0] * out.shape[1]
+    print(f"[serve] {args.arch} on {device}: {tuple(out.shape)} tokens in "
+          f"{dt:.3f}s ({toks / dt:.1f} tok/s)")
+    for row in out[: min(4, args.batch)].tolist():
+        print("  ", row[:16], "...")
+    return out
+
+
+if __name__ == "__main__":
+    main()

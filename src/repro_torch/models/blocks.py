@@ -1,0 +1,62 @@
+"""Residual block assembly: attention mixer + dense SwiGLU FFN."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ATTENTION_KINDS, ATTN, ATTN_LOCAL, ATTN_SWA
+from repro_torch.models.attention import attn_apply, init_attn
+from repro_torch.models.common import dense_init, rms_norm, silu_mlp
+
+
+def _init_ffn(generator, cfg, dtype, device):
+    D, F = cfg.d_model, cfg.d_ff
+    return {
+        "norm": torch.zeros((D,), dtype=dtype, device=device),
+        "w1": dense_init(generator, (D, F), dtype, device),
+        "w3": dense_init(generator, (D, F), dtype, device),
+        "w2": dense_init(generator, (F, D), dtype, device,
+                         scale=1.0 / (2 * cfg.n_layers) ** 0.5),
+    }
+
+
+def _check_kind(kind):
+    if kind not in ATTENTION_KINDS:
+        raise ValueError(f"layer kind {kind!r} is not ported")
+
+
+def init_block(generator, cfg, kind, dtype, device):
+    _check_kind(kind)
+    return {"attn": init_attn(generator, cfg, dtype, device),
+            "ffn": _init_ffn(generator, cfg, dtype, device)}
+
+
+def init_block_cache(cfg, kind, batch, cache_len, dtype, device):
+    _check_kind(kind)
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def block_window(cfg, kind, window_override: int) -> int:
+    """Effective attention window for this block kind (0 = unbounded)."""
+    if kind in (ATTN_SWA, ATTN_LOCAL):
+        return cfg.sliding_window
+    if kind == ATTN and window_override:
+        return window_override
+    return 0
+
+
+def apply_block(kind, p, x, positions, cfg, *, cache: Optional[dict] = None,
+                pos: Optional[int] = None, window_override: int = 0,
+                attn_impl: str = "kernel"):
+    """x (B,S,D) -> (x, cache)."""
+    _check_kind(kind)
+    delta, cache = attn_apply(p["attn"], x, positions, cfg,
+                              window=block_window(cfg, kind, window_override),
+                              cache=cache, pos=pos, impl=attn_impl)
+    x = x + delta
+    h = rms_norm(x, p["ffn"]["norm"], cfg.norm_eps)
+    x = x + silu_mlp(h, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
+    return x, cache

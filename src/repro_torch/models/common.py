@@ -1,0 +1,35 @@
+"""Shared building blocks: norms, initializers, activations."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x, scale, eps=1e-6):
+    """RMS norm in f32, scaled by (1 + scale): norm scales start at zero."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def _trunc_normal(shape, std, dtype, device, generator):
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (w * std).to(dtype)
+
+
+def dense_init(generator, shape, dtype, device, scale=None, axis=0):
+    """Standard normal truncated at +-2, times scale / sqrt(fan_in)."""
+    std = (1.0 if scale is None else scale) / shape[axis] ** 0.5
+    return _trunc_normal(shape, std, dtype, device, generator)
+
+
+def embed_init(generator, shape, dtype, device):
+    return _trunc_normal(shape, 0.02, dtype, device, generator)
+
+
+def silu_mlp(x, w1, w3, w2):
+    """SwiGLU FFN. x (..., D); w1,w3 (D,F); w2 (F,D)."""
+    return (F.silu(x @ w1) * (x @ w3)) @ w2

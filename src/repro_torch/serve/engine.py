@@ -1,0 +1,104 @@
+"""Serving engine: batched prefill + one-token decode over the decoder LM.
+
+Prefill attention runs through the flash attention kernel; decode attends
+one new token against the KV cache, which is written in place.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.lm import forward, init_cache
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU. Raises when CUDA is asked for and absent (no silent fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def make_prefill_fn(cfg: ArchConfig, *, cache_len: int,
+                    window_override: int = 0):
+    """prefill(params, tokens, positions=None) -> {"logits_last" (B,V),
+    "cache"}. The cache holds `cache_len` positions; the prompt fills the
+    first S slots."""
+    def prefill(params, tokens, positions=None):
+        cache = init_cache(cfg, tokens.shape[0], cache_len, device=tokens.device,
+                           window_override=window_override)
+        out = forward(params, tokens, cfg, positions=positions, cache=cache,
+                      window_override=window_override)
+        return {"logits_last": out["logits"][:, -1], "cache": out["cache"]}
+
+    return prefill
+
+
+def make_decode_fn(cfg: ArchConfig, *, window_override: int = 0):
+    """serve_step(params, cache, token (B,1), pos int) -> {"logits" (B,V),
+    "cache"}: exactly one new token at absolute position `pos`."""
+    def serve_step(params, cache, token, pos: int):
+        positions = torch.full(token.shape, pos, dtype=torch.int32,
+                               device=token.device)
+        out = forward(params, token, cfg, positions=positions, cache=cache,
+                      pos=pos, window_override=window_override)
+        return {"logits": out["logits"][:, -1], "cache": out["cache"]}
+
+    return serve_step
+
+
+@dataclass
+class Engine:
+    """Minimal batched generation engine (greedy / temperature sampling).
+    Runs on CUDA unless `device="cpu"`; params must already be there."""
+    cfg: ArchConfig
+    params: dict
+    max_len: int = 256
+    window_override: int = 0
+    device: object = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        tok = self.params["embed"]["tok"]
+        if tok.device.type != self.device.type:
+            raise ValueError(f"Engine on {self.device}, params on {tok.device}")
+        self._prefill = make_prefill_fn(self.cfg, cache_len=self.max_len,
+                                        window_override=self.window_override)
+        self._decode = make_decode_fn(self.cfg,
+                                      window_override=self.window_override)
+
+    @torch.inference_mode()
+    def generate(self, prompts: torch.Tensor, max_new_tokens: int, *,
+                 temperature: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        """prompts (B, S_prompt) int -> (B, max_new_tokens) int64."""
+        if prompts.device.type != self.device.type:
+            raise ValueError(f"prompts on {prompts.device}, Engine on {self.device}")
+        S = prompts.shape[1]
+        if not self.window_override and S + max_new_tokens - 1 > self.max_len:
+            raise ValueError(f"prompt {S} + {max_new_tokens} new tokens exceed "
+                             f"max_len {self.max_len}")
+        state = self._prefill(self.params, prompts)
+        cache, logits = state["cache"], state["logits_last"]
+        pos = S  # next absolute position
+        outs = []
+        for t in range(max_new_tokens):
+            if temperature > 0.0:
+                probs = torch.softmax(logits.float() / temperature, dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=generator)
+            else:
+                nxt = torch.argmax(logits, dim=-1, keepdim=True)
+            outs.append(nxt)
+            if t == max_new_tokens - 1:
+                break
+            step = self._decode(self.params, cache, nxt, pos)
+            logits, cache = step["logits"], step["cache"]
+            pos += 1
+        return torch.cat(outs, dim=1)

@@ -1,0 +1,134 @@
+"""Port's flash attention (plain version on CPU tensors; the CUDA kernel on
+the card) held against the JAX package: the Pallas kernel run in interpret
+mode, and the jnp oracle. Inputs are made from a seed with numpy."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ops import flash_attention as jax_flash
+from repro.kernels.ref import attention_ref as jax_attention_ref
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.ref import attention_ref
+
+# tests/test_kernels.py tolerances: f32 to 2e-5; bf16 to 2e-2 (the kernel
+# rounds the probabilities to bf16 before the PV product, the oracle does not)
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _qkv(seed, B, Hq, Hk, Sq, Sk, D):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Hq, Sq, D), dtype=np.float32),
+            rng.standard_normal((B, Hk, Sk, D), dtype=np.float32),
+            rng.standard_normal((B, Hk, Sk, D), dtype=np.float32))
+
+
+def _both(arrays, dtype):
+    jx = [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrays]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+    return jx, tx
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+CASES = [
+    # tests/test_kernels.py:16-20
+    (2, 4, 4, 128, 128, 64, 0),     # MHA square
+    (1, 8, 2, 128, 128, 32, 0),     # GQA 4:1
+    (2, 4, 1, 64, 256, 64, 0),      # MQA, q suffix of longer kv
+    (1, 2, 2, 256, 256, 128, 0),    # head dim 128
+    # windows
+    (1, 2, 2, 256, 256, 32, 32),
+    (1, 2, 2, 256, 256, 32, 64),
+    # ragged lengths
+    (1, 4, 2, 100, 100, 64, 0),
+    (2, 4, 1, 40, 100, 64, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hk,Sq,Sk,D,window", CASES)
+def test_flash_attention_matches_pallas_interpret(B, Hq, Hk, Sq, Sk, D, window,
+                                                  dtype):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(Sq * D + window, B, Hq, Hk, Sq, Sk, D),
+                                       dtype)
+    pallas = jax_flash(jq, jk, jv, causal=True, window=window, block_q=64,
+                       block_k=64, interpret=True)
+    out = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    np.testing.assert_allclose(_f32(out), _f32(pallas), atol=ATOL[dtype])
+
+
+NONCAUSAL = [(2, 4, 4, 128, 128, 64, 0), (1, 8, 2, 100, 100, 32, 32)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hk,Sq,Sk,D,window", NONCAUSAL)
+def test_non_causal_matches_pallas_interpret(B, Hq, Hk, Sq, Sk, D, window, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(D + window, B, Hq, Hk, Sq, Sk, D), dtype)
+    pallas = jax_flash(jq, jk, jv, causal=False, window=window, block_q=64,
+                       block_k=64, interpret=True)
+    out = ops.flash_attention(tq, tk, tv, causal=False, window=window)
+    np.testing.assert_allclose(_f32(out), _f32(pallas), atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hk,Sq,Sk,D,window", CASES)
+def test_attention_ref_matches_jax_ref(B, Hq, Hk, Sq, Sk, D, window, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(Sq + D + window, B, Hq, Hk, Sq, Sk, D),
+                                       dtype)
+    want = jax_attention_ref(jq, jk, jv, causal=True, window=window)
+    got = attention_ref(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=ATOL[dtype])
+
+
+def test_cpu_tensors_never_count_a_launch():
+    flash_attention_fwd.launches = 0
+    _, (tq, tk, tv) = _both(_qkv(0, 1, 4, 2, 64, 64, 64), "float32")
+    ops.flash_attention(tq, tk, tv)
+    ops.flash_attention(tq, tk, tv, window=16)
+    assert flash_attention_fwd.launches == 0
+
+
+def _bad_inputs():
+    def t(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype)
+    return {
+        "float16": (t(1, 2, 8, 64, dtype=torch.float16),) * 3,
+        "mixed_dtypes": (t(1, 2, 8, 64), t(1, 2, 8, 64, dtype=torch.bfloat16),
+                         t(1, 2, 8, 64)),
+        "head_dim_48": (t(1, 2, 8, 48),) * 3,
+        "q_longer_than_kv": (t(1, 2, 16, 64), t(1, 2, 8, 64), t(1, 2, 8, 64)),
+        "heads_not_grouped": (t(1, 3, 8, 64), t(1, 2, 8, 64), t(1, 2, 8, 64)),
+        "k_v_mismatch": (t(1, 2, 8, 64), t(1, 2, 8, 64), t(1, 2, 9, 64)),
+        "not_contiguous": (t(1, 8, 2, 64).transpose(1, 2), t(1, 2, 8, 64),
+                           t(1, 2, 8, 64)),
+        "three_dims": (t(2, 8, 64),) * 3,
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_inputs()))
+def test_wrapper_rejects_what_the_kernel_does_not_take(case):
+    q, k, v = _bad_inputs()[case]
+    with pytest.raises((ValueError, TypeError)):
+        ops.flash_attention(q, k, v)
+
+
+def test_wrapper_rejects_negative_window():
+    q = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q, window=-1)
+
+
+def test_build_without_nvcc_is_an_error(monkeypatch, tmp_path):
+    """A missing compiler raises: the card path never falls back."""
+    monkeypatch.setattr(ops.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(ops, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ops.build("flash_attention_fwd")
