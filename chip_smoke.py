@@ -5,18 +5,30 @@ sm_90a). Run from the repository root:
   python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
-  build   compile every CUDA kernel of the serving path from
-          src/repro_torch/csrc with nvcc (sm_90a), with ptxas's report
-  check   hold each kernel against its plain PyTorch version on the card,
-          at the serving shape and a sweep (dtypes, ragged lengths, head
-          dims, window, q shorter than kv)
-  serve   Engine.generate on llama3.2-1b at full size (16 layers, bf16,
-          seeded random weights): batch 4, prompt 1024, 32 new greedy
-          tokens. Kernel launches per prefill are counted; the prefill's
-          last logits are held against a teacher-forced plain forward (bf16),
-          and prefill + decode against it in f32 with 2 layers
-  timing  each kernel, its plain version and the library call at the
-          serving shape (CUDA events)
+  build        compile every CUDA source of the port from src/repro_torch/csrc
+               with nvcc (sm_90a), all at once, with ptxas's report
+  check        hold K1 against its plain PyTorch version on the card, at the
+               serving shape and a sweep (dtypes, ragged lengths, head dims,
+               window, q shorter than kv)
+  comm_check   hold K2, K3 and K4 against their plain versions, bit-exact, at
+               ragged sizes, on a misaligned view and on bf16 edge values
+  serve        Engine.generate on llama3.2-1b at full size (16 layers, bf16,
+               seeded random weights): batch 4, prompt 1024, 32 new greedy
+               tokens. K1 launches per prefill are counted; the prefill's
+               last logits are held against a teacher-forced plain forward
+               (bf16), and prefill + decode against it in f32 with 2 layers
+  train_check  at full width (1 layer, f32, R = 4): one blocking and one
+               receive step through the kernels give the same carry as the
+               same steps with the exchange computed by the plain versions
+  train        run_training with DASO on llama3.2-1b at full width, 4 of its
+               16 layers, f32, R = 4 replicas: 40 steps, K2 and K3 launches
+               held to the schedule's receive and blocking steps, step time
+               by mode, peak memory
+  arena        K2, K3 and K4 held bit-exact against their plain versions on
+               the final carry's parameter and momentum arenas (4 x N f32);
+               a wire_roundtrip of the parameters launches K3 and K4
+  timing       each kernel, its plain version and the library call, at the
+               serving shape (K1) and the training arena (K2, K3, K4)
 then the `kernels` line, the card's name and power limit, and as the last
 line {"ok": true, "device": {...}}.
 
@@ -25,9 +37,12 @@ Exits non-zero without printing a result when no CUDA device is present.
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
@@ -35,11 +50,20 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.core import daso, flatbuf  # noqa: E402
+from repro_torch.core.executor import DasoStrategy  # noqa: E402
+from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.comm_kernels import (bf16_pack_fwd, bf16_unpack_fwd,  # noqa: E402
+                                              eq1_merge_fwd)
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.ref import attention_ref  # noqa: E402
 from repro_torch.models.lm import forward, init_params  # noqa: E402
+from repro_torch.optim.optimizers import sgd  # noqa: E402
 from repro_torch.serve.engine import Engine, make_decode_fn, make_prefill_fn  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
+from repro_torch.train.loop import TrainLoopConfig, run_training  # noqa: E402
+from repro_torch.train.step import make_lm_loss  # noqa: E402
 
 ARCH = "llama3.2-1b"
 BATCH, PROMPT, NEW = 4, 1024, 32
@@ -48,13 +72,45 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}  # tests/test_kernels.py
 
+# train phase: llama3.2-1b at its published widths, depth cut for memory.
+# lr: the quickstart's 0.05 (tuned at d_model 128) diverges at this width
+# with sgd(0.9, 1e-4) (NaN by step 34), 0.02 oscillates, 0.01 trains
+# noisily, 0.005 trains smoothly (PERF.md, Findings)
+TRAIN_LAYERS, TRAIN_R, TRAIN_LOCAL_WORLD, TRAIN_B_MAX = 4, 4, 4, 4
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_PER, TRAIN_LR = 40, 256, 2, 0.005
+
 KERNELS = [{
     "name": "flash_attention_fwd",
     "route": "cuda",
     "source": "src/repro_torch/csrc/flash_attention_fwd.cu",
     "replaces": "src/repro/kernels/flash_attention.py:26",
     "counter": flash_attention_fwd,
+}, {
+    "name": "eq1_merge",
+    "route": "cuda",
+    "source": "src/repro_torch/csrc/comm_kernels.cu",
+    "replaces": "src/repro/kernels/comm_kernels.py:47",
+    "counter": eq1_merge_fwd,
+}, {
+    "name": "bf16_pack",
+    "route": "cuda",
+    "source": "src/repro_torch/csrc/comm_kernels.cu",
+    "replaces": "src/repro/kernels/comm_kernels.py:82",
+    "counter": bf16_pack_fwd,
+}, {
+    "name": "bf16_unpack",
+    "route": "cuda",
+    "source": "src/repro_torch/csrc/comm_kernels.cu",
+    "replaces": "src/repro/kernels/comm_kernels.py:96",
+    "counter": bf16_unpack_fwd,
 }]
+SOURCES = sorted({os.path.basename(k["source"])[:-3] for k in KERNELS})
+
+# f32 values where a bf16 cast can go wrong: ties to even, values above the
+# largest bf16 (round to inf), infinities, signed zeros, f32 subnormals
+BF16_EDGES = [1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8), 3.3961e38, 3.3962e38,
+              3.4e38, -3.4e38, float("inf"), float("-inf"), 0.0, -0.0, 1e-40, -1e-40,
+              1.4e-45, 1.17e-38, 9e-39, 1.0, -2.5]
 
 # (name, B, Hq, Hk, Sq, Sk, D, dtype, window)
 CHECKS = [
@@ -119,14 +175,18 @@ def attention_bound_ms(q, k, v, window):
 
 
 def phase_build():
-    out = []
-    for kern in KERNELS:
+    """One nvcc per source, all started together."""
+    def one(name):
         t0 = time.perf_counter()
-        report = ops.build(kern["name"])
-        out.append({"kernel": kern["name"], "seconds": time.perf_counter() - t0,
-                    "ptxas": [ln.strip() for ln in report.splitlines()
-                              if "registers" in ln or "spill" in ln]})
-    emit({"phase": "build", "kernels": out})
+        report = ops.build(name)
+        return {"source": name, "seconds": time.perf_counter() - t0,
+                "ptxas": [ln.strip() for ln in report.splitlines()
+                          if "registers" in ln or "spill" in ln]}
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        out = list(pool.map(one, SOURCES))
+    emit({"phase": "build", "wall_seconds": time.perf_counter() - t0, "sources": out})
 
 
 def phase_check():
@@ -256,23 +316,322 @@ def serve_f32_check(cfg):
     return {"max_abs_err": max(errs), "tolerance": 2e-3, "steps": len(errs)}
 
 
-def phase_timing(check_rows, launches):
-    """Times at the serving shape, and the kernels line."""
+def same_bits(a, b):
+    """Bit-exact equality (so -0.0 differs from 0.0)."""
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(as_int[a.dtype]), b.view(as_int[b.dtype])))
+
+
+def card_arena(n, seed, dtype=torch.float32, offset=0, edges=False):
+    """n values on the card; offset > 0 gives a contiguous view that starts
+    `offset` elements into its buffer (not 16-byte aligned)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = 40 * torch.randn(n + offset, generator=g, device="cuda")
+    if edges:
+        x[offset:offset + len(BF16_EDGES)] = torch.tensor(BF16_EDGES, device="cuda")
+    return x.to(dtype)[offset:]
+
+
+def counts():
+    return {k["name"]: k["counter"].launches for k in KERNELS}
+
+
+def zero_counts():
+    for k in KERNELS:
+        k["counter"].launches = 0
+
+
+def phase_comm_check():
+    """K2, K3 and K4 bit-exact against their plain versions at ragged sizes,
+    a misaligned view and the bf16 edge values; and what PyTorch's CUDA
+    division by a Python scalar does to the plain Eq. (1)."""
+    rows = []
+
+    def record(kernel, n, offset, dtype, ok):
+        rows.append({"kernel": kernel, "n": n, "offset": offset, "dtype": str(dtype),
+                     "bit_exact": ok})
+        if not ok:
+            emit({"phase": "comm_check", "failed": rows[-1]})
+            raise AssertionError(f"{kernel} differs from its plain version: {rows[-1]}")
+
+    for n, offset in ((999, 0), (2 ** 20 + 3, 0), (2 ** 20 + 3, 1), (4099, 3)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = card_arena(n, 1, dtype, offset)
+            y = card_arena(n, 2, dtype, offset)
+            for S, P, E in ((1, 16, 0), (3, 16, 1)):
+                kw = dict(staleness=S, global_world=P, extra_staleness=E)
+                record("eq1_merge", n, offset, dtype,
+                       same_bits(ops.eq1_merge(x, y, **kw), ref.eq1_merge_ref(x, y, **kw)))
+            e = card_arena(n, 3, dtype, offset, edges=True)
+            record("bf16_pack", n, offset, dtype,
+                   same_bits(ops.bf16_pack(e), ref.bf16_pack_ref(e)))
+            w = e.to(torch.bfloat16)
+            record("bf16_unpack", n, offset, dtype,
+                   same_bits(ops.bf16_unpack(w, dtype), ref.bf16_unpack_ref(w, dtype)))
+    nan = ops.bf16_pack(torch.tensor([float("nan"), 1.0], device="cuda"))
+    if not (bool(torch.isnan(nan[0])) and nan[1].item() == 1.0):
+        raise AssertionError(f"bf16_pack of NaN: {nan}")
+
+    # the plain Eq. (1) divides by a device tensor; a Python-scalar divisor
+    # on CUDA is multiplied as a reciprocal instead
+    x, y = card_arena(2 ** 24, 4), card_arena(2 ** 24, 5)
+    s2, p = 2.0, 16.0
+    want = ref.eq1_merge_ref(x, y, staleness=1, global_world=16)
+    scalar = (s2 * x + p * y) / (s2 + p)
+    ulps = (scalar.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+    divisor = {"elements": ulps.numel(), "differ": int((ulps > 0).sum()),
+               "max_ulp": int(ulps.max()), "divisor": s2 + p}
+    sync()
+    emit({"phase": "comm_check", "cases": len(rows), "all_bit_exact": True,
+          "python_scalar_divisor": divisor})
+    return divisor
+
+
+@contextmanager
+def plain_exchange():
+    """Swap the exchange kernels' wrappers for their plain versions, so the
+    same step functions compute the exchange with kernels/ref.py."""
+    saved = ops.eq1_merge, ops.bf16_pack, ops.bf16_unpack
+    ops.eq1_merge, ops.bf16_pack, ops.bf16_unpack = (
+        ref.eq1_merge_ref, ref.bf16_pack_ref, ref.bf16_unpack_ref)
+    try:
+        yield
+    finally:
+        ops.eq1_merge, ops.bf16_pack, ops.bf16_unpack = saved
+
+
+def train_config(n_layers):
+    return get_config(ARCH).replace(n_layers=n_layers, param_dtype=torch.float32,
+                                    compute_dtype=torch.float32)
+
+
+def replica_data(src):
+    def data(step):
+        b = src.batch(TRAIN_R * TRAIN_PER, step, device="cuda")
+        return {k: v.reshape((TRAIN_R, TRAIN_PER) + v.shape[1:]) for k, v in b.items()}
+    return data
+
+
+def phase_train_check():
+    """One receive and one blocking step at full width (1 layer, f32,
+    R = 4), from the same carry: through the kernels, and with the exchange
+    computed by the plain versions. The carries must be identical."""
+    cfg = train_config(1)
+    params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(2), "cuda")
+    strategy = DasoStrategy(make_lm_loss(cfg), sgd(0.9, 1e-4), daso.DasoConfig(
+        n_replicas=TRAIN_R, global_world=TRAIN_R * TRAIN_LOCAL_WORLD, b_max=TRAIN_B_MAX))
+    data = replica_data(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, seed=2))
+    carry = strategy.init_carry(params0)
+    for step, mode in enumerate(("send", "local")):
+        carry, _ = strategy.step_fn(mode, 1)(carry, data(step), TRAIN_LR)
+    rows = []
+    for mode, stale, kernel in (("receive", 2, "eq1_merge"), ("blocking", 1, "bf16_pack")):
+        batch = data(2)
+        step = strategy.step_fn(mode, stale)
+        before = counts()
+        got = step(carry, batch, TRAIN_LR)
+        sync()
+        launched = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        got = [x.cpu() for x in leaves(got)]  # room on the card for the second step
+        with plain_exchange():
+            want = step(carry, batch, TRAIN_LR)
+        identical = all(same_bits(a, b.cpu()) for a, b in zip(got, leaves(want)))
+        del want
+        row = {"mode": mode, "staleness": stale, "kernel_launches": launched,
+               "carry_identical_to_plain": identical}
+        if not identical:  # tell a nondeterministic local step from the exchange
+            again = step(carry, batch, TRAIN_LR)
+            row["kernel_path_repeat_identical"] = all(
+                same_bits(a, b.cpu()) for a, b in zip(got, leaves(again)))
+            del again
+        rows.append(row)
+        del got
+        if launched != {kernel: 1} or not identical:
+            emit({"phase": "train_check", "failed": row})
+            raise AssertionError(f"train_check {mode}: {row}")
+    del carry, params0, strategy
+    torch.cuda.empty_cache()
+    emit({"phase": "train_check", "arch": ARCH, "layers": 1, "dtype": "float32",
+          "replicas": TRAIN_R, "steps": rows})
+
+
+def phase_train():
+    """run_training with DASO at llama3.2-1b's published widths."""
+    cfg = train_config(TRAIN_LAYERS)
+    params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = sum(x.numel() for x in leaves(params0))
+    data = replica_data(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, seed=0))
+    loop_cfg = TrainLoopConfig(strategy="daso", n_steps=TRAIN_STEPS, n_replicas=TRAIN_R,
+                               local_world=TRAIN_LOCAL_WORLD, b_max=TRAIN_B_MAX,
+                               lr=TRAIN_LR, device="cuda")
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = run_training(make_lm_loss(cfg), params0, data, loop_cfg,
+                       optimizer=sgd(momentum=0.9, weight_decay=1e-4), log=None)
+    sync()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    modes = [h[1] for h in res.controller.history]
+    n_receive = sum(m in ("receive", "send_receive") for m in modes)
+    n_blocking = modes.count("blocking")
+    # one floating arena (all params f32): one K2 launch per receive step,
+    # one K3 launch per blocking step
+    want = {"flash_attention_fwd": 0, "eq1_merge": n_receive,
+            "bf16_pack": n_blocking, "bf16_unpack": 0}
+    losses = res.losses
+    by_mode = {}
+    for m, sec in zip(modes, res.step_seconds):
+        by_mode.setdefault(m, []).append(1e3 * sec)
+    row = {"phase": "train", "arch": ARCH, "strategy": "daso", "entry": "run_training",
+           "widths": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                      "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+                      "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                      "tie_embeddings": cfg.tie_embeddings},
+           "reduced": {"n_layers": [get_config(ARCH).n_layers, TRAIN_LAYERS],
+                       "why": "memory: the carry holds params, momentum and the "
+                              "in-flight buffer for 4 replicas in f32"},
+           "dtype": "float32", "params_per_replica": n_params,
+           "replicas": TRAIN_R, "local_world": TRAIN_LOCAL_WORLD, "b_max": TRAIN_B_MAX,
+           "lr": TRAIN_LR, "optimizer": "sgd(0.9, 1e-4)", "seq_len": TRAIN_SEQ,
+           "seqs_per_replica": TRAIN_PER, "steps": TRAIN_STEPS,
+           "mode_counts": {m: modes.count(m) for m in sorted(set(modes))},
+           "launches": launches, "launches_expected": want,
+           "sync_fraction": res.sync_fraction,
+           "step_ms_median": {m: statistics.median(v) for m, v in by_mode.items()},
+           "step_ms_all": by_mode,
+           "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+           "max_memory_allocated": peak}
+    if launches != want:
+        emit({**row, "failed": "launch counts"})
+        raise AssertionError(f"train launches {launches} != {want}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        emit({**row, "failed": "loss"})
+        raise AssertionError(f"train losses {losses[0]} -> {losses[-1]}")
+    emit(row)
+    params_r, opt_r, _ = res.carry
+    del res, params0
+    torch.cuda.empty_cache()
+    return {"carry": (params_r, opt_r), "launches": launches}
+
+
+def max_abs_err(a, b, chunk=1 << 27):
+    """Largest |a - b| in f32 (0 where the values are equal, infinities
+    included), in chunks so that a full arena needs no f32 copy."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    worst = 0.0
+    for i in range(0, a.numel(), chunk):
+        x, y = a[i:i + chunk].float(), b[i:i + chunk].float()
+        d = torch.where(x == y, 0.0, (x - y).abs())
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def phase_arena(trained):
+    """The final carry's parameters and momentum as training arenas (R, N)
+    f32, every replica's row as the carry holds it. The cool-down's
+    blocking syncs leave the parameter rows equal, while each replica's
+    momentum row is its own. A wire_roundtrip of the parameter arena (K3 then
+    K4, counted), and K2, K3, K4 held bit-exact against their plain
+    versions on both arenas, with the largest |kernel - plain|. The carry
+    is popped from `trained`, so its memory goes once it is packed."""
+    arenas = {}
+    for name, tree in zip(("params", "momentum"), trained.pop("carry")):
+        arenas[name] = flatbuf.pack(tree, flatbuf.build_layout(tree, batch_dims=1))["float32"]
+    del tree
+    torch.cuda.empty_cache()
+    rows_differ = {name: bool((a[1:] != a[:1]).any()) for name, a in arenas.items()}
+    sync()
+    zero_counts()
+    stale = flatbuf.wire_roundtrip(arenas["params"], "bf16")
+    sync()
+    launches = counts()
+    if launches["bf16_pack"] != 1 or launches["bf16_unpack"] != 1:
+        raise AssertionError(f"wire_roundtrip launches {launches}")
+    kw = dict(staleness=1, global_world=TRAIN_R * TRAIN_LOCAL_WORLD)
+    checks, errs = {}, {k["name"]: 0.0 for k in KERNELS[1:]}
+
+    def check(kernel, arena_name, got, want):
+        checks[f"{kernel}/{arena_name}"] = same_bits(got, want)
+        errs[kernel] = max(errs[kernel], max_abs_err(got, want))
+
+    for name, arena in arenas.items():
+        old = stale if name == "params" else flatbuf.wire_roundtrip(arena, "bf16")
+        check("eq1_merge", name, ops.eq1_merge(arena, old, **kw),
+              ref.eq1_merge_ref(arena, old, **kw))
+        del old
+        wire = ops.bf16_pack(arena)
+        check("bf16_pack", name, wire, ref.bf16_pack_ref(arena))
+        check("bf16_unpack", name, ops.bf16_unpack(wire), ref.bf16_unpack_ref(wire))
+    arena = arenas.pop("params")
+    del arenas
+    wire = ops.bf16_pack(arena)
+    sync()
+    emit({"phase": "arena", "shape": list(arena.shape), "dtype": "float32",
+          "rows_differ": rows_differ, "wire_roundtrip_launches": launches,
+          "bit_exact": checks, "max_abs_err": errs})
+    if not all(checks.values()):
+        raise AssertionError(f"training-arena checks {checks}")
+    return arena, stale, wire, launches, checks, errs
+
+
+def bytes_bound(nbytes):
+    return 1e3 * nbytes / PEAK_BYTES, "bytes"
+
+
+def phase_timing(check_rows, serve_launches, train_launches, arena_parts):
+    """Times of each kernel, its plain version and the library call (K1 at
+    the serving shape, K2-K4 at the training arena), and the kernels line."""
     q, k, v = qkv(4, 32, 8, PROMPT, PROMPT, 64, torch.bfloat16, seed=7)
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 50)
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v), 10)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 50)
     bound_ms, bound_by = attention_bound_ms(q, k, v, 0)
+    del q, k, v
     serve_row = next(r for r in check_rows if r["case"] == "serve_shape_bf16")
     fa = KERNELS[0]
-    emit({"kernels": [{
+    lines = [{
         "name": fa["name"], "route": fa["route"], "source": fa["source"],
-        "replaces": fa["replaces"], "launches": launches[fa["name"]],
+        "replaces": fa["replaces"], "launches": serve_launches[fa["name"]],
         "max_abs_err": serve_row["max_abs_err"], "tolerance": serve_row["tolerance"],
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
-        "shape": [4, 32, 8, PROMPT, PROMPT, 64], "dtype": "bfloat16"}]})
+        "shape": [4, 32, 8, PROMPT, PROMPT, 64], "dtype": "bfloat16",
+        "path": "serve prefill"}]
+
+    arena, stale, wire, roundtrip_launches, checks, errs = arena_parts
+    n = arena.numel()
+    s2, p = 2.0, float(TRAIN_R * TRAIN_LOCAL_WORLD)
+    kw = dict(staleness=1, global_world=TRAIN_R * TRAIN_LOCAL_WORLD)
+    timed = {
+        "eq1_merge": (lambda: ops.eq1_merge(arena, stale, **kw),
+                      lambda: ref.eq1_merge_ref(arena, stale, **kw),
+                      lambda: torch.lerp(arena, stale, p / (s2 + p)),
+                      n * 12, train_launches["eq1_merge"], "train (receive steps)"),
+        "bf16_pack": (lambda: ops.bf16_pack(arena), lambda: ref.bf16_pack_ref(arena),
+                      lambda: arena.to(torch.bfloat16),
+                      n * 6, train_launches["bf16_pack"], "train (blocking steps)"),
+        "bf16_unpack": (lambda: ops.bf16_unpack(wire), lambda: ref.bf16_unpack_ref(wire),
+                        lambda: wire.to(torch.float32),
+                        n * 6, roundtrip_launches["bf16_unpack"],
+                        "flatbuf.wire_roundtrip of the training arena"),
+    }
+    for kern in KERNELS[1:]:
+        kernel_fn, plain_fn, library_fn, nbytes, launches, path = timed[kern["name"]]
+        bound, by = bytes_bound(nbytes)
+        lines.append({
+            "name": kern["name"], "route": kern["route"], "source": kern["source"],
+            "replaces": kern["replaces"], "launches": launches,
+            "max_abs_err": errs[kern["name"]],
+            "bit_exact": all(v for k, v in checks.items()
+                             if k.startswith(kern["name"] + "/")),
+            "ms": cuda_ms(kernel_fn, 10, warmup=2),
+            "plain_ms": cuda_ms(plain_fn, 5, warmup=1), "bound_ms": bound,
+            "bound_by": by, "library_ms": cuda_ms(library_fn, 10, warmup=2),
+            "bytes": nbytes, "shape": list(arena.shape), "path": path})
+    emit({"kernels": lines})
 
 
 def card_line():
@@ -291,8 +650,12 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     rows = phase_check()
-    launches = phase_serve()
-    phase_timing(rows, launches)
+    phase_comm_check()
+    serve_launches = phase_serve()
+    phase_train_check()
+    trained = phase_train()
+    arena_parts = phase_arena(trained)
+    phase_timing(rows, serve_launches, trained["launches"], arena_parts)
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

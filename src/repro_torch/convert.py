@@ -27,12 +27,16 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_jax(tree, device="cpu"):
-    """JAX LM params (numpy leaves) -> the port's params dict on `device`."""
+def params_from_jax(tree, device="cpu", *, batch_dims: int = 0):
+    """JAX LM params (numpy leaves) -> the port's params dict on `device`.
+    `batch_dims` leading axes stay on every leaf (1 for a DASO replicated
+    tree, whose leaves are (R, ...); the stacked layer axis follows
+    them)."""
     groups = tree["blocks"]
     plen = len(groups)
-    n_full = len(np.asarray(groups[0]["attn"]["wq"])) if plen else 0
-    layers = [_map(groups[j], lambda a, r=r: _tensor(np.asarray(a)[r], device))
+    n_full = np.shape(groups[0]["attn"]["wq"])[batch_dims] if plen else 0
+    lead = (slice(None),) * batch_dims
+    layers = [_map(groups[j], lambda a, r=r: _tensor(np.asarray(a)[lead + (r,)], device))
               for r in range(n_full) for j in range(plen)]
     layers += [_map(block, lambda a: _tensor(a, device)) for block in tree["rem"]]
     out = {"embed": _map(tree["embed"], lambda a: _tensor(a, device)),
@@ -41,3 +45,18 @@ def params_from_jax(tree, device="cpu"):
     if "unembed" in tree:
         out["unembed"] = _map(tree["unembed"], lambda a: _tensor(a, device))
     return out
+
+
+def state_from_jax(tree, device="cpu", *, batch_dims: int = 0):
+    """Any JAX tree that holds LM params (a DASO carry, an optimizer state)
+    -> the port's: each LM params subtree (a dict with "blocks") through
+    `params_from_jax`, every other leaf as a tensor."""
+    if isinstance(tree, dict) and "blocks" in tree:
+        return params_from_jax(tree, device, batch_dims=batch_dims)
+    if isinstance(tree, dict):
+        return {k: state_from_jax(v, device, batch_dims=batch_dims)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(state_from_jax(v, device, batch_dims=batch_dims)
+                          for v in tree)
+    return _tensor(tree, device)

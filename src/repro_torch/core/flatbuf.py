@@ -1,0 +1,174 @@
+"""Flat-buffer parameter arenas for the fused global exchange
+(`repro/core/flatbuf.py`).
+
+A tree of tensors is packed into ONE contiguous arena per leaf dtype with a
+static offset table, so an exchange is one reduction and one elementwise
+pass over one large buffer, whatever the leaf count:
+
+  * leaves are grouped by dtype (one arena per dtype), so `pack` / `unpack`
+    is a bit-exact roundtrip;
+  * `batch_dims` leading axes (the DASO replica axis R) stay on the arena: a
+    leaf (R, *s) fills an (R, prod(s)) slice;
+  * leaves are laid out in the JAX package's flatten order (`repro_torch
+    .tree`), so an arena of a tree equals the reference's arena of it;
+  * `unpack` returns views of the arena: no copy.
+
+Wire codecs (`encode_wire` / `decode_wire`) implement the transfer tiers:
+`f32` (identity) and `bf16` (the paper's 16-bit packaging). The bf16 casts
+go through kernels K3 / K4 (`kernels/ops.py`, which takes their plain
+versions for CPU tensors). The `int8` tier waits for kernels K5 / K6
+(ROADMAP item 12).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.tree import flatten, unflatten
+
+WIRE_FORMATS = ("f32", "bf16", "int8")
+
+
+@dataclass(frozen=True)
+class LeafSlot:
+    """Static placement of one leaf inside its dtype arena."""
+    arena: str              # arena key = dtype name, e.g. "float32"
+    offset: int             # element offset into the arena's packed axis
+    size: int               # number of elements (excluding batch dims)
+    shape: Tuple[int, ...]  # per-item shape (excluding batch dims)
+    dtype: torch.dtype
+
+
+@dataclass(frozen=True)
+class ArenaLayout:
+    """Static offset table of a tree: its treedef, one `LeafSlot` per leaf
+    (in flatten order) and the packed size of each arena."""
+    treedef: Any
+    slots: Tuple[LeafSlot, ...]
+    arena_sizes: Dict[str, int]
+    batch_shape: Tuple[int, ...]
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The arena key of a dtype, as the reference names it ("float32")."""
+    return str(dtype).removeprefix("torch.")
+
+
+def build_layout(tree, *, batch_dims: int = 0) -> ArenaLayout:
+    """The static arena layout of `tree`. All leaves share their first
+    `batch_dims` axes (the DASO replica axis uses batch_dims=1)."""
+    leaves, treedef = flatten(tree)
+    if not leaves:
+        raise ValueError("cannot build an arena layout for an empty tree")
+    batch_shape = tuple(leaves[0].shape[:batch_dims])
+    offsets: Dict[str, int] = {}
+    slots = []
+    for x in leaves:
+        if tuple(x.shape[:batch_dims]) != batch_shape:
+            raise ValueError(f"leaf batch shape {tuple(x.shape[:batch_dims])} != "
+                             f"{batch_shape}; all leaves must share the leading "
+                             f"{batch_dims} axes")
+        key = dtype_name(x.dtype)
+        shape = tuple(x.shape[batch_dims:])
+        size = math.prod(shape)
+        off = offsets.get(key, 0)
+        slots.append(LeafSlot(arena=key, offset=off, size=size, shape=shape,
+                              dtype=x.dtype))
+        offsets[key] = off + size
+    return ArenaLayout(treedef=treedef, slots=tuple(slots),
+                       arena_sizes=dict(offsets), batch_shape=batch_shape)
+
+
+def pack(tree, layout: ArenaLayout) -> Dict[str, torch.Tensor]:
+    """{arena key: (*batch, N) tensor}, one copy of every leaf, bit-exact."""
+    leaves, _ = flatten(tree)
+    batch = layout.batch_shape
+    parts: Dict[str, list] = {}
+    for x, slot in zip(leaves, layout.slots):
+        parts.setdefault(slot.arena, []).append(x.reshape(batch + (slot.size,)))
+    return {k: (v[0].contiguous() if len(v) == 1 else torch.cat(v, dim=len(batch)))
+            for k, v in parts.items()}
+
+
+def unpack(arenas: Dict[str, torch.Tensor], layout: ArenaLayout):
+    """Exact inverse of `pack`: each leaf a view into its arena."""
+    nb = len(layout.batch_shape)
+    leaves = []
+    for slot in layout.slots:
+        arena = arenas[slot.arena]
+        piece = arena.narrow(nb, slot.offset, slot.size)
+        leaves.append(piece.view(arena.shape[:nb] + slot.shape))
+    return unflatten(layout.treedef, leaves)
+
+
+def chain_axis0_sum(w: torch.Tensor) -> torch.Tensor:
+    """Order-fixed sum over the leading axis, ``w[0] + w[1] + ...`` in w's
+    dtype, a rounding after every add."""
+    acc = w[0]
+    for i in range(1, w.shape[0]):
+        acc = acc + w[i]
+    return acc
+
+
+def masked_axis0_mean(arena: torch.Tensor) -> torch.Tensor:
+    """Mean over the leading replica axis, kept as a (1, ...) tensor, in
+    the arena's dtype: the sum of the rows as a chain of adds in replica
+    order, times 1/R rounded to the arena's dtype. (The reference's mask
+    argument, for elastic membership, comes with ROADMAP item 15.)
+
+    Both of the reference's tiers reduce so on the CPU: its default
+    `lax.reduce` over axis 0 adds the rows in order, a bf16 arena in bf16
+    after every add, and its deterministic tier is this chain
+    (`chain_axis0_sum`). A `torch.sum` of a bf16 tensor accumulates in f32
+    and differs."""
+    scale = float(torch.tensor(1.0 / arena.shape[0], dtype=arena.dtype))
+    return (chain_axis0_sum(arena) * scale)[None]
+
+
+# -- wire codecs over an arena -------------------------------------------------
+
+def _check_wire_format(wire_format: str) -> str:
+    if wire_format not in WIRE_FORMATS:
+        raise ValueError(f"unknown wire_format {wire_format!r}; "
+                         f"expected one of {WIRE_FORMATS}")
+    if wire_format == "int8":
+        raise NotImplementedError("the int8 wire tier waits for kernels K5/K6 "
+                                  "(ROADMAP item 12)")
+    return wire_format
+
+
+def encode_wire(arena: torch.Tensor, wire_format: str) -> torch.Tensor:
+    """The payload that crosses the wire: the arena itself for ``f32``, a
+    bf16 copy for ``bf16`` (K3)."""
+    _check_wire_format(wire_format)
+    if wire_format == "f32":
+        return arena
+    return ops.bf16_pack(arena)
+
+
+def decode_wire(wire: torch.Tensor, wire_format: str, out_dtype) -> torch.Tensor:
+    """A wire payload back in `out_dtype` (K4 for ``bf16``)."""
+    _check_wire_format(wire_format)
+    if wire_format == "f32":
+        return wire.to(out_dtype)
+    return ops.bf16_unpack(wire, out_dtype)
+
+
+def wire_roundtrip(arena: torch.Tensor, wire_format: str) -> torch.Tensor:
+    """encode -> wire -> decode, back in the arena's own dtype: what a
+    one-way transfer does to the values."""
+    return decode_wire(encode_wire(arena, wire_format), wire_format, arena.dtype)
+
+
+def tree_wire_roundtrip(tree, wire_format: str, *, batch_dims: int = 0):
+    """Pack, roundtrip every floating arena through the wire format, unpack.
+    Other arenas cross at their own dtype."""
+    layout = build_layout(tree, batch_dims=batch_dims)
+    arenas = pack(tree, layout)
+    out = {k: wire_roundtrip(a, wire_format) if a.is_floating_point() else a
+           for k, a in arenas.items()}
+    return unpack(out, layout)

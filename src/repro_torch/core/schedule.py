@@ -1,0 +1,209 @@
+"""Host-side DASO controller (`repro/core/schedule.py::DasoController`):
+phases (warm-up / cycling / cool-down) and the selective B/W schedule of
+paper §3, which drives the outermost level.
+
+  * B (batches between global syncs) starts at b_max (the paper uses 4);
+  * W (batches to wait for the exchange) starts at max(1, B/4);
+  * on every training-loss plateau, B and W are halved (min 1);
+  * when B == W == 1 and the loss plateaus again, both reset to their
+    initial values, until cool-down.
+
+Pure host logic: given the step index it returns which step variant to run
+and consumes windowed loss means for plateau detection. Its state_dict has
+the reference's keys, so the two packages' schedules compare directly. The
+N-level controller, `retune`, the `notify_*` hooks and the overlap schedule
+are later ports (ROADMAP items 12, 13, 15, 18).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
+
+from repro_torch.core.daso import DasoConfig
+
+
+class Mode:
+    LOCAL = "local"
+    SEND = "send"
+    RECEIVE = "receive"
+    SEND_RECEIVE = "send_receive"
+    BLOCKING = "blocking"
+    HARD_AVG = "hard_avg"
+
+
+# outermost-level actions that touch the global (cross-node) network
+_GLOBAL_SYNCS = (Mode.SEND, Mode.SEND_RECEIVE, Mode.BLOCKING)
+
+
+def split_mode(mode: str) -> Tuple[str, Tuple[str, ...]]:
+    """Split a (possibly hierarchical) mode token into the outermost-level
+    action and the inner levels syncing that step: ``"send+host"`` ->
+    ``("send", ("host",))``, ``"local"`` -> ``("local", ())``."""
+    outer, _, inner = mode.partition("+")
+    return outer, tuple(inner.split(",")) if inner else ()
+
+
+@dataclass
+class DasoController:
+    cfg: DasoConfig
+    loss_window: int = 50
+    _b: int = field(init=False)
+    _w: int = field(init=False)
+    _last_send: int = field(init=False, default=-(10 ** 9))
+    _inflight_since: Optional[int] = field(init=False, default=None)
+    _recv_staleness: int = field(init=False, default=1)
+    # state of the reference's overlap schedule and DCN hooks, kept at
+    # their defaults so the state_dict has the reference's keys
+    _ov_last: Optional[int] = field(init=False, default=None)
+    _best: float = field(init=False, default=float("inf"))
+    _since_improve: int = field(init=False, default=0)
+    _win_acc: List[float] = field(init=False, default_factory=list)
+    _dcn_scale: float = field(init=False, default=1.0)
+    history: List[Tuple[int, str, int, int]] = field(init=False,
+                                                     default_factory=list)
+    events: List[Tuple[int, str, float]] = field(init=False,
+                                                 default_factory=list)
+
+    def __post_init__(self):
+        self._b = max(1, self.cfg.b_max)
+        self._w = max(1, self._b // 4)
+
+    # -- phase logic -------------------------------------------------------
+    def phase(self, step: int) -> str:
+        """"warmup" for the first `warmup_steps`, "cooldown" for the last
+        `cooldown_steps` (when `total_steps` is known), else "cycling".
+        Pure: safe to call while planning ahead."""
+        if step < self.cfg.warmup_steps:
+            return "warmup"
+        if (self.cfg.total_steps and self.cfg.cooldown_steps
+                and step >= self.cfg.total_steps - self.cfg.cooldown_steps):
+            return "cooldown"
+        return "cycling"
+
+    @property
+    def b(self) -> int:
+        return self._b
+
+    @property
+    def w(self) -> int:
+        return self._w
+
+    def mode_for_step(self, step: int) -> Tuple[str, int]:
+        """Consume one decision: (mode, staleness S) for `step`. Call exactly
+        once per step, in step order. S is the number of batches waited
+        since the matching send (it feeds Eq. (1) on receive steps)."""
+        if self.phase(step) in ("warmup", "cooldown"):
+            # a blocking step completes any dangling exchange trivially
+            self._inflight_since = None
+            self._ov_last = None
+            mode, stale = Mode.BLOCKING, 1
+        else:
+            recv = (self._inflight_since is not None
+                    and step - self._inflight_since >= self._w)
+            send = step - self._last_send >= self._b
+            if recv:
+                stale = step - self._inflight_since
+                self._inflight_since = None
+            else:
+                stale = 1
+            if send and self._inflight_since is not None:
+                send = False  # previous exchange still in flight: skip
+            if send:
+                self._last_send = step
+                self._inflight_since = step
+            mode = {(False, False): Mode.LOCAL,
+                    (True, False): Mode.SEND,
+                    (False, True): Mode.RECEIVE,
+                    (True, True): Mode.SEND_RECEIVE}[(send, recv)]
+        self.history.append((step, mode, self._b, self._w))
+        return mode, stale
+
+    # -- macro-cycle planning ----------------------------------------------
+    def window_remaining(self) -> int:
+        """Steps until the current plateau-detection window fills."""
+        return self.loss_window - len(self._win_acc)
+
+    def _would_send(self, step: int) -> bool:
+        """Would `mode_for_step(step)` start a new send? Does not consume."""
+        if self.phase(step) != "cycling":
+            return False
+        return (step - self._last_send >= self._b
+                and self._inflight_since is None)
+
+    def plan_cycle(self, start_step: int,
+                   max_len: int = 32) -> Tuple[Tuple[str, int], ...]:
+        """The (mode, staleness) sequence of one macro-cycle from
+        `start_step`, consumed from the schedule in order. The cycle is cut
+        at `max_len` steps, where the plateau window fills, at a phase
+        change, or before the next send, so no loss feedback can change the
+        schedule inside it: a B=4 / W=1 cycle is
+        ``(send, receive@S, local, local)``."""
+        n_max = max(1, min(max_len, self.window_remaining()))
+        phase0 = self.phase(start_step)
+        shape = []
+        while len(shape) < n_max:
+            t = start_step + len(shape)
+            if shape:
+                if self.phase(t) != phase0:
+                    break
+                if phase0 == "cycling" and self._would_send(t):
+                    break
+            shape.append(self.mode_for_step(t))
+        return tuple(shape)
+
+    # -- plateau-driven B/W schedule ----------------------------------------
+    def observe_loss(self, loss: float) -> None:
+        """Feed one training loss, in step order. When a window of
+        `loss_window` fills, its mean is compared with the best window so
+        far; `plateau_patience` windows without improvement halve B and W,
+        or reset them once both are 1."""
+        self._win_acc.append(float(loss))
+        if len(self._win_acc) < self.loss_window:
+            return
+        mean = sum(self._win_acc) / len(self._win_acc)
+        self._win_acc.clear()
+        if mean < self._best * (1.0 - self.cfg.plateau_threshold):
+            self._best = mean
+            self._since_improve = 0
+            return
+        self._since_improve += 1
+        if self._since_improve >= self.cfg.plateau_patience:
+            self._since_improve = 0
+            if self._b == 1 and self._w == 1:
+                self._b = max(1, self.cfg.b_max)          # paper: reset
+                self._w = max(1, self._b // 4)
+            else:
+                self._b = max(1, self._b // 2)             # paper: halve
+                self._w = max(1, self._w // 2)
+
+    # -- checkpoint state --------------------------------------------------
+    _STATE_FIELDS = ("_b", "_w", "_last_send", "_inflight_since",
+                     "_recv_staleness", "_ov_last", "_best",
+                     "_since_improve", "_dcn_scale")
+
+    def state_dict(self) -> dict:
+        """Full mutable state, JSON-serializable, with the reference's
+        keys; `load_state_dict` of it resumes the schedule exactly."""
+        sd = {k: getattr(self, k) for k in self._STATE_FIELDS}
+        sd["win_acc"] = list(self._win_acc)
+        sd["history"] = [list(h) for h in self.history]
+        sd["events"] = [list(e) for e in self.events]
+        sd["loss_window"] = self.loss_window
+        return sd
+
+    def load_state_dict(self, sd: dict) -> None:
+        for k in self._STATE_FIELDS:
+            setattr(self, k, sd.get(k, getattr(self, k)))
+        self._win_acc = [float(x) for x in sd["win_acc"]]
+        self.history = [tuple(h) for h in sd["history"]]
+        self.events = [tuple(e) for e in sd.get("events", [])]
+        self.loss_window = int(sd["loss_window"])
+
+    # -- audit -------------------------------------------------------------
+    def global_sync_fraction(self) -> float:
+        """Fraction of steps that touched the global network."""
+        if not self.history:
+            return 0.0
+        touched = sum(1 for (_, m, _, _) in self.history
+                      if split_mode(m)[0] in _GLOBAL_SYNCS)
+        return touched / len(self.history)

@@ -1,0 +1,57 @@
+"""Per-step training loop (`repro/core/simulator.py`): N virtual nodes
+as the leading replica axis on one device, one step dispatched at a time,
+with the strategy's mode decision and loss feedback interleaved exactly as
+on the reference's host loop."""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.core.schedule import DasoController
+
+
+@dataclass
+class SimResult:
+    losses: List[float]
+    metrics: List[Dict[str, float]]
+    params: object
+    sync_fraction: float
+    controller: Optional[DasoController] = None
+    # host seconds per step, batch made before the clock starts; each ends
+    # in the loss fetch, which waits for the device, so on a card this is
+    # the step's time
+    step_seconds: List[float] = field(default_factory=list)
+    # the final carry, e.g. the daso strategy's (params_R, opt_R, inflight)
+    # with every replica's row; `params` is the one model it finalizes to
+    carry: object = None
+
+    @property
+    def final_loss(self) -> float:
+        k = max(1, len(self.losses) // 10)
+        return float(np.mean(self.losses[-k:]))
+
+
+def run_per_step_training(strategy, params0, data_fn: Callable,
+                          lr_fn: Callable, n_steps: int) -> SimResult:
+    """One step variant per training step, modes decided step by step
+    (`strategy.next_mode`), each loss fed back (`strategy.observe`)."""
+    carry = strategy.init_carry(params0)
+    losses, metrics_log, seconds = [], [], []
+    for step in range(n_steps):
+        batch, lr = data_fn(step), lr_fn(step)
+        t0 = time.perf_counter()
+        mode, stale = strategy.next_mode(step)
+        carry, m = strategy.step_fn(mode, stale)(carry, batch, lr)
+        loss = float(m["loss"])
+        losses.append(loss)
+        metrics_log.append({k: float(v) for k, v in m.items() if v.dim() == 0})
+        strategy.observe([loss])
+        seconds.append(time.perf_counter() - t0)
+    return SimResult(losses=losses, metrics=metrics_log,
+                     params=strategy.finalize_params(carry),
+                     sync_fraction=strategy.sync_fraction(),
+                     controller=strategy.controller, step_seconds=seconds,
+                     carry=carry)

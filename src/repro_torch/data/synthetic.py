@@ -1,0 +1,62 @@
+"""Deterministic synthetic token streams (the JAX package's
+`repro/data/synthetic.py::SyntheticLM`, same numpy generator, so both
+packages train on the same tokens): a Zipf unigram prior, first-order
+Markov chains and induction-style copies, so cross-entropy falls during
+training. Batches are int32 tensors on the device the caller asks for."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+@dataclass
+class SyntheticLM:
+    vocab_size: int
+    seq_len: int
+    seed: int = 0
+    n_states: int = 64          # Markov states
+    copy_prob: float = 0.25     # induction pattern density
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        V, M = self.vocab_size, min(self.n_states, self.vocab_size)
+        # sparse-ish Markov transition over M frequent tokens
+        trans = rng.dirichlet(np.full(M, 0.3), size=M).astype(np.float32)
+        self._trans_cum = np.cumsum(trans, axis=1)
+        # Zipf tail over the rest of the vocab
+        ranks = np.arange(1, V + 1)
+        zipf = 1.0 / ranks ** 1.2
+        self._zipf_cum = np.cumsum(zipf / zipf.sum()).astype(np.float64)
+        self._M = M
+
+    def batch(self, batch_size: int, step: int, device="cpu"):
+        """Returns dict(tokens (B,S) int32, labels (B,S) int32) on `device`.
+        labels are next-token targets (shifted), last position ignored
+        (-1)."""
+        rng = np.random.default_rng((self.seed, step))
+        B, S, M = batch_size, self.seq_len, self._M
+        toks = np.empty((B, S + 1), np.int64)
+        state = rng.integers(0, M, size=B)
+        toks[:, 0] = state
+        u = rng.random((B, S))
+        mix = rng.random((B, S))
+        zipf_draw = np.searchsorted(self._zipf_cum, rng.random((B, S)))
+        for t in range(1, S + 1):
+            nxt = np.array([np.searchsorted(self._trans_cum[s], x)
+                            for s, x in zip(state, u[:, t - 1])])
+            nxt = np.minimum(nxt, M - 1)
+            # occasionally jump to a zipf token (keeps full vocab in play)
+            jump = mix[:, t - 1] < 0.15
+            nxt = np.where(jump, zipf_draw[:, t - 1], nxt)
+            # induction: with copy_prob, repeat the token seen 8 steps ago
+            if t > 8:
+                copy = mix[:, t - 1] > 1.0 - self.copy_prob
+                nxt = np.where(copy, toks[:, t - 8], nxt)
+            state = np.minimum(nxt, M - 1)
+            toks[:, t] = nxt
+        tokens = toks[:, :-1].astype(np.int32)
+        labels = toks[:, 1:].astype(np.int32)
+        return {"tokens": torch.from_numpy(tokens).to(device),
+                "labels": torch.from_numpy(labels).to(device)}

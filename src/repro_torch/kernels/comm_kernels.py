@@ -1,0 +1,128 @@
+"""Bindings of the hand-written exchange kernels (`csrc/comm_kernels.cu`),
+the ports of the Pallas TPU kernels in `repro/kernels/comm_kernels.py`:
+
+  eq1_merge_fwd    K2, `_eq1_kernel`: paper Eq. (1) over an arena
+  bf16_pack_fwd    K3, `_cast_kernel` into bf16: arena -> bf16 wire
+  bf16_unpack_fwd  K4, `_cast_kernel` out of bf16: bf16 wire -> arena dtype
+
+Each takes contiguous tensors of any shape and treats them as one flat
+range. `check_*` validate on every device, so the CPU path accepts exactly
+what the card path accepts; the `*_fwd` launchers take CUDA tensors only,
+launch on the current stream, raise on a non-zero cudaError and count
+their launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+ARENA_DTYPES = (torch.float32, torch.bfloat16)
+_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def eq1_weights(staleness: int, global_world, extra_staleness: int = 0):
+    """(s2, p, denom) of Eq. (1) as the reference rounds them: s2 = 2(S+E)
+    and p = P as f32 multipliers, denom = s2 + p summed in double and
+    rounded to f32 once (`repro/kernels/ref.py::eq1_merge_ref`)."""
+    s2 = 2.0 * (staleness + extra_staleness)
+    p = float(global_world)
+    return s2, p, float(np.float32(s2 + p))
+
+
+def _check_tensors(name: str, *tensors) -> None:
+    first = tensors[0]
+    for t in tensors:
+        if t.device != first.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {first.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: input is not contiguous")
+
+
+def check_eq1(local, stale) -> None:
+    if local.shape != stale.shape or local.dtype != stale.dtype:
+        raise ValueError(f"eq1_merge: local {tuple(local.shape)} {local.dtype} and "
+                         f"stale {tuple(stale.shape)} {stale.dtype} differ")
+    if local.dtype not in ARENA_DTYPES:
+        raise TypeError(f"eq1_merge: arena dtype {local.dtype} not in {ARENA_DTYPES}")
+    _check_tensors("eq1_merge", local, stale)
+
+
+def check_pack(x) -> None:
+    if x.dtype not in ARENA_DTYPES:
+        raise TypeError(f"bf16_pack: arena dtype {x.dtype} not in {ARENA_DTYPES}")
+    _check_tensors("bf16_pack", x)
+
+
+def check_unpack(x, out_dtype) -> None:
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"bf16_unpack: wire dtype {x.dtype}, need torch.bfloat16")
+    if out_dtype not in ARENA_DTYPES:
+        raise TypeError(f"bf16_unpack: out dtype {out_dtype} not in {ARENA_DTYPES}")
+    _check_tensors("bf16_unpack", x)
+
+
+def _stream(t) -> int:
+    if t.device.type != "cuda":
+        raise ValueError(f"needs CUDA tensors, got {t.device}")
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+
+
+def eq1_merge_fwd(lib: ctypes.CDLL, local, stale, *, staleness: int,
+                  global_world, extra_staleness: int = 0) -> torch.Tensor:
+    """K2 on CUDA tensors already passed through `check_eq1`; returns a new
+    tensor of local's shape and dtype."""
+    stream = _stream(local)
+    out = torch.empty_like(local)
+    if local.numel():
+        fn = lib.eq1_merge
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int] + [
+            ctypes.c_float] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        s2, p, denom = eq1_weights(staleness, global_world, extra_staleness)
+        _raise_on("eq1_merge", fn(local.data_ptr(), stale.data_ptr(), out.data_ptr(),
+                                  local.numel(), _CODE[local.dtype], s2, p, denom,
+                                  stream))
+        eq1_merge_fwd.launches += 1
+    return out
+
+
+def bf16_pack_fwd(lib: ctypes.CDLL, x) -> torch.Tensor:
+    """K3 on a CUDA tensor already passed through `check_pack`."""
+    stream = _stream(x)
+    out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    if x.numel():
+        fn = lib.bf16_pack
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _raise_on("bf16_pack", fn(x.data_ptr(), out.data_ptr(), x.numel(),
+                                  _CODE[x.dtype], stream))
+        bf16_pack_fwd.launches += 1
+    return out
+
+
+def bf16_unpack_fwd(lib: ctypes.CDLL, x, out_dtype=torch.float32) -> torch.Tensor:
+    """K4 on a CUDA tensor already passed through `check_unpack`."""
+    stream = _stream(x)
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    if x.numel():
+        fn = lib.bf16_unpack
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _raise_on("bf16_unpack", fn(x.data_ptr(), out.data_ptr(), x.numel(),
+                                    _CODE[out_dtype], stream))
+        bf16_unpack_fwd.launches += 1
+    return out
+
+
+eq1_merge_fwd.launches = 0
+bf16_pack_fwd.launches = 0
+bf16_unpack_fwd.launches = 0

@@ -14,8 +14,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
+from repro_torch.kernels import comm_kernels as comm
 from repro_torch.kernels.flash_attention import check_inputs, flash_attention_fwd
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import (attention_ref, bf16_pack_ref, bf16_unpack_ref,
+                                     eq1_merge_ref)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -75,3 +79,40 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     return flash_attention_fwd(kernel_library("flash_attention_fwd"), q, k, v,
                                causal=causal, window=window)
+
+
+def _on_card(name: str, t) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return True
+
+
+def eq1_merge(local, stale, *, staleness: int, global_world,
+              extra_staleness: int = 0):
+    """Paper Eq. (1) over an arena of any shape: (2(S+E)·local + P·stale) /
+    (2(S+E) + P) in f32, output in local's dtype (K2)."""
+    comm.check_eq1(local, stale)
+    kw = dict(staleness=staleness, global_world=global_world,
+              extra_staleness=extra_staleness)
+    if not _on_card("eq1_merge", local):
+        return eq1_merge_ref(local, stale, **kw)
+    return comm.eq1_merge_fwd(kernel_library("comm_kernels"), local, stale, **kw)
+
+
+def bf16_pack(x):
+    """Arena -> bf16 wire buffer of the same shape (K3)."""
+    comm.check_pack(x)
+    if not _on_card("bf16_pack", x):
+        return bf16_pack_ref(x)
+    return comm.bf16_pack_fwd(kernel_library("comm_kernels"), x)
+
+
+def bf16_unpack(x, out_dtype=torch.float32):
+    """bf16 wire buffer -> arena in `out_dtype` (K4)."""
+    comm.check_unpack(x, out_dtype)
+    if not _on_card("bf16_unpack", x):
+        return bf16_unpack_ref(x, out_dtype)
+    return comm.bf16_unpack_fwd(kernel_library("comm_kernels"), x, out_dtype)

@@ -24,3 +24,26 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgql,bkld->bkgqd", p, v.float())
     return o.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def eq1_merge_ref(local, stale, *, staleness, global_world, extra_staleness=0):
+    """Paper Eq. (1) over an arena (or any tensor), as
+    `repro/kernels/ref.py::eq1_merge_ref` computes it: f32 math, result in
+    local's dtype, true division by s2 + p rounded to f32. The divisor is a
+    tensor on local's device: PyTorch's CUDA `div` by a Python scalar
+    multiplies by the reciprocal instead."""
+    s2 = 2.0 * (staleness + extra_staleness)
+    p = float(global_world)
+    denom = torch.tensor(s2 + p, dtype=torch.float32, device=local.device)
+    merged = (s2 * local.float() + p * stale.float()) / denom
+    return merged.to(local.dtype)
+
+
+def bf16_pack_ref(x):
+    """Arena -> bf16 wire buffer, round to nearest even."""
+    return x.to(torch.bfloat16)
+
+
+def bf16_unpack_ref(x, out_dtype=torch.float32):
+    """bf16 wire buffer -> arena in `out_dtype` (exact)."""
+    return x.to(out_dtype)

@@ -41,7 +41,7 @@ def _timed(fn, device):
     return 1e3 * (time.perf_counter() - t0)
 
 
-def _phase(name, fn, device, top, trace=None):
+def profile_phase(name, fn, device, top, trace=None):
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
@@ -101,8 +101,8 @@ def main(argv=None):
     with torch.inference_mode():
         run_prefill()  # warm-up: kernel build and load, library handles
         run_decode()
-        rows.append(_phase("prefill", run_prefill, device, args.top))
-        rows.append(_phase("decode", run_decode, device, args.top, args.trace))
+        rows.append(profile_phase("prefill", run_prefill, device, args.top))
+        rows.append(profile_phase("decode", run_decode, device, args.top, args.trace))
     for row in rows:
         row.update(arch=args.arch, full=args.full, batch=args.batch,
                    prompt=args.prompt_len, device=str(device))

@@ -1,0 +1,125 @@
+"""Training launcher of the port (`repro/launch/train.py`, its
+single-process flags): DASO (R virtual nodes as the replica axis on one
+device) or the sync baseline, on CUDA unless `--device cpu`.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --strategy daso --steps 300 --nodes 4 --b-max 4 [--tiny | --full] \\
+      [--device cpu]
+
+The reference's other flags (executor, checkpoints, fault plans, topology,
+overlap, tracing, the multi-process runtime) are not ported yet: each is
+refused with the ROADMAP item that will port it.
+"""
+import argparse
+import json
+import os
+import sys
+
+import torch
+
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.core.executor import list_strategies
+from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.device import resolve_device
+from repro_torch.models.lm import init_params
+from repro_torch.optim.schedules import warmup_linear_scaled
+from repro_torch.train.loop import TrainLoopConfig, run_training
+from repro_torch.train.step import make_lm_loss
+
+# flags of the reference launcher that wait for a later part of the port,
+# with the ROADMAP item that ports them
+LATER_FLAGS = {
+    "--max-cycle-len": 9, "--exchange-impl": 7, "--overlap": 12,
+    "--overlap-serial-exchange": 12, "--dispatch": 16, "--topology": 13,
+    "--ckpt": 11, "--ckpt-every": 11, "--resume": 11, "--fault-plan": 15,
+    "--autotune": 18, "--autotune-every": 18, "--trace-out": 17,
+    "--distributed": 16, "--coordinator": 16, "--procs": 16, "--proc-id": 16,
+}
+
+
+def refuse_later_flags(argv) -> None:
+    """Raise on any flag of `LATER_FLAGS`, naming its ROADMAP item."""
+    for tok in argv:
+        flag = tok.split("=", 1)[0]
+        if flag in LATER_FLAGS:
+            raise SystemExit(f"train: {flag} is not ported yet "
+                             f"(ROADMAP item {LATER_FLAGS[flag]})")
+
+
+def parse_args(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    refuse_later_flags(argv)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--strategy", default="daso", choices=list_strategies())
+    ap.add_argument("--executor", default="per_step", choices=["per_step", "macro"],
+                    help="per_step (the ported path); macro is ROADMAP item 9")
+    ap.add_argument("--wire-format", default=None, choices=["f32", "bf16", "int8"],
+                    help="wire tier of the global exchange; default derives "
+                         "bf16 / f32 per phase (int8 is ROADMAP item 12)")
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--nodes", type=int, default=4, help="DASO replicas (paper nodes)")
+    ap.add_argument("--local-world", type=int, default=4)
+    ap.add_argument("--b-max", type=int, default=4)
+    ap.add_argument("--per-node-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the parameter init and the synthetic data")
+    ap.add_argument("--full", action="store_true",
+                    help="the published config instead of the reduced one")
+    ap.add_argument("--tiny", action="store_true",
+                    help="shrink the reduced config to quickstart scale (2 "
+                         "layers, d_model 128, vocab 256)")
+    ap.add_argument("--metrics-out", default=None)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return ap.parse_args(argv)
+
+
+def build_config(args):
+    cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
+    if args.tiny:
+        if args.full:
+            raise SystemExit("train: --tiny and --full are mutually exclusive")
+        cfg = cfg.replace(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                          head_dim=32, d_ff=256, vocab_size=256)
+    return cfg
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = build_config(args)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params0 = init_params(cfg, gen, device)
+    src = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq_len, seed=args.seed)
+    R, per = args.nodes, args.per_node_batch
+
+    def daso_data(step):
+        b = src.batch(R * per, step, device=device)
+        return {k: v.reshape((R, per) + v.shape[1:]) for k, v in b.items()}
+
+    def sync_data(step):
+        return src.batch(R * per, step, device=device)
+
+    loop_cfg = TrainLoopConfig(
+        strategy=args.strategy, n_steps=args.steps, n_replicas=R,
+        local_world=args.local_world, b_max=args.b_max, lr=args.lr,
+        executor=args.executor, wire_format=args.wire_format, device=str(device))
+    lr_fn = warmup_linear_scaled(args.lr / (R * args.local_world), R * args.local_world,
+                                 max(1, args.steps // 10))
+    result = run_training(make_lm_loss(cfg), params0,
+                          sync_data if args.strategy == "sync" else daso_data,
+                          loop_cfg, lr_fn=lr_fn)
+    if args.metrics_out:
+        os.makedirs(os.path.dirname(args.metrics_out) or ".", exist_ok=True)
+        with open(args.metrics_out, "w") as f:
+            json.dump({"losses": result.losses, "sync_fraction": result.sync_fraction,
+                       "final_loss": result.final_loss, "seed": args.seed,
+                       "device": str(device)}, f)
+        print(f"[train] metrics -> {args.metrics_out}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -33,3 +33,15 @@ def embed_init(generator, shape, dtype, device):
 def silu_mlp(x, w1, w3, w2):
     """SwiGLU FFN. x (..., D); w1,w3 (D,F); w2 (F,D)."""
     return (F.silu(x @ w1) * (x @ w3)) @ w2
+
+
+def cross_entropy_loss(logits, labels):
+    """Mean token cross-entropy in f32; labels == -1 are ignored
+    (`repro/models/common.py::cross_entropy_loss`, whose one-hot
+    contraction picks the same logit as this gather)."""
+    valid = labels >= 0
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = torch.where(valid, lse - tgt, torch.zeros_like(lse))
+    return nll.sum() / valid.sum().clamp(min=1)

@@ -11,19 +11,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.models.lm import forward, init_cache
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks for
-    the CPU. Raises when CUDA is asked for and absent (no silent fallback)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "on the CPU")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 def make_prefill_fn(cfg: ArchConfig, *, cache_len: int,

@@ -1,0 +1,99 @@
+"""End-to-end training entry point (`repro/train/loop.py`): strategy selection
+through the registry (daso / sync), LR schedule, loss trace and the
+schedule's sync fraction.
+
+Runs on CUDA unless `device="cpu"`, and raises without CUDA. The per-step
+path (`executor="per_step"`, core/simulator.py) is the one ported; the
+reference holds its compiled macro-cycle path to the same numbers, and
+that executor is ROADMAP item 9.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+from repro_torch.core.daso import DasoConfig
+from repro_torch.core.executor import get_strategy, list_strategies, make_strategy
+from repro_torch.core.simulator import SimResult, run_per_step_training
+from repro_torch.device import resolve_device
+from repro_torch.optim.optimizers import Optimizer, sgd
+from repro_torch.optim.schedules import constant_lr
+from repro_torch.tree import leaves
+
+
+@dataclass
+class TrainLoopConfig:
+    strategy: str = "daso"            # registered name: daso | sync
+    n_steps: int = 200
+    n_replicas: int = 4               # paper "nodes"
+    local_world: int = 4              # paper GPUs per node
+    b_max: int = 4
+    warmup_frac: float = 0.1          # warm-up epochs as a step fraction
+    cooldown_frac: float = 0.1
+    lr: float = 0.05
+    loss_window: int = 20
+    executor: str = "per_step"        # "macro" is ROADMAP item 9
+    # wire tier of the global exchange: None derives bf16 / f32 per phase
+    wire_format: Optional[str] = None
+    exchange_impl: str = "fused"
+    overlap: str = "off"
+    device: str = "cuda"
+
+
+def build_strategy(loss_fn: Callable, cfg: TrainLoopConfig, optimizer: Optimizer):
+    """cfg.strategy through the registry, with its DasoConfig and
+    controller for the replica-axis strategies."""
+    if cfg.strategy not in list_strategies():
+        raise KeyError(f"unknown strategy {cfg.strategy!r}; "
+                       f"registered: {list_strategies()}")
+    if cfg.strategy == "sync":
+        if cfg.overlap != "off":
+            raise ValueError("overlap is a daso-family schedule; the sync "
+                             "baseline has no non-blocking exchange to overlap")
+        return make_strategy("sync", loss_fn, optimizer)
+    dcfg = DasoConfig(
+        n_replicas=cfg.n_replicas,
+        global_world=cfg.n_replicas * cfg.local_world,
+        b_max=cfg.b_max,
+        warmup_steps=int(cfg.warmup_frac * cfg.n_steps),
+        cooldown_steps=int(cfg.cooldown_frac * cfg.n_steps),
+        total_steps=cfg.n_steps,
+        wire_format=cfg.wire_format,
+        exchange_impl=cfg.exchange_impl,
+        overlap=cfg.overlap)
+    cls = get_strategy(cfg.strategy)
+    controller = cls.make_controller(dcfg, loss_window=cfg.loss_window)
+    return cls(loss_fn, optimizer, dcfg, controller=controller)
+
+
+def run_training(loss_fn: Callable, params0, data_fn: Callable,
+                 cfg: TrainLoopConfig, *, optimizer: Optional[Optimizer] = None,
+                 lr_fn: Optional[Callable] = None,
+                 log: Optional[Callable] = print) -> SimResult:
+    """data_fn(step) -> batch on cfg.device. For the daso strategy the batch
+    carries the leading replica axis; for sync it is flat. params0 must
+    already be on cfg.device."""
+    device = resolve_device(cfg.device)
+    if cfg.executor == "macro":
+        raise NotImplementedError("the macro-cycle executor is not ported yet "
+                                  "(ROADMAP item 9); use executor='per_step'")
+    if cfg.executor != "per_step":
+        raise ValueError(f"unknown executor {cfg.executor!r}; "
+                         "expected 'per_step' (or 'macro', not ported yet)")
+    for x in leaves(params0):
+        if x.device.type != device.type:
+            raise ValueError(f"run_training on {device}, params on {x.device}")
+    optimizer = optimizer or sgd(momentum=0.9, weight_decay=1e-4)
+    lr_fn = lr_fn or constant_lr(cfg.lr)
+    strategy = build_strategy(loss_fn, cfg, optimizer)
+    t0 = time.time()
+    result = run_per_step_training(strategy, params0, data_fn, lr_fn, cfg.n_steps)
+    if log is not None:
+        wire = (f" wire={cfg.wire_format or 'auto'}/{cfg.exchange_impl}"
+                if cfg.strategy != "sync" else "")
+        log(f"[train] strategy={cfg.strategy} steps={cfg.n_steps} "
+            f"final_loss={result.final_loss:.4f} "
+            f"sync_frac={result.sync_fraction:.3f} wall={time.time() - t0:.1f}s"
+            f"{wire} device={device}")
+    return result

@@ -1,7 +1,7 @@
 """Tests of the port that need an NVIDIA GPU (marker `cuda`): the CUDA
-kernel against its plain version, and the serving path through it. They
-import neither JAX nor the JAX package, so they run on a machine that has
-only PyTorch:
+kernels against their plain versions, and the serving and training paths
+through them. They import neither JAX nor the JAX package, so they run on
+a machine that has only PyTorch:
 
   PYTHONPATH=src python -m pytest -m cuda tests/test_torch_card.py
 
@@ -11,11 +11,16 @@ import pytest
 import torch
 
 from repro_torch.configs import get_reduced
-from repro_torch.kernels import ops
+from repro_torch.core import daso
+from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.kernels import comm_kernels, ops
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import (attention_ref, bf16_pack_ref, bf16_unpack_ref,
+                                     eq1_merge_ref)
 from repro_torch.models.lm import forward, init_params
 from repro_torch.serve.engine import Engine, make_prefill_fn
+from repro_torch.train.loop import TrainLoopConfig, run_training
+from repro_torch.train.step import make_lm_loss
 
 pytestmark = pytest.mark.cuda
 
@@ -83,3 +88,106 @@ def test_serving_goes_through_the_kernel(cuda):
     assert (st["logits_last"] - want).abs().max().item() < 2e-3
     out = Engine(cfg, params, max_len=64).generate(toks, 8)
     assert out.shape == (2, 8) and out.device.type == "cuda"
+
+
+# -- exchange kernels K2 / K3 / K4: bit-exact with their plain versions --------
+
+# f32 values where a bf16 cast can go wrong: ties to even, values above the
+# largest bf16 (round to inf), infinities, signed zeros, f32 subnormals
+EDGES = [1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8), 3.3961e38, 3.3962e38, 3.4e38,
+         -3.4e38, float("inf"), float("-inf"), 0.0, -0.0, 1e-40, -1e-40, 1.4e-45,
+         1.17e-38, 9e-39, 1.0, -2.5]
+
+
+def _arena(cuda, n, seed, dtype, offset=0, edges=False):
+    """n values on the card; `offset` > 0 returns a contiguous view that
+    starts `offset` elements into its buffer (not 16-byte aligned)."""
+    x = np.random.default_rng(seed).standard_normal(n + offset, dtype=np.float32) * 40
+    if edges:
+        x[offset:offset + len(EDGES)] = EDGES
+    return torch.from_numpy(x).to(cuda, dtype)[offset:]
+
+
+def _same_bits(a, b):
+    """Bit-exact equality (so -0.0 differs from 0.0)."""
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return a.dtype == b.dtype and torch.equal(a.view(as_int[a.dtype]),
+                                              b.view(as_int[b.dtype]))
+
+
+SIZES = [(999, 0), (2 ** 20 + 3, 0), (4099, 1), (4099, 3), (8, 0), (1, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,offset", SIZES)
+def test_eq1_merge_kernel_bit_exact(cuda, n, offset, dtype):
+    x = _arena(cuda, n, 1, dtype, offset)
+    y = _arena(cuda, n, 2, dtype, offset)
+    before = comm_kernels.eq1_merge_fwd.launches
+    for S, P, E in ((1, 16, 0), (3, 16, 1), (2, 48, 0)):
+        got = ops.eq1_merge(x, y, staleness=S, global_world=P, extra_staleness=E)
+        want = eq1_merge_ref(x, y, staleness=S, global_world=P, extra_staleness=E)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want)
+    assert comm_kernels.eq1_merge_fwd.launches == before + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,offset", SIZES)
+def test_bf16_pack_kernel_bit_exact(cuda, n, offset, dtype):
+    x = _arena(cuda, max(n, len(EDGES)), 3, dtype, offset, edges=True)
+    before = comm_kernels.bf16_pack_fwd.launches
+    got = ops.bf16_pack(x)
+    torch.cuda.synchronize()
+    assert comm_kernels.bf16_pack_fwd.launches == before + 1
+    assert got.dtype == torch.bfloat16 and _same_bits(got, bf16_pack_ref(x))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,offset", SIZES)
+def test_bf16_unpack_kernel_bit_exact(cuda, n, offset, out_dtype):
+    x = _arena(cuda, max(n, len(EDGES)), 4, torch.bfloat16, offset, edges=True)
+    before = comm_kernels.bf16_unpack_fwd.launches
+    got = ops.bf16_unpack(x, out_dtype)
+    torch.cuda.synchronize()
+    assert comm_kernels.bf16_unpack_fwd.launches == before + 1
+    assert got.dtype == out_dtype and _same_bits(got, bf16_unpack_ref(x, out_dtype))
+
+
+def test_bf16_pack_keeps_nan_nan(cuda):
+    x = torch.tensor([float("nan"), 1.0], device=cuda)
+    assert torch.isnan(ops.bf16_pack(x)[0]) and ops.bf16_pack(x)[1].item() == 1.0
+
+
+def test_exchange_without_kernels_raises_on_the_card(cuda):
+    """exchange_kernels=False is refused; the exchange of a CUDA carry
+    launches K2 and K3."""
+    with pytest.raises(ValueError, match="exchange_kernels=False"):
+        daso.DasoConfig(n_replicas=4, global_world=16, exchange_kernels=False)
+    tree = {"w": torch.ones(4, 3, device=cuda)}
+    k2, k3 = comm_kernels.eq1_merge_fwd.launches, comm_kernels.bf16_pack_fwd.launches
+    daso.global_receive(tree, tree, staleness=1, global_world=16)
+    daso.blocking_sync(tree)
+    assert comm_kernels.eq1_merge_fwd.launches == k2 + 1
+    assert comm_kernels.bf16_pack_fwd.launches == k3 + 1
+
+
+def test_daso_training_goes_through_the_kernels(cuda):
+    """A reduced run on the card: one K2 launch per receive step and one K3
+    launch per blocking step (one f32 arena), and the loss falls."""
+    cfg = get_reduced("llama3.2-1b").replace(n_layers=2, vocab_size=256)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    src = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32, seed=0)
+
+    def data(step):
+        b = src.batch(8, step, device=cuda)
+        return {k: v.reshape((4, 2) + v.shape[1:]) for k, v in b.items()}
+
+    k2, k3 = comm_kernels.eq1_merge_fwd.launches, comm_kernels.bf16_pack_fwd.launches
+    res = run_training(make_lm_loss(cfg), params, data,
+                       TrainLoopConfig(n_steps=30, n_replicas=4, device="cuda"), log=None)
+    modes = [h[1] for h in res.controller.history]
+    assert comm_kernels.eq1_merge_fwd.launches - k2 == \
+        sum(m in ("receive", "send_receive") for m in modes) > 0
+    assert comm_kernels.bf16_pack_fwd.launches - k3 == modes.count("blocking") > 0
+    assert res.losses[-1] < res.losses[0]

@@ -1,0 +1,304 @@
+"""The port's DASO core (`repro_torch.core.daso`, `.schedule`) and its
+synthetic data held against the JAX package on the CPU, on a tiny
+llama3.2-1b-family model with R = 4 replicas:
+
+  * the exchange functions (`replica_mean`, `global_send`,
+    `global_receive`, `blocking_sync`) bit-exact on the same carry against
+    the reference's default (plain) tier;
+  * one step of each of the six modes, and `sync_train_step`: params,
+    optimizer state and loss within 1e-5 (f32; the two frameworks sum in
+    different orders inside the model);
+  * `SyntheticLM` tokens equal for several (seed, step) pairs;
+  * the controller: the same loss trace gives the same mode history and
+    the same state_dict, through one plateau halve and one reset.
+Inputs are made from a seed with numpy."""
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced as jax_get_reduced
+from repro.core import daso as jdaso
+from repro.core import schedule as jschedule
+from repro.data.synthetic import SyntheticLM as JaxSyntheticLM
+from repro.models.lm import init_params as jax_init_params
+from repro.optim.optimizers import sgd as jax_sgd
+from repro.train.step import make_lm_loss as jax_make_lm_loss
+from repro_torch.configs import get_reduced
+from repro_torch.convert import params_from_jax, state_from_jax
+from repro_torch.core import daso, schedule
+from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.optim.optimizers import sgd
+from repro_torch.train.step import make_lm_loss
+from repro_torch.tree import leaves
+
+R, PER, SEQ = 4, 2, 16
+STEP_ATOL = 1e-5
+TINY = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+            vocab_size=128)
+
+
+def _cfgs():
+    return (jax_get_reduced("llama3.2-1b").replace(**TINY),
+            get_reduced("llama3.2-1b").replace(**TINY))
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def problem():
+    """A JAX carry (params_R, opt_R, inflight) whose replicas and in-flight
+    buffer all differ, the port's copy of it, and one replicated batch."""
+    jcfg, tcfg = _cfgs()
+    p0 = _np_tree(jax_init_params(jcfg, jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(0)
+
+    def spread(scale):
+        return jax.tree.map(lambda a: (a[None] + scale * rng.standard_normal(
+            (R,) + a.shape)).astype(np.float32), p0)
+
+    params, inflight = spread(0.01), spread(0.02)
+    opt = {"mu": jax.tree.map(lambda a: (0.1 * rng.standard_normal(a.shape))
+                              .astype(np.float32), params)}
+    src = SyntheticLM(vocab_size=tcfg.vocab_size, seq_len=SEQ, seed=1)
+    flat = src.batch(R * PER, step=3)
+    batch = {k: v.reshape((R, PER, SEQ)).numpy() for k, v in flat.items()}
+    return dict(jcfg=jcfg, tcfg=tcfg, jax=(params, opt, inflight), batch=batch)
+
+
+def _port(tree):
+    return state_from_jax(tree, "cpu", batch_dims=1)
+
+
+def _assert_tree_close(got, want_jax_np, atol):
+    want = _port(want_jax_np)
+    g, w = leaves(got), leaves(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if atol == 0:
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        else:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=atol, rtol=0)
+
+
+# -- exchange functions: bit-exact -------------------------------------------
+
+@pytest.mark.parametrize("tree", ["params", "inflight"])
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+def test_replica_mean_send_and_blocking_bit_exact(problem, wire, tree):
+    params = problem["jax"][{"params": 0, "inflight": 2}[tree]]
+    jp = jax.tree.map(jnp.asarray, params)
+    want = _np_tree(jdaso.replica_mean(jp, wire_format=wire))
+    tp = _port(params)
+    _assert_tree_close(daso.replica_mean(tp, wire_format=wire), want, 0)
+    _assert_tree_close(daso.global_send(tp, wire_format=wire),
+                       _np_tree(jdaso.global_send(jp, wire_format=wire)), 0)
+    _assert_tree_close(daso.blocking_sync(tp, wire_format=wire),
+                       _np_tree(jdaso.blocking_sync(jp, wire_format=wire)), 0)
+
+
+# P = 5 makes 2S + P a divisor whose reciprocal is inexact in f32
+@pytest.mark.parametrize("global_world", [16, 5])
+@pytest.mark.parametrize("staleness,extra", [(1, 0), (2, 0), (3, 1)])
+def test_global_receive_bit_exact(problem, staleness, extra, global_world):
+    params, _, inflight = problem["jax"]
+    want = jdaso.global_receive(jax.tree.map(jnp.asarray, params),
+                                jax.tree.map(jnp.asarray, inflight),
+                                staleness=staleness, global_world=global_world,
+                                extra_staleness=extra)
+    got = daso.global_receive(_port(params), _port(inflight), staleness=staleness,
+                              global_world=global_world, extra_staleness=extra)
+    _assert_tree_close(got, _np_tree(want), 0)
+
+
+def test_receive_output_is_views_of_one_merged_arena(problem):
+    params, _, inflight = problem["jax"]
+    got = daso.global_receive(_port(params), _port(inflight), staleness=1,
+                              global_world=16)
+    ptrs = {x.untyped_storage().data_ptr() for x in leaves(got)}
+    assert len(ptrs) == 1
+
+
+def test_exchange_without_kernels_takes_cpu_tensors_only():
+    """The exchange has one path, through the kernel wrappers: the plain
+    versions for CPU tensors, and no other path on any device."""
+    with pytest.raises(ValueError, match="exchange_kernels=False"):
+        daso.DasoConfig(n_replicas=4, global_world=16, exchange_kernels=False)
+    m = {"w": torch.zeros(4, 3, device="meta")}
+    with pytest.raises(ValueError, match="no kernel for device"):
+        daso.global_receive(m, m, staleness=1, global_world=16)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        daso.blocking_sync(m)
+
+
+def test_unported_options_raise_naming_their_roadmap_item():
+    with pytest.raises(NotImplementedError, match="item 7"):
+        daso.DasoConfig(n_replicas=4, global_world=16, exchange_impl="per_leaf")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        daso.DasoConfig(n_replicas=4, global_world=16, overlap="one_cycle")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        daso.DasoConfig(n_replicas=4, global_world=16, wire_format="int8")
+    cfg = daso.DasoConfig(n_replicas=4, global_world=16)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        daso.daso_train_step(None, sgd(), cfg, mode="local", inner_syncs=(("host", 2),))
+    assert cfg.exchange_kernels and cfg.wire_format_for(blocking=True) == "bf16"
+
+
+# -- one step of each mode ------------------------------------------------------
+
+@pytest.mark.parametrize("mode", jdaso.MODES)
+def test_step_of_each_mode_matches_jax(problem, mode):
+    jcfg, tcfg = problem["jcfg"], problem["tcfg"]
+    params, opt, inflight = problem["jax"]
+    batch = problem["batch"]
+    kw = dict(n_replicas=R, global_world=R * 4, b_max=4)
+    jstep = jax.jit(jdaso.daso_train_step(jax_make_lm_loss(jcfg), jax_sgd(0.9, 1e-4),
+                                          jdaso.DasoConfig(**kw), mode=mode,
+                                          staleness=2))
+    jp, jo, ji, jm = jstep(*(jax.tree.map(jnp.asarray, t) for t in (params, opt, inflight)),
+                           jax.tree.map(jnp.asarray, batch), jnp.float32(0.05))
+    tstep = daso.daso_train_step(make_lm_loss(tcfg), sgd(0.9, 1e-4),
+                                 daso.DasoConfig(**kw), mode=mode, staleness=2)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tp, to, ti, tm = tstep(_port(params), _port(opt), _port(inflight), tbatch, 0.05)
+    _assert_tree_close(tp, _np_tree(jp), STEP_ATOL)
+    _assert_tree_close(to, _np_tree(jo), STEP_ATOL)
+    _assert_tree_close(ti, _np_tree(ji), STEP_ATOL)
+    assert sorted(tm) == sorted(jm)
+    for k in jm:
+        np.testing.assert_allclose(tm[k].numpy(), np.asarray(jm[k]), atol=STEP_ATOL,
+                                   rtol=0)
+
+
+def test_sync_train_step_matches_jax(problem):
+    jcfg, tcfg = problem["jcfg"], problem["tcfg"]
+    params = jax.tree.map(lambda a: a[0], problem["jax"][0])
+    batch = {k: v.reshape((R * PER, SEQ)) for k, v in problem["batch"].items()}
+    jopt = jax_sgd(0.9, 1e-4)
+    jp, jo, jm = jax.jit(jdaso.sync_train_step(jax_make_lm_loss(jcfg), jopt))(
+        jax.tree.map(jnp.asarray, params), jopt.init(jax.tree.map(jnp.asarray, params)),
+        jax.tree.map(jnp.asarray, batch), jnp.float32(0.05))
+    topt = sgd(0.9, 1e-4)
+    tparams = params_from_jax(params)
+    tp, to, tm = daso.sync_train_step(make_lm_loss(tcfg), topt)(
+        tparams, topt.init(tparams), {k: torch.from_numpy(v) for k, v in batch.items()},
+        0.05)
+    for a, b in zip(leaves(tp), leaves(params_from_jax(_np_tree(jp)))):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=STEP_ATOL, rtol=0)
+    for a, b in zip(leaves(to), leaves(state_from_jax(_np_tree(jo)))):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=STEP_ATOL, rtol=0)
+    assert sorted(tm) == sorted(jm)
+    np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]), atol=STEP_ATOL)
+
+
+# -- data -----------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed,step", [(0, 0), (0, 7), (3, 1), (11, 250)])
+def test_synthetic_lm_tokens_equal_jax(seed, step):
+    want = JaxSyntheticLM(vocab_size=300, seq_len=40, seed=seed).batch(6, step)
+    got = SyntheticLM(vocab_size=300, seq_len=40, seed=seed).batch(6, step)
+    for k in ("tokens", "labels"):
+        assert got[k].dtype == torch.int32
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+# -- controller -----------------------------------------------------------------
+
+def _loss_trace(n):
+    """Falls for 30 steps, then flat: with windows of 5 and patience 2 the
+    schedule halves B/W twice (4/1 -> 2/1 -> 1/1), then resets to 4/1."""
+    return [5.0 - 0.1 * min(t, 30) + 0.001 * (t % 3) for t in range(n)]
+
+
+def _controllers():
+    kw = dict(n_replicas=4, global_world=16, b_max=4, warmup_steps=3,
+              cooldown_steps=4, total_steps=120, plateau_patience=2)
+    return (jschedule.DasoController(jdaso.DasoConfig(**kw), loss_window=5),
+            schedule.DasoController(daso.DasoConfig(**kw), loss_window=5))
+
+
+def _json(sd):
+    return json.loads(json.dumps(sd))
+
+
+def test_controller_per_step_matches_jax():
+    jc, tc = _controllers()
+    seen_b = []
+    for t, loss in enumerate(_loss_trace(120)):
+        assert tc.mode_for_step(t) == jc.mode_for_step(t)
+        jc.observe_loss(loss)
+        tc.observe_loss(loss)
+        seen_b.append(tc.b)
+        assert _json(tc.state_dict()) == _json(jc.state_dict())
+    assert [h[1:] for h in tc.history] == [h[1:] for h in jc.history]
+    runs = [b for i, b in enumerate(seen_b) if i == 0 or b != seen_b[i - 1]]
+    assert runs[:4] == [4, 2, 1, 4]  # halve, halve, reset
+    assert tc.global_sync_fraction() == jc.global_sync_fraction()
+
+
+def test_controller_plan_cycle_matches_jax():
+    jc, tc = _controllers()
+    losses, t = _loss_trace(120), 0
+    while t < 120:
+        shape = tc.plan_cycle(t, max_len=8)
+        assert shape == jc.plan_cycle(t, max_len=8)
+        for loss in losses[t:t + len(shape)]:
+            jc.observe_loss(loss)
+            tc.observe_loss(loss)
+        t += len(shape)
+    assert _json(tc.state_dict()) == _json(jc.state_dict())
+
+
+def test_controller_state_dict_roundtrip():
+    _, tc = _controllers()
+    for t, loss in enumerate(_loss_trace(40)):
+        tc.mode_for_step(t)
+        tc.observe_loss(loss)
+    fresh = _controllers()[1]
+    fresh.load_state_dict(_json(tc.state_dict()))
+    assert [fresh.mode_for_step(t) for t in range(40, 60)] == \
+        [tc.mode_for_step(t) for t in range(40, 60)]
+
+
+def test_split_mode():
+    assert schedule.split_mode("send+host") == ("send", ("host",))
+    assert schedule.split_mode("local") == ("local", ())
+
+
+def test_steps_leave_no_tensor_in_a_reference_cycle(problem):
+    """A tensor held in a reference cycle stays allocated until the garbage
+    collector runs: at full width that is gigabytes per step on the card.
+    After a warm-up step, a receive and a blocking step free every tensor
+    they made by reference counting alone."""
+    import gc
+
+    tcfg = problem["tcfg"]
+    cfg = daso.DasoConfig(n_replicas=R, global_world=R * 4)
+    steps = {m: daso.daso_train_step(make_lm_loss(tcfg), sgd(), cfg, mode=m)
+             for m in ("send", "receive", "blocking")}
+    params, opt, inflight = (_port(t) for t in problem["jax"])
+    batch = {k: torch.from_numpy(v) for k, v in problem["batch"].items()}
+    gc.collect()
+    was_enabled = gc.isenabled()
+    gc.disable()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        carry = steps["send"](params, opt, inflight, batch, 0.05)[:3]
+        gc.collect()
+        gc.garbage.clear()
+        for mode in ("receive", "blocking"):
+            carry = steps[mode](*carry, batch, 0.05)[:3]
+        gc.collect()
+        cycled = [o for o in gc.garbage if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        if was_enabled:
+            gc.enable()
+    assert not cycled, f"{len(cycled)} tensors were freed only by the collector"
