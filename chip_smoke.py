@@ -10,25 +10,35 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   check        hold K1 against its plain PyTorch version on the card, at the
                serving shape and a sweep (dtypes, ragged lengths, head dims,
                window, q shorter than kv)
-  comm_check   hold K2, K3 and K4 against their plain versions, bit-exact, at
-               ragged sizes, on a misaligned view and on bf16 edge values
+  comm_check   hold K2 to K6 against their plain versions, bit-exact, at
+               ragged sizes, on misaligned views, on bf16 edge values and (K5,
+               K6) on 1 and 4 rows, blocks 64 / 128 / 256, int8 edge blocks
+               and stochastic bits 0, 0xFFFFFFFF and random
   serve        Engine.generate on llama3.2-1b at full size (16 layers, bf16,
                seeded random weights): batch 4, prompt 1024, 32 new greedy
                tokens. K1 launches per prefill are counted; the prefill's
                last logits are held against a teacher-forced plain forward
                (bf16), and prefill + decode against it in f32 with 2 layers
-  train_check  at full width (1 layer, f32, R = 4): one blocking and one
-               receive step through the kernels give the same carry as the
-               same steps with the exchange computed by the plain versions
+  train_check  at full width (1 layer, f32, R = 4): a receive and a blocking
+               step, an int8 send and an int8 blocking step, and an ov_sync
+               step with extra staleness 1 (int8), each through the kernels,
+               give the same carry as the same step with the exchange
+               computed by the plain versions
+  train_int8_overlap
+               run_training at the train phase's size with the int8 wire
+               tier and the one-cycle overlap schedule: K5 = K6 launches
+               held to the ov_sync + blocking steps, K2 to the ov_sync
+               steps, step time by mode, peak memory, wire bytes per
+               exchange at each tier
   train        run_training with DASO on llama3.2-1b at full width, 4 of its
                16 layers, f32, R = 4 replicas: 40 steps, K2 and K3 launches
                held to the schedule's receive and blocking steps, step time
                by mode, peak memory
-  arena        K2, K3 and K4 held bit-exact against their plain versions on
-               the final carry's parameter and momentum arenas (4 x N f32);
-               a wire_roundtrip of the parameters launches K3 and K4
+  arena        K2 to K6 held bit-exact against their plain versions on the
+               final carry's parameter and momentum arenas (4 x N f32); a
+               wire_roundtrip of the parameters launches K3 and K4
   timing       each kernel, its plain version and the library call, at the
-               serving shape (K1) and the training arena (K2, K3, K4)
+               serving shape (K1) and the training arena (K2 to K6)
 then the `kernels` line, the card's name and power limit, and as the last
 line {"ok": true, "device": {...}}.
 
@@ -50,12 +60,14 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import daso, flatbuf  # noqa: E402
+from repro_torch.core import compression, daso, flatbuf  # noqa: E402
 from repro_torch.core.executor import DasoStrategy  # noqa: E402
+from repro_torch.core.schedule import split_ov  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.comm_kernels import (bf16_pack_fwd, bf16_unpack_fwd,  # noqa: E402
-                                              eq1_merge_fwd)
+                                              dequantize_int8_fwd, eq1_merge_fwd,
+                                              quantize_int8_fwd)
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.ref import attention_ref  # noqa: E402
 from repro_torch.models.lm import forward, init_params  # noqa: E402
@@ -103,6 +115,18 @@ KERNELS = [{
     "source": "src/repro_torch/csrc/comm_kernels.cu",
     "replaces": "src/repro/kernels/comm_kernels.py:96",
     "counter": bf16_unpack_fwd,
+}, {
+    "name": "quantize_int8",
+    "route": "cuda",
+    "source": "src/repro_torch/csrc/comm_kernels.cu",
+    "replaces": "src/repro/kernels/comm_kernels.py:113",
+    "counter": quantize_int8_fwd,
+}, {
+    "name": "dequantize_int8",
+    "route": "cuda",
+    "source": "src/repro_torch/csrc/comm_kernels.cu",
+    "replaces": "src/repro/kernels/comm_kernels.py:149",
+    "counter": dequantize_int8_fwd,
 }]
 SOURCES = sorted({os.path.basename(k["source"])[:-3] for k in KERNELS})
 
@@ -342,36 +366,129 @@ def zero_counts():
         k["counter"].launches = 0
 
 
+def same_bits_or_nan(a, b):
+    """Bit-exact equality, where NaN equals NaN whatever its payload (an
+    int8 block holding NaN has a NaN scale, and its dequantized values)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and same_bits(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+def int8_edges(x, block):
+    """Edge blocks at the start of x's first row (x is (rows, N), N >= 8
+    blocks), zero but for the values listed: all zeros (scale 1e-12 / 127),
+    exact ties after scaling (absmax 127 gives scale 1.0), +-absmax (->
+    +-127), f32 subnormals only (the scale floor), 3e38, +inf, -inf and NaN
+    (a NaN scale, values 0)."""
+    groups = [
+        [0.0] * block,
+        [127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -126.5, -127.0, 3.5, -3.5],
+        [-5.0, 5.0, 2.0, -1.0],
+        [1e-40, -1e-40, 1.4e-45, -9e-39, 1.17e-38],
+        [3e38, -3e38, 1.0, -2.5e37],
+        [float("inf"), 1.0, -2.0],
+        [float("-inf"), 3.0],
+        [float("nan"), 1.0, -4.0],
+    ]
+    for i, g in enumerate(groups):
+        x[0, i * block:(i + 1) * block] = 0.0
+        x[0, i * block:i * block + len(g)] = torch.tensor(g, device=x.device)
+    return x
+
+
+def int8_cases():
+    """(rows, N, block, offset, bits, edges) of the K5 / K6 checks."""
+    cases = []
+    for rows in (1, 4):
+        for n in (999, 2 ** 20 + 3, 256 * 4099):
+            for block in (64, 128, 256):
+                cases.append((rows, n, block, 0, "none", False))
+            cases.append((rows, n, 256, 0, "random", False))
+    for block in (64, 128, 256):
+        for bits in ("none", "zeros", "ones", "random"):
+            cases.append((4, 256 * 4099, block, 0, bits, True))
+            cases.append((4, 4099, block, 1, bits, True))
+    cases.append((1, 2 ** 20 + 3, 256, 1, "random", False))
+    return cases
+
+
+def card_bits(shape, kind, seed, offset=0):
+    if kind == "none":
+        return None
+    if kind == "random":
+        b = flatbuf.random_bits((math.prod(shape) + offset,),
+                                torch.Generator(device="cuda").manual_seed(seed))
+    else:
+        fill = 0 if kind == "zeros" else -1  # 0 or 0xFFFFFFFF
+        b = torch.full((math.prod(shape) + offset,), fill, dtype=torch.int32,
+                       device="cuda").view(torch.uint32)
+    return b[offset:].view(shape)
+
+
+def check_int8(record):
+    """K5 and K6 against their plain versions: values, scales and the
+    dequantized arena bit for bit (NaN compared as NaN)."""
+    for i, (rows, n, block, offset, bits_kind, edges) in enumerate(int8_cases()):
+        x = card_arena(rows * n, 10 + i, offset=offset).view(rows, n)
+        if edges:
+            x = int8_edges(x, block)
+        bits = card_bits((rows, n), bits_kind, 20 + i, offset)
+        case = dict(rows=rows, n=n, block=block, offset=offset, bits=bits_kind,
+                    edges=edges)
+        v, sc = ops.quantize_int8(x, bits, block=block)
+        vr, scr = ref.quantize_int8_block_ref(x, block=block, bits=bits)
+        record("quantize_int8", torch.equal(v, vr) and same_bits_or_nan(sc, scr), **case)
+        record("dequantize_int8", same_bits_or_nan(
+            ops.dequantize_int8(v, sc, block=block),
+            ref.dequantize_int8_block_ref(v, sc, block=block)), **case)
+        if edges:  # the stated values of the edge blocks
+            # (block, element): value; with bits only what floor(v + u)
+            # gives for every u in [0, 1)
+            want = {(1, 0): 127, (1, 3): 2, (1, 4): 0, (2, 0): -127, (2, 1): 127,
+                    (4, 0): 127, (5, 1): 0, (7, 1): 0} if bits_kind == "none" else {
+                (2, 1): 127, (5, 1): 0, (7, 1): 0}
+            got = {k: int(v[0, k[0] * block + k[1]]) for k in want}
+            floor_scale = torch.tensor(1e-12) / torch.tensor(127.0)
+            stated = (got == want and float(sc[0, 0]) == float(floor_scale)
+                      and float(sc[0, 1]) == 1.0 and bool(torch.isnan(sc[0, 7])))
+            record("quantize_int8 edge values", stated,
+                   got={f"{b}/{e}": q for (b, e), q in got.items()}, **case)
+
+
 def phase_comm_check():
-    """K2, K3 and K4 bit-exact against their plain versions at ragged sizes,
-    a misaligned view and the bf16 edge values; and what PyTorch's CUDA
-    division by a Python scalar does to the plain Eq. (1)."""
+    """K2 to K6 bit-exact against their plain versions at ragged sizes,
+    misaligned views and edge values; and what PyTorch's CUDA division by a
+    Python scalar does to the plain Eq. (1)."""
     rows = []
 
-    def record(kernel, n, offset, dtype, ok):
-        rows.append({"kernel": kernel, "n": n, "offset": offset, "dtype": str(dtype),
-                     "bit_exact": ok})
+    def record(kernel, ok, **case):
+        rows.append({"kernel": kernel, **case, "bit_exact": ok})
         if not ok:
             emit({"phase": "comm_check", "failed": rows[-1]})
             raise AssertionError(f"{kernel} differs from its plain version: {rows[-1]}")
 
     for n, offset in ((999, 0), (2 ** 20 + 3, 0), (2 ** 20 + 3, 1), (4099, 3)):
         for dtype in (torch.float32, torch.bfloat16):
+            case = dict(n=n, offset=offset, dtype=str(dtype))
             x = card_arena(n, 1, dtype, offset)
             y = card_arena(n, 2, dtype, offset)
             for S, P, E in ((1, 16, 0), (3, 16, 1)):
                 kw = dict(staleness=S, global_world=P, extra_staleness=E)
-                record("eq1_merge", n, offset, dtype,
-                       same_bits(ops.eq1_merge(x, y, **kw), ref.eq1_merge_ref(x, y, **kw)))
+                record("eq1_merge", same_bits(ops.eq1_merge(x, y, **kw),
+                                              ref.eq1_merge_ref(x, y, **kw)), **case)
             e = card_arena(n, 3, dtype, offset, edges=True)
-            record("bf16_pack", n, offset, dtype,
-                   same_bits(ops.bf16_pack(e), ref.bf16_pack_ref(e)))
+            record("bf16_pack", same_bits(ops.bf16_pack(e), ref.bf16_pack_ref(e)), **case)
             w = e.to(torch.bfloat16)
-            record("bf16_unpack", n, offset, dtype,
-                   same_bits(ops.bf16_unpack(w, dtype), ref.bf16_unpack_ref(w, dtype)))
+            record("bf16_unpack", same_bits(ops.bf16_unpack(w, dtype),
+                                            ref.bf16_unpack_ref(w, dtype)), **case)
     nan = ops.bf16_pack(torch.tensor([float("nan"), 1.0], device="cuda"))
     if not (bool(torch.isnan(nan[0])) and nan[1].item() == 1.0):
         raise AssertionError(f"bf16_pack of NaN: {nan}")
+    check_int8(record)
 
     # the plain Eq. (1) divides by a device tensor; a Python-scalar divisor
     # on CUDA is multiplied as a reciprocal instead
@@ -383,8 +500,11 @@ def phase_comm_check():
     divisor = {"elements": ulps.numel(), "differ": int((ulps > 0).sum()),
                "max_ulp": int(ulps.max()), "divisor": s2 + p}
     sync()
-    emit({"phase": "comm_check", "cases": len(rows), "all_bit_exact": True,
-          "python_scalar_divisor": divisor})
+    per_kernel = {}
+    for r in rows:
+        per_kernel[r["kernel"]] = per_kernel.get(r["kernel"], 0) + 1
+    emit({"phase": "comm_check", "cases": len(rows), "cases_by_kernel": per_kernel,
+          "all_bit_exact": True, "python_scalar_divisor": divisor})
     return divisor
 
 
@@ -392,13 +512,19 @@ def phase_comm_check():
 def plain_exchange():
     """Swap the exchange kernels' wrappers for their plain versions, so the
     same step functions compute the exchange with kernels/ref.py."""
-    saved = ops.eq1_merge, ops.bf16_pack, ops.bf16_unpack
-    ops.eq1_merge, ops.bf16_pack, ops.bf16_unpack = (
-        ref.eq1_merge_ref, ref.bf16_pack_ref, ref.bf16_unpack_ref)
+    names = ("eq1_merge", "bf16_pack", "bf16_unpack", "quantize_int8", "dequantize_int8")
+    saved = [getattr(ops, n) for n in names]
+    plain = (ref.eq1_merge_ref, ref.bf16_pack_ref, ref.bf16_unpack_ref,
+             lambda x, bits=None, *, block=256: ref.quantize_int8_block_ref(
+                 x, block=block, bits=bits),
+             ref.dequantize_int8_block_ref)
+    for n, f in zip(names, plain):
+        setattr(ops, n, f)
     try:
         yield
     finally:
-        ops.eq1_merge, ops.bf16_pack, ops.bf16_unpack = saved
+        for n, f in zip(names, saved):
+            setattr(ops, n, f)
 
 
 def train_config(n_layers):
@@ -413,58 +539,77 @@ def replica_data(src):
     return data
 
 
+INT8_EXCHANGE = {"quantize_int8": 1, "dequantize_int8": 1}
+# (DasoConfig options, warm-up modes, checked (mode, staleness, launches))
+TRAIN_CHECKS = [
+    ({}, ("send", "local"),
+     (("receive", 2, {"eq1_merge": 1}), ("blocking", 1, {"bf16_pack": 1}))),
+    ({"wire_format": "int8"}, ("send", "local"),
+     (("send", 1, INT8_EXCHANGE), ("blocking", 1, INT8_EXCHANGE))),
+    ({"wire_format": "int8", "overlap": "one_cycle"}, ("ov_start", "local"),
+     (("ov_sync~1", 1, {"eq1_merge": 1, **INT8_EXCHANGE}),)),
+]
+
+
 def phase_train_check():
-    """One receive and one blocking step at full width (1 layer, f32,
-    R = 4), from the same carry: through the kernels, and with the exchange
-    computed by the plain versions. The carries must be identical."""
+    """Steps at full width (1 layer, f32, R = 4), each from one carry:
+    through the kernels, and with the exchange computed by the plain
+    versions. The carries must be identical. Receive and blocking (bf16) as
+    slice 2 checked them; an int8 send and an int8 blocking step; an ov_sync
+    step with extra staleness 1 on the int8 tier."""
     cfg = train_config(1)
     params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(2), "cuda")
-    strategy = DasoStrategy(make_lm_loss(cfg), sgd(0.9, 1e-4), daso.DasoConfig(
-        n_replicas=TRAIN_R, global_world=TRAIN_R * TRAIN_LOCAL_WORLD, b_max=TRAIN_B_MAX))
     data = replica_data(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, seed=2))
-    carry = strategy.init_carry(params0)
-    for step, mode in enumerate(("send", "local")):
-        carry, _ = strategy.step_fn(mode, 1)(carry, data(step), TRAIN_LR)
     rows = []
-    for mode, stale, kernel in (("receive", 2, "eq1_merge"), ("blocking", 1, "bf16_pack")):
-        batch = data(2)
-        step = strategy.step_fn(mode, stale)
-        before = counts()
-        got = step(carry, batch, TRAIN_LR)
-        sync()
-        launched = {k: v - before[k] for k, v in counts().items() if v != before[k]}
-        got = [x.cpu() for x in leaves(got)]  # room on the card for the second step
-        with plain_exchange():
-            want = step(carry, batch, TRAIN_LR)
-        identical = all(same_bits(a, b.cpu()) for a, b in zip(got, leaves(want)))
-        del want
-        row = {"mode": mode, "staleness": stale, "kernel_launches": launched,
-               "carry_identical_to_plain": identical}
-        if not identical:  # tell a nondeterministic local step from the exchange
-            again = step(carry, batch, TRAIN_LR)
-            row["kernel_path_repeat_identical"] = all(
-                same_bits(a, b.cpu()) for a, b in zip(got, leaves(again)))
-            del again
-        rows.append(row)
-        del got
-        if launched != {kernel: 1} or not identical:
-            emit({"phase": "train_check", "failed": row})
-            raise AssertionError(f"train_check {mode}: {row}")
-    del carry, params0, strategy
+    for options, warmup, checks in TRAIN_CHECKS:
+        strategy = DasoStrategy(make_lm_loss(cfg), sgd(0.9, 1e-4), daso.DasoConfig(
+            n_replicas=TRAIN_R, global_world=TRAIN_R * TRAIN_LOCAL_WORLD,
+            b_max=TRAIN_B_MAX, **options))
+        carry = strategy.init_carry(params0)
+        for step, mode in enumerate(warmup):
+            carry, _ = strategy.step_fn(mode, 1)(carry, data(step), TRAIN_LR)
+        for mode, stale, kernels in checks:
+            batch = data(len(warmup))
+            step = strategy.step_fn(mode, stale)
+            before = counts()
+            got = step(carry, batch, TRAIN_LR)
+            sync()
+            launched = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+            got = [x.cpu() for x in leaves(got)]  # room on the card for the second step
+            with plain_exchange():
+                want = step(carry, batch, TRAIN_LR)
+            identical = all(same_bits(a, b.cpu()) for a, b in zip(got, leaves(want)))
+            del want
+            row = {"mode": mode, "staleness": stale, "options": options,
+                   "kernel_launches": launched, "carry_identical_to_plain": identical}
+            if not identical:  # tell a nondeterministic local step from the exchange
+                again = step(carry, batch, TRAIN_LR)
+                row["kernel_path_repeat_identical"] = all(
+                    same_bits(a, b.cpu()) for a, b in zip(got, leaves(again)))
+                del again
+            rows.append(row)
+            del got
+            if launched != kernels or not identical:
+                emit({"phase": "train_check", "failed": row})
+                raise AssertionError(f"train_check {mode}: {row}")
+        del carry, strategy
+    del params0
     torch.cuda.empty_cache()
     emit({"phase": "train_check", "arch": ARCH, "layers": 1, "dtype": "float32",
           "replicas": TRAIN_R, "steps": rows})
 
 
-def phase_train():
-    """run_training with DASO at llama3.2-1b's published widths."""
+def run_train_phase(name, loop_options, why_reduced):
+    """run_training with DASO at llama3.2-1b's published widths, 4 layers,
+    f32, R = 4; the counts are set to 0 just before and read just after.
+    Returns (result, its row, launch counts, base modes)."""
     cfg = train_config(TRAIN_LAYERS)
     params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(x.numel() for x in leaves(params0))
     data = replica_data(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, seed=0))
     loop_cfg = TrainLoopConfig(strategy="daso", n_steps=TRAIN_STEPS, n_replicas=TRAIN_R,
                                local_world=TRAIN_LOCAL_WORLD, b_max=TRAIN_B_MAX,
-                               lr=TRAIN_LR, device="cuda")
+                               lr=TRAIN_LR, device="cuda", **loop_options)
     sync()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -474,41 +619,76 @@ def phase_train():
     launches = counts()
     peak = torch.cuda.max_memory_allocated()
     modes = [h[1] for h in res.controller.history]
-    n_receive = sum(m in ("receive", "send_receive") for m in modes)
-    n_blocking = modes.count("blocking")
-    # one floating arena (all params f32): one K2 launch per receive step,
-    # one K3 launch per blocking step
-    want = {"flash_attention_fwd": 0, "eq1_merge": n_receive,
-            "bf16_pack": n_blocking, "bf16_unpack": 0}
     losses = res.losses
     by_mode = {}
     for m, sec in zip(modes, res.step_seconds):
         by_mode.setdefault(m, []).append(1e3 * sec)
-    row = {"phase": "train", "arch": ARCH, "strategy": "daso", "entry": "run_training",
+    row = {"phase": name, "arch": ARCH, "strategy": "daso", "entry": "run_training",
+           **loop_options,
            "widths": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
                       "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
                       "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
                       "tie_embeddings": cfg.tie_embeddings},
            "reduced": {"n_layers": [get_config(ARCH).n_layers, TRAIN_LAYERS],
-                       "why": "memory: the carry holds params, momentum and the "
-                              "in-flight buffer for 4 replicas in f32"},
+                       "why": why_reduced},
            "dtype": "float32", "params_per_replica": n_params,
            "replicas": TRAIN_R, "local_world": TRAIN_LOCAL_WORLD, "b_max": TRAIN_B_MAX,
            "lr": TRAIN_LR, "optimizer": "sgd(0.9, 1e-4)", "seq_len": TRAIN_SEQ,
            "seqs_per_replica": TRAIN_PER, "steps": TRAIN_STEPS,
            "mode_counts": {m: modes.count(m) for m in sorted(set(modes))},
-           "launches": launches, "launches_expected": want,
+           "launches": launches,
            "sync_fraction": res.sync_fraction,
            "step_ms_median": {m: statistics.median(v) for m, v in by_mode.items()},
            "step_ms_all": by_mode,
            "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
            "max_memory_allocated": peak}
-    if launches != want:
-        emit({**row, "failed": "launch counts"})
-        raise AssertionError(f"train launches {launches} != {want}")
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         emit({**row, "failed": "loss"})
-        raise AssertionError(f"train losses {losses[0]} -> {losses[-1]}")
+        raise AssertionError(f"{name} losses {losses[0]} -> {losses[-1]}")
+    return res, row, launches, [split_ov(m)[0] for m in modes], params0
+
+
+def check_launches(row, launches, want):
+    row["launches_expected"] = want
+    if launches != want:
+        emit({**row, "failed": "launch counts"})
+        raise AssertionError(f"{row['phase']} launches {launches} != {want}")
+
+
+def phase_train_int8_overlap():
+    """The int8 wire tier and the one-cycle overlap schedule through
+    run_training: one f32 arena, so K5 and K6 run once per ov_sync and once
+    per blocking step, K2 once per ov_sync step, K3 and K4 never."""
+    res, row, launches, modes, params0 = run_train_phase(
+        "train_int8_overlap", {"wire_format": "int8", "overlap": "one_cycle"},
+        "memory: the carry holds params, momentum, the in-flight buffer and the "
+        "pending snapshot for 4 replicas in f32")
+    n_sync, n_blocking = modes.count("ov_sync"), modes.count("blocking")
+    check_launches(row, launches, {
+        "flash_attention_fwd": 0, "eq1_merge": n_sync, "bf16_pack": 0,
+        "bf16_unpack": 0, "quantize_int8": n_sync + n_blocking,
+        "dequantize_int8": n_sync + n_blocking})
+    row["wire_bytes_per_exchange"] = {
+        t: compression.transfer_bytes(params0, wire_format=t) for t in ("f32", "bf16", "int8")}
+    emit(row)
+    del res, params0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train():
+    """run_training with DASO at llama3.2-1b's published widths, the paper's
+    exchange: f32 in the cycling phase, bf16 in the blocking one."""
+    res, row, launches, modes, params0 = run_train_phase(
+        "train", {}, "memory: the carry holds params, momentum and the "
+        "in-flight buffer for 4 replicas in f32")
+    # one floating arena (all params f32): one K2 launch per receive step,
+    # one K3 launch per blocking step
+    check_launches(row, launches, {
+        "flash_attention_fwd": 0,
+        "eq1_merge": sum(m in ("receive", "send_receive") for m in modes),
+        "bf16_pack": modes.count("blocking"), "bf16_unpack": 0, "quantize_int8": 0,
+        "dequantize_int8": 0})
     emit(row)
     params_r, opt_r, _ = res.carry
     del res, params0
@@ -533,8 +713,9 @@ def phase_arena(trained):
     f32, every replica's row as the carry holds it. The cool-down's
     blocking syncs leave the parameter rows equal, while each replica's
     momentum row is its own. A wire_roundtrip of the parameter arena (K3 then
-    K4, counted), and K2, K3, K4 held bit-exact against their plain
-    versions on both arenas, with the largest |kernel - plain|. The carry
+    K4, counted), and K2 to K6 held bit-exact against their plain versions
+    on both arenas (K5: values and scales, at the training path's block
+    256, rounding to nearest), with the largest |kernel - plain|. The carry
     is popped from `trained`, so its memory goes once it is packed."""
     arenas = {}
     for name, tree in zip(("params", "momentum"), trained.pop("carry")):
@@ -553,8 +734,12 @@ def phase_arena(trained):
     checks, errs = {}, {k["name"]: 0.0 for k in KERNELS[1:]}
 
     def check(kernel, arena_name, got, want):
-        checks[f"{kernel}/{arena_name}"] = same_bits(got, want)
-        errs[kernel] = max(errs[kernel], max_abs_err(got, want))
+        """got, want: a tensor, or K5's (values, scales)."""
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        checks[f"{kernel}/{arena_name}"] = all(
+            torch.equal(a, b) if a.dtype == torch.int8 else same_bits(a, b)
+            for a, b in pairs)
+        errs[kernel] = max([errs[kernel]] + [max_abs_err(a, b) for a, b in pairs])
 
     for name, arena in arenas.items():
         old = stale if name == "params" else flatbuf.wire_roundtrip(arena, "bf16")
@@ -564,6 +749,12 @@ def phase_arena(trained):
         wire = ops.bf16_pack(arena)
         check("bf16_pack", name, wire, ref.bf16_pack_ref(arena))
         check("bf16_unpack", name, ops.bf16_unpack(wire), ref.bf16_unpack_ref(wire))
+        del wire
+        q = ops.quantize_int8(arena)
+        check("quantize_int8", name, q, ref.quantize_int8_block_ref(arena))
+        check("dequantize_int8", name, ops.dequantize_int8(*q),
+              ref.dequantize_int8_block_ref(*q))
+        del q
     arena = arenas.pop("params")
     del arenas
     wire = ops.bf16_pack(arena)
@@ -580,9 +771,12 @@ def bytes_bound(nbytes):
     return 1e3 * nbytes / PEAK_BYTES, "bytes"
 
 
-def phase_timing(check_rows, serve_launches, train_launches, arena_parts):
+def phase_timing(check_rows, serve_launches, path_launches, arena_parts):
     """Times of each kernel, its plain version and the library call (K1 at
-    the serving shape, K2-K4 at the training arena), and the kernels line."""
+    the serving shape, K2 to K6 at the training arena), and the kernels
+    line. `path_launches` holds each training path's launch counts: K2 to
+    K4 report the train phase's, K5 and K6 the train_int8_overlap phase's,
+    and every comm kernel lists both."""
     q, k, v = qkv(4, 32, 8, PROMPT, PROMPT, 64, torch.bfloat16, seed=7)
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 50)
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v), 10)
@@ -605,6 +799,13 @@ def phase_timing(check_rows, serve_launches, train_launches, arena_parts):
     n = arena.numel()
     s2, p = 2.0, float(TRAIN_R * TRAIN_LOCAL_WORLD)
     kw = dict(staleness=1, global_world=TRAIN_R * TRAIN_LOCAL_WORLD)
+    train_launches = path_launches["train"]
+    int8_launches = path_launches["train_int8_overlap"]
+    values, scales = ops.quantize_int8(arena)
+    # K5 reads 4 B and writes 1 B per element and 4 B per scale; K6 the reverse
+    int8_bytes = n * 5 + scales.numel() * 4
+    no_library = ("none: no single PyTorch call computes a block-absmax int8 "
+                  "quantization; dequantize needs a broadcast of the scales")
     timed = {
         "eq1_merge": (lambda: ops.eq1_merge(arena, stale, **kw),
                       lambda: ref.eq1_merge_ref(arena, stale, **kw),
@@ -617,6 +818,14 @@ def phase_timing(check_rows, serve_launches, train_launches, arena_parts):
                         lambda: wire.to(torch.float32),
                         n * 6, roundtrip_launches["bf16_unpack"],
                         "flatbuf.wire_roundtrip of the training arena"),
+        "quantize_int8": (lambda: ops.quantize_int8(arena),
+                          lambda: ref.quantize_int8_block_ref(arena), None, int8_bytes,
+                          int8_launches["quantize_int8"],
+                          "train_int8_overlap (ov_sync and blocking steps)"),
+        "dequantize_int8": (lambda: ops.dequantize_int8(values, scales),
+                            lambda: ref.dequantize_int8_block_ref(values, scales), None,
+                            int8_bytes, int8_launches["dequantize_int8"],
+                            "train_int8_overlap (ov_sync and blocking steps)"),
     }
     for kern in KERNELS[1:]:
         kernel_fn, plain_fn, library_fn, nbytes, launches, path = timed[kern["name"]]
@@ -624,13 +833,22 @@ def phase_timing(check_rows, serve_launches, train_launches, arena_parts):
         lines.append({
             "name": kern["name"], "route": kern["route"], "source": kern["source"],
             "replaces": kern["replaces"], "launches": launches,
+            "launches_by_path": {k: v[kern["name"]] for k, v in path_launches.items()},
             "max_abs_err": errs[kern["name"]],
             "bit_exact": all(v for k, v in checks.items()
                              if k.startswith(kern["name"] + "/")),
             "ms": cuda_ms(kernel_fn, 10, warmup=2),
             "plain_ms": cuda_ms(plain_fn, 5, warmup=1), "bound_ms": bound,
-            "bound_by": by, "library_ms": cuda_ms(library_fn, 10, warmup=2),
+            "bound_by": by,
+            "library_ms": None if library_fn is None else cuda_ms(library_fn, 10, warmup=2),
             "bytes": nbytes, "shape": list(arena.shape), "path": path})
+        if library_fn is None:
+            lines[-1]["library"] = no_library
+    # the stochastic K5 (not on the training path) reads the bits as well
+    bits = flatbuf.random_bits(arena.shape, torch.Generator(device="cuda").manual_seed(9))
+    next(line for line in lines if line["name"] == "quantize_int8").update(
+        stochastic_ms=cuda_ms(lambda: ops.quantize_int8(arena, bits), 10, warmup=2),
+        stochastic_bound_ms=bytes_bound(int8_bytes + n * 4)[0])
     emit({"kernels": lines})
 
 
@@ -653,9 +871,11 @@ def main():
     phase_comm_check()
     serve_launches = phase_serve()
     phase_train_check()
+    int8_launches = phase_train_int8_overlap()
     trained = phase_train()
     arena_parts = phase_arena(trained)
-    phase_timing(rows, serve_launches, trained["launches"], arena_parts)
+    phase_timing(rows, serve_launches, {"train": trained["launches"],
+                                        "train_int8_overlap": int8_launches}, arena_parts)
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

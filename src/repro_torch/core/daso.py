@@ -17,12 +17,15 @@ Step variants, selected per step by the controller (core/schedule.py):
                 cool-down)
   hard_avg      local + plain parameter average (local-SGD ablation)
 
+With `DasoConfig.overlap == "one_cycle"` the cycling phase runs the
+double-buffered family of `daso_overlap_step` instead (OV_MODES), whose
+carry holds a fourth slot, the `pending` snapshot awaiting its exchange.
+
 The exchange math runs through the hand-written kernels: Eq. (1) through
-K2, the bf16 wire cast through K3 (`kernels/ops.py`, which takes their
-plain versions for CPU tensors). Not ported yet, and raising
-NotImplementedError:
-the per-leaf exchange (`exchange_impl="per_leaf"`, ROADMAP item 7), the
-overlap schedule and the int8 tier (item 12), inner-level syncs (item 13)
+K2, the bf16 wire cast through K3, the int8 tier through K5 / K6
+(`kernels/ops.py`, which takes their plain versions for CPU tensors). Not
+ported yet, and raising NotImplementedError: the per-leaf exchange
+(`exchange_impl="per_leaf"`, ROADMAP item 7), inner-level syncs (item 13)
 and elastic membership (item 15).
 
 No step writes in place into a tensor it was given (only into outputs it
@@ -65,7 +68,7 @@ class DasoConfig:
     # every reduction of the port is the order-fixed chain of adds already
     # (flatbuf.masked_axis0_mean), so both values give the same numbers
     deterministic_reduce: bool = False
-    # The exchange math always runs through the kernels (K2, K3). The
+    # The exchange math always runs through the kernels (K2 to K6). The
     # reference defaults to False so the SPMD partitioner can shard a mesh
     # arena; the port's arenas are single-device, the case its docstring
     # names for True, so True is the only value.
@@ -83,12 +86,12 @@ class DasoConfig:
         if self.overlap not in OVERLAP_MODES:
             raise ValueError(f"unknown overlap mode {self.overlap!r}; "
                              f"expected one of {OVERLAP_MODES}")
-        if self.overlap != "off":
-            raise NotImplementedError("the overlap schedule is not ported yet "
-                                      "(ROADMAP item 12)")
         if self.exchange_impl not in EXCHANGE_IMPLS:
             raise ValueError(f"unknown exchange_impl {self.exchange_impl!r}; "
                              f"expected one of {EXCHANGE_IMPLS}")
+        if self.wire_format == "int8" and self.exchange_impl == "per_leaf":
+            raise ValueError("int8 wire format requires the fused arena "
+                             "exchange (exchange_impl='fused')")
         if self.exchange_impl == "per_leaf":
             raise NotImplementedError("the per-leaf exchange is not ported yet "
                                       "(ROADMAP item 7)")
@@ -114,24 +117,32 @@ def dereplicate_params(params, index: int = 0):
     return tree_map(lambda p: p[index], params)
 
 
-def _arena_mean(arena, wire_format: str):
+def _arena_mean(arena, wire_format: str, *, int8_block: int = 256):
     """Mean over the replica axis of one arena, as a (1, N) tensor in the
-    arena's dtype. A floating arena is cast to the wire dtype first and
-    reduced in it (`repro/core/daso.py:209-216`)."""
+    arena's dtype (`repro/core/daso.py:179-216`). A floating arena is cast
+    to the wire dtype first and reduced in it; on the int8 tier each
+    replica's row goes through K5 -> K6 (what a transfer of int8 values and
+    scales delivers, rounded to nearest: the step variants take no random
+    bits, as in the reference) and the mean runs over the dequantized
+    arena."""
     if not arena.is_floating_point():
         # integer leaves: mean in f32, rounded back
         return torch.round(flatbuf.masked_axis0_mean(arena.float())).to(arena.dtype)
-    w = flatbuf.encode_wire(arena, wire_format)
+    if wire_format == "int8":
+        w = flatbuf.wire_roundtrip(arena, "int8", int8_block=int8_block)
+    else:
+        w = flatbuf.encode_wire(arena, wire_format)
     return flatbuf.masked_axis0_mean(w).to(arena.dtype)
 
 
-def replica_mean(tree, *, wire_format: str = "f32"):
+def replica_mean(tree, *, wire_format: str = "f32", int8_block: int = 256):
     """Mean over the leading replica axis, broadcast back to (R, ...): one
     reduction per arena, with the wire tier applied to the whole arena."""
     flatbuf._check_wire_format(wire_format)
     layout = flatbuf.build_layout(tree, batch_dims=1)
     arenas = flatbuf.pack(tree, layout)
-    means = {k: _arena_mean(a, wire_format) for k, a in arenas.items()}
+    means = {k: _arena_mean(a, wire_format, int8_block=int8_block)
+             for k, a in arenas.items()}
     del arenas
     r = layout.batch_shape[0]
     return tree_map(lambda m: m.expand((r,) + m.shape[1:]),
@@ -140,10 +151,10 @@ def replica_mean(tree, *, wire_format: str = "f32"):
 
 # -- DASO primitive operations -------------------------------------------------
 
-def global_send(params, *, wire_format: str = "f32"):
+def global_send(params, *, wire_format: str = "f32", int8_block: int = 256):
     """Snapshot + start the global exchange: the in-flight buffer is the
     replica mean of the current params, one copy per replica."""
-    return replica_mean(params, wire_format=wire_format)
+    return replica_mean(params, wire_format=wire_format, int8_block=int8_block)
 
 
 def global_receive(params, inflight, *, staleness: int, global_world,
@@ -167,10 +178,10 @@ def global_receive(params, inflight, *, staleness: int, global_world,
     return flatbuf.unpack(out, layout)
 
 
-def blocking_sync(params, *, wire_format: str = "bf16"):
+def blocking_sync(params, *, wire_format: str = "bf16", int8_block: int = 256):
     """Synchronous global average (warm-up / cool-down), with the paper's
     16-bit transfer packaging (or the tier in `wire_format`)."""
-    return replica_mean(params, wire_format=wire_format)
+    return replica_mean(params, wire_format=wire_format, int8_block=int8_block)
 
 
 # -- assembled train step ------------------------------------------------------
@@ -231,6 +242,15 @@ def local_step(loss_fn: Callable, optimizer: Optimizer):
 
 MODES = ("local", "send", "receive", "send_receive", "blocking", "hard_avg")
 
+# Outermost-level actions of the double-buffered overlap schedule
+# (DasoConfig.overlap == "one_cycle"), in place of send / receive in the
+# cycling phase:
+#   ov_start  local step, then pending <- params (first cycling step, and
+#             the restart after a blocking phase: nothing in flight yet)
+#   ov_sync   local step, then inflight <- mean(pending_old) [the one outer
+#             exchange], params <- Eq. (1) merge, pending <- params
+OV_MODES = ("local", "ov_start", "ov_sync", "blocking")
+
 
 def _cross_replica_loss(cfg: DasoConfig, loss_r: torch.Tensor) -> torch.Tensor:
     """The scalar loss the plateau controller consumes: the mean of the
@@ -249,10 +269,9 @@ def daso_train_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
     inflight, metrics). `mode` is the outermost level's action (MODES)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
-    if inner_syncs:
-        raise NotImplementedError("inner-level syncs are not ported yet "
-                                  "(ROADMAP item 13)")
+    _refuse_inner_syncs(inner_syncs)
     lstep = local_step(loss_fn, optimizer)
+    blk = cfg.int8_block
 
     def step(params, opt_state, inflight, batch, lr):
         if mode in ("receive", "send_receive"):
@@ -260,21 +279,77 @@ def daso_train_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
                                     global_world=cfg.global_world)
         params, opt_state, loss_r, aux_r = lstep(params, opt_state, batch, lr)
         if mode in ("send", "send_receive"):
-            inflight = global_send(params,
-                                   wire_format=cfg.wire_format_for(blocking=False))
+            inflight = global_send(params, wire_format=cfg.wire_format_for(blocking=False),
+                                   int8_block=blk)
         elif mode == "blocking":
-            params = blocking_sync(params,
-                                   wire_format=cfg.wire_format_for(blocking=True))
+            params = blocking_sync(params, wire_format=cfg.wire_format_for(blocking=True),
+                                   int8_block=blk)
         elif mode == "hard_avg":
             params = replica_mean(params)
-        metrics = {"loss": _cross_replica_loss(cfg, loss_r),
-                   "loss_per_replica": loss_r}
-        for k, v in aux_r.items():
-            if v.dim() <= 1:
-                metrics[k] = torch.mean(v)
-        return params, opt_state, inflight, metrics
+        return params, opt_state, inflight, _step_metrics(cfg, loss_r, aux_r)
 
     return step
+
+
+def daso_overlap_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
+                      *, mode: str, staleness: int = 1, extra_staleness: int = 0,
+                      inner_syncs: Tuple[Tuple[str, int], ...] = ()):
+    """One step variant of the double-buffered overlap schedule
+    (`repro/core/daso.py::daso_overlap_step`, one process, no membership):
+    step(params_R, opt_R, inflight, pending, batch_R, lr) -> (params_R,
+    opt_R, inflight, pending, metrics). `mode` is one of OV_MODES:
+
+      local     local step; both buffers pass through
+      ov_start  local step, then pending <- params
+      ov_sync   local step, then inflight <- mean(pending_old) at the
+                cycling phase's wire tier, params <- Eq. (1) through K2
+                with S = staleness + extra_staleness (the snapshot's true
+                age), pending <- the merged params
+      blocking  local step + synchronous average; buffers pass through (the
+                next cycling phase restarts with ov_start)
+
+    The merge lands after the step's local update, where off-mode
+    `receive` merges before it: the exchange result arrives at the cycle's
+    end."""
+    if mode not in OV_MODES:
+        raise ValueError(f"unknown overlap mode {mode!r}; expected one of {OV_MODES}")
+    _refuse_inner_syncs(inner_syncs)
+    lstep = local_step(loss_fn, optimizer)
+    blk = cfg.int8_block
+
+    def step(params, opt_state, inflight, pending, batch, lr):
+        params, opt_state, loss_r, aux_r = lstep(params, opt_state, batch, lr)
+        if mode == "ov_start":
+            pending = params
+        elif mode == "ov_sync":
+            inflight = global_send(pending, wire_format=cfg.wire_format_for(blocking=False),
+                                   int8_block=blk)
+            params = global_receive(params, inflight, staleness=staleness,
+                                    extra_staleness=extra_staleness,
+                                    global_world=cfg.global_world)
+            pending = params
+        elif mode == "blocking":
+            params = blocking_sync(params, wire_format=cfg.wire_format_for(blocking=True),
+                                   int8_block=blk)
+        return params, opt_state, inflight, pending, _step_metrics(cfg, loss_r, aux_r)
+
+    return step
+
+
+def _refuse_inner_syncs(inner_syncs) -> None:
+    if inner_syncs:
+        raise NotImplementedError("inner-level syncs are not ported yet "
+                                  "(ROADMAP item 13)")
+
+
+def _step_metrics(cfg: DasoConfig, loss_r, aux_r) -> dict:
+    """The loss the controller reads, the per-replica losses, and the mean
+    of every aux metric of rank <= 1."""
+    metrics = {"loss": _cross_replica_loss(cfg, loss_r), "loss_per_replica": loss_r}
+    for k, v in aux_r.items():
+        if v.dim() <= 1:
+            metrics[k] = torch.mean(v)
+    return metrics
 
 
 def sync_train_step(loss_fn: Callable, optimizer: Optimizer):

@@ -10,9 +10,9 @@ from __future__ import annotations
 import difflib
 from typing import Callable, Dict, List, Optional, Tuple
 
-from repro_torch.core.daso import (DasoConfig, daso_train_step, dereplicate_params,
-                                   replicate_params, sync_train_step)
-from repro_torch.core.schedule import DasoController, split_mode
+from repro_torch.core.daso import (DasoConfig, daso_overlap_step, daso_train_step,
+                                   dereplicate_params, replicate_params, sync_train_step)
+from repro_torch.core.schedule import DasoController, split_mode, split_ov
 from repro_torch.optim.optimizers import Optimizer
 
 _REGISTRY: Dict[str, type] = {}
@@ -99,19 +99,29 @@ class Strategy:
 class DasoStrategy(Strategy):
     """The paper's strategy: carry (params_R, opt_R, inflight) with the
     replica axis R leading every leaf, controller-scheduled step variants
-    from core/daso.py."""
+    from core/daso.py. Under the overlap schedule the carry has a fourth
+    slot, the pending snapshot: (params_R, opt_R, inflight, pending)."""
 
     def __init__(self, loss_fn, optimizer, cfg, **kw):
         if cfg is None:
             raise ValueError("the daso strategy needs a DasoConfig")
         super().__init__(loss_fn, optimizer, cfg, **kw)
 
+    @property
+    def overlap(self) -> bool:
+        """True under the double-buffered overlap schedule (4-slot carry,
+        OV_MODES tokens)."""
+        return self.cfg.overlap != "off"
+
     def init_carry(self, params0):
         params = replicate_params(params0, self.cfg.n_replicas)
         opt_state = replicate_params(self.optimizer.init(params0),
                                      self.cfg.n_replicas)
-        # the in-flight buffer is read only after a send has written it;
-        # it starts as the params themselves (no step writes into its inputs)
+        # the in-flight buffer is read only after a send has written it, the
+        # pending snapshot only after an ov_start: both start as the params
+        # themselves (no step writes into its inputs)
+        if self.overlap:
+            return (params, opt_state, params, params)
         return (params, opt_state, params)
 
     def finalize_params(self, carry):
@@ -122,6 +132,18 @@ class DasoStrategy(Strategy):
         if inner:
             raise ValueError(f"mode carries inner-level syncs {inner!r} but "
                              f"strategy {self.name!r} has no topology")
+        if self.overlap:
+            base, extra = split_ov(outer)
+            raw_ov = daso_overlap_step(self.loss_fn, self.optimizer, self.cfg, mode=base,
+                                       staleness=staleness, extra_staleness=extra)
+
+            def ostep(carry, batch, lr):
+                params, opt_state, inflight, pending = carry
+                params, opt_state, inflight, pending, m = raw_ov(
+                    params, opt_state, inflight, pending, batch, lr)
+                return (params, opt_state, inflight, pending), m
+
+            return ostep
         raw = daso_train_step(self.loss_fn, self.optimizer, self.cfg, mode=outer,
                               staleness=staleness)
 

@@ -14,16 +14,23 @@ pass over one large buffer, whatever the leaf count:
   * `unpack` returns views of the arena: no copy.
 
 Wire codecs (`encode_wire` / `decode_wire`) implement the transfer tiers:
-`f32` (identity) and `bf16` (the paper's 16-bit packaging). The bf16 casts
-go through kernels K3 / K4 (`kernels/ops.py`, which takes their plain
-versions for CPU tensors). The `int8` tier waits for kernels K5 / K6
-(ROADMAP item 12).
+`f32` (identity), `bf16` (the paper's 16-bit packaging) and the
+beyond-paper `int8` block-scaled tier (one absmax scale per `int8_block`
+elements of a row, optional stochastic rounding). The bf16 casts go through
+kernels K3 / K4, the int8 codec through K5 / K6 (`kernels/ops.py`, which
+takes their plain versions for CPU tensors).
+
+Stochastic rounding: the reference draws its bits with `jax.random.bits`
+from an `rng_key`; threefry is not reproduced here. The port takes the
+bits themselves (`bits`, uint32 of the arena's shape) or a
+`torch.Generator` that draws them: the same bits give results bit-exact
+with the reference's, the same seed does not.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -135,40 +142,69 @@ def _check_wire_format(wire_format: str) -> str:
     if wire_format not in WIRE_FORMATS:
         raise ValueError(f"unknown wire_format {wire_format!r}; "
                          f"expected one of {WIRE_FORMATS}")
-    if wire_format == "int8":
-        raise NotImplementedError("the int8 wire tier waits for kernels K5/K6 "
-                                  "(ROADMAP item 12)")
     return wire_format
 
 
-def encode_wire(arena: torch.Tensor, wire_format: str) -> torch.Tensor:
+def random_bits(shape, generator: torch.Generator) -> torch.Tensor:
+    """uint32 bits of `shape` drawn from `generator`, on its device."""
+    return torch.randint(0, 2 ** 32, tuple(shape), dtype=torch.int64,
+                         generator=generator,
+                         device=generator.device).to(torch.uint32)
+
+
+def encode_wire(arena: torch.Tensor, wire_format: str, *, int8_block: int = 256,
+                bits: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
     """The payload that crosses the wire: the arena itself for ``f32``, a
-    bf16 copy for ``bf16`` (K3)."""
+    bf16 copy for ``bf16`` (K3), ``(int8 values, f32 per-block scales)``
+    for ``int8`` (K5). `bits` or `generator` select stochastic rounding for
+    the int8 tier; with neither it rounds to nearest even."""
     _check_wire_format(wire_format)
     if wire_format == "f32":
         return arena
-    return ops.bf16_pack(arena)
+    if wire_format == "bf16":
+        return ops.bf16_pack(arena)
+    if generator is not None:
+        if bits is not None:
+            raise ValueError("encode_wire: pass bits or a generator, not both")
+        bits = random_bits(arena.shape, generator)
+    return ops.quantize_int8(arena, bits, block=int8_block)
 
 
-def decode_wire(wire: torch.Tensor, wire_format: str, out_dtype) -> torch.Tensor:
-    """A wire payload back in `out_dtype` (K4 for ``bf16``)."""
+def decode_wire(wire, wire_format: str, out_dtype, *,
+                int8_block: int = 256) -> torch.Tensor:
+    """A wire payload back in `out_dtype`: K4 for ``bf16``; for ``int8``
+    the (values, scales) pair through K6, then cast as the reference does."""
     _check_wire_format(wire_format)
     if wire_format == "f32":
         return wire.to(out_dtype)
-    return ops.bf16_unpack(wire, out_dtype)
+    if wire_format == "bf16":
+        return ops.bf16_unpack(wire, out_dtype)
+    values, scales = wire
+    return ops.dequantize_int8(values, scales, block=int8_block).to(out_dtype)
 
 
-def wire_roundtrip(arena: torch.Tensor, wire_format: str) -> torch.Tensor:
+def wire_roundtrip(arena: torch.Tensor, wire_format: str, *, int8_block: int = 256,
+                   bits: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """encode -> wire -> decode, back in the arena's own dtype: what a
     one-way transfer does to the values."""
-    return decode_wire(encode_wire(arena, wire_format), wire_format, arena.dtype)
+    wire = encode_wire(arena, wire_format, int8_block=int8_block, bits=bits,
+                       generator=generator)
+    return decode_wire(wire, wire_format, arena.dtype, int8_block=int8_block)
 
 
-def tree_wire_roundtrip(tree, wire_format: str, *, batch_dims: int = 0):
+def tree_wire_roundtrip(tree, wire_format: str, *, batch_dims: int = 0,
+                        int8_block: int = 256,
+                        bits: Optional[Dict[str, torch.Tensor]] = None,
+                        generator: Optional[torch.Generator] = None):
     """Pack, roundtrip every floating arena through the wire format, unpack.
-    Other arenas cross at their own dtype."""
+    Other arenas cross at their own dtype. `bits` maps an arena key
+    ("float32") to that arena's stochastic-rounding bits."""
     layout = build_layout(tree, batch_dims=batch_dims)
     arenas = pack(tree, layout)
-    out = {k: wire_roundtrip(a, wire_format) if a.is_floating_point() else a
+    bits = bits or {}
+    out = {k: wire_roundtrip(a, wire_format, int8_block=int8_block, bits=bits.get(k),
+                             generator=generator) if a.is_floating_point() else a
            for k, a in arenas.items()}
     return unpack(out, layout)

@@ -8,11 +8,16 @@ paper §3, which drives the outermost level.
   * when B == W == 1 and the loss plateaus again, both reset to their
     initial values, until cool-down.
 
+With `DasoConfig.overlap == "one_cycle"` the cycling phase runs the
+double-buffered schedule instead: ov_start, then every B steps an ov_sync
+that merges the exchange of the snapshot taken B steps earlier, one cycle
+stale (`_overlap_mode`).
+
 Pure host logic: given the step index it returns which step variant to run
 and consumes windowed loss means for plateau detection. Its state_dict has
 the reference's keys, so the two packages' schedules compare directly. The
-N-level controller, `retune`, the `notify_*` hooks and the overlap schedule
-are later ports (ROADMAP items 12, 13, 15, 18).
+N-level controller, `retune` and the `notify_*` hooks are later ports
+(ROADMAP items 13, 15, 18).
 """
 from __future__ import annotations
 
@@ -29,10 +34,30 @@ class Mode:
     SEND_RECEIVE = "send_receive"
     BLOCKING = "blocking"
     HARD_AVG = "hard_avg"
+    # the overlap schedule: OV_START snapshots params into the pending
+    # slot, OV_SYNC exchanges the previous snapshot and merges it one cycle
+    # stale; an OV_SYNC token carries its extra staleness as "~E"
+    OV_START = "ov_start"
+    OV_SYNC = "ov_sync"
 
 
 # outermost-level actions that touch the global (cross-node) network
-_GLOBAL_SYNCS = (Mode.SEND, Mode.SEND_RECEIVE, Mode.BLOCKING)
+_GLOBAL_SYNCS = (Mode.SEND, Mode.SEND_RECEIVE, Mode.BLOCKING, Mode.OV_SYNC)
+
+
+def split_ov(outer: str) -> Tuple[str, int]:
+    """An outer-level overlap token as (base, extra_staleness):
+    ``"ov_sync~2"`` -> ``("ov_sync", 2)``, ``"ov_sync"`` -> ``("ov_sync",
+    0)``; other tokens pass through with 0. Each extra age is its own step
+    variant, as Eq. (1)'s S is fixed per variant."""
+    base, _, extra = outer.partition("~")
+    return base, int(extra) if extra else 0
+
+
+def is_ov_mode(mode: str) -> bool:
+    """True when the step's outer action belongs to the overlap family (also
+    for hierarchical tokens such as ``"ov_sync~1+host"``)."""
+    return split_ov(split_mode(mode)[0])[0] in (Mode.OV_START, Mode.OV_SYNC)
 
 
 def split_mode(mode: str) -> Tuple[str, Tuple[str, ...]]:
@@ -52,8 +77,9 @@ class DasoController:
     _last_send: int = field(init=False, default=-(10 ** 9))
     _inflight_since: Optional[int] = field(init=False, default=None)
     _recv_staleness: int = field(init=False, default=1)
-    # state of the reference's overlap schedule and DCN hooks, kept at
-    # their defaults so the state_dict has the reference's keys
+    # step of the last pending snapshot (ov_start or ov_sync); None: the
+    # next cycling step must ov_start (a fresh run, or a blocking phase
+    # superseded the snapshot)
     _ov_last: Optional[int] = field(init=False, default=None)
     _best: float = field(init=False, default=float("inf"))
     _since_improve: int = field(init=False, default=0)
@@ -97,6 +123,8 @@ class DasoController:
             self._inflight_since = None
             self._ov_last = None
             mode, stale = Mode.BLOCKING, 1
+        elif self.cfg.overlap != "off":
+            mode, stale = self._overlap_mode(step)
         else:
             recv = (self._inflight_since is not None
                     and step - self._inflight_since >= self._w)
@@ -118,6 +146,23 @@ class DasoController:
         self.history.append((step, mode, self._b, self._w))
         return mode, stale
 
+    def _overlap_mode(self, step: int) -> Tuple[str, int]:
+        """Cycling-phase decision of the overlap schedule. Every B steps an
+        OV_SYNC merges the exchange of the snapshot taken B steps earlier.
+        The snapshot's age splits into the S = min(W, age) the in-cycle
+        schedule would charge and the extra ``age - S``, carried in the
+        token (``"ov_sync~E"``)."""
+        if self._ov_last is None:
+            self._ov_last = step
+            return Mode.OV_START, 1
+        age = step - self._ov_last
+        if age < self._b:
+            return Mode.LOCAL, 1
+        self._ov_last = step
+        stale = min(self._w, age)
+        extra = age - stale
+        return (f"{Mode.OV_SYNC}~{extra}" if extra else Mode.OV_SYNC), stale
+
     # -- macro-cycle planning ----------------------------------------------
     def window_remaining(self) -> int:
         """Steps until the current plateau-detection window fills."""
@@ -137,18 +182,23 @@ class DasoController:
         at `max_len` steps, where the plateau window fills, at a phase
         change, or before the next send, so no loss feedback can change the
         schedule inside it: a B=4 / W=1 cycle is
-        ``(send, receive@S, local, local)``."""
+        ``(send, receive@S, local, local)``. Under overlap the cycling cut
+        comes after an ov_start / ov_sync step instead:
+        ``(local, local, local, ov_sync~3)``."""
         n_max = max(1, min(max_len, self.window_remaining()))
         phase0 = self.phase(start_step)
+        ov = self.cfg.overlap != "off"
         shape = []
         while len(shape) < n_max:
             t = start_step + len(shape)
             if shape:
                 if self.phase(t) != phase0:
                     break
-                if phase0 == "cycling" and self._would_send(t):
+                if phase0 == "cycling" and not ov and self._would_send(t):
                     break
             shape.append(self.mode_for_step(t))
+            if ov and phase0 == "cycling" and is_ov_mode(shape[-1][0]):
+                break
         return tuple(shape)
 
     # -- plateau-driven B/W schedule ----------------------------------------
@@ -193,6 +243,8 @@ class DasoController:
 
     def load_state_dict(self, sd: dict) -> None:
         for k in self._STATE_FIELDS:
+            # a state dict from before the overlap schedule has no _ov_last:
+            # keep the default, so the next cycling step re-snapshots
             setattr(self, k, sd.get(k, getattr(self, k)))
         self._win_acc = [float(x) for x in sd["win_acc"]]
         self.history = [tuple(h) for h in sd["history"]]
@@ -201,9 +253,10 @@ class DasoController:
 
     # -- audit -------------------------------------------------------------
     def global_sync_fraction(self) -> float:
-        """Fraction of steps that touched the global network."""
+        """Fraction of steps that touched the global network (an ov_sync~E
+        token counts as ov_sync)."""
         if not self.history:
             return 0.0
         touched = sum(1 for (_, m, _, _) in self.history
-                      if split_mode(m)[0] in _GLOBAL_SYNCS)
+                      if split_ov(split_mode(m)[0])[0] in _GLOBAL_SYNCS)
         return touched / len(self.history)

@@ -1,22 +1,28 @@
 """Bindings of the hand-written exchange kernels (`csrc/comm_kernels.cu`),
 the ports of the Pallas TPU kernels in `repro/kernels/comm_kernels.py`:
 
-  eq1_merge_fwd    K2, `_eq1_kernel`: paper Eq. (1) over an arena
-  bf16_pack_fwd    K3, `_cast_kernel` into bf16: arena -> bf16 wire
-  bf16_unpack_fwd  K4, `_cast_kernel` out of bf16: bf16 wire -> arena dtype
+  eq1_merge_fwd        K2, `_eq1_kernel`: paper Eq. (1) over an arena
+  bf16_pack_fwd        K3, `_cast_kernel` into bf16: arena -> bf16 wire
+  bf16_unpack_fwd      K4, `_cast_kernel` out of bf16: bf16 wire -> arena dtype
+  quantize_int8_fwd    K5, `_quantize_kernel`: arena -> int8 values and one
+                       f32 scale per block of the trailing axis
+  dequantize_int8_fwd  K6, `_dequantize_kernel`: int8 values * scales -> f32
 
-Each takes contiguous tensors of any shape and treats them as one flat
-range. `check_*` validate on every device, so the CPU path accepts exactly
-what the card path accepts; the `*_fwd` launchers take CUDA tensors only,
-launch on the current stream, raise on a non-zero cudaError and count
-their launches.
+K2 to K4 take contiguous tensors of any shape and treat them as one flat
+range; K5 and K6 treat them as (rows, N) over the trailing axis. `check_*`
+validate on every device, so the CPU path accepts exactly what the card
+path accepts; the `*_fwd` launchers take CUDA tensors only, launch on the
+current stream, raise on a non-zero cudaError and count their launches.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.ref import INT8_SCALE_FLOOR
 
 ARENA_DTYPES = (torch.float32, torch.bfloat16)
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,6 +67,46 @@ def check_unpack(x, out_dtype) -> None:
     if out_dtype not in ARENA_DTYPES:
         raise TypeError(f"bf16_unpack: out dtype {out_dtype} not in {ARENA_DTYPES}")
     _check_tensors("bf16_unpack", x)
+
+
+def n_scale_blocks(n: int, block: int) -> int:
+    """Scale blocks of a row of n elements: ceil(n / block)."""
+    return -(-n // block)
+
+
+def _check_block(name: str, block) -> None:
+    if not isinstance(block, int) or block <= 0:
+        raise ValueError(f"{name}: block must be a positive int, got {block!r}")
+
+
+def check_quantize(x, bits, block) -> None:
+    _check_block("quantize_int8", block)
+    if x.dtype not in ARENA_DTYPES:
+        raise TypeError(f"quantize_int8: dtype {x.dtype} not in {ARENA_DTYPES}")
+    if x.dim() < 1:
+        raise ValueError("quantize_int8: needs at least one axis (blocks run over "
+                         "the trailing one)")
+    if bits is None:
+        _check_tensors("quantize_int8", x)
+        return
+    if bits.dtype != torch.uint32 or bits.shape != x.shape:
+        raise TypeError(f"quantize_int8: bits must be uint32 of x's shape "
+                        f"{tuple(x.shape)}, got {bits.dtype} {tuple(bits.shape)}")
+    _check_tensors("quantize_int8", x, bits)
+
+
+def check_dequantize(values, scales, block) -> None:
+    _check_block("dequantize_int8", block)
+    if values.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"dequantize_int8: needs int8 values and float32 scales, got "
+                        f"{values.dtype} and {scales.dtype}")
+    if values.dim() < 1:
+        raise ValueError("dequantize_int8: needs at least one axis")
+    want = tuple(values.shape[:-1]) + (n_scale_blocks(values.shape[-1], block),)
+    if tuple(scales.shape) != want:
+        raise ValueError(f"dequantize_int8: scales {tuple(scales.shape)} for values "
+                         f"{tuple(values.shape)} at block {block}, need {want}")
+    _check_tensors("dequantize_int8", values, scales)
 
 
 def _stream(t) -> int:
@@ -123,6 +169,46 @@ def bf16_unpack_fwd(lib: ctypes.CDLL, x, out_dtype=torch.float32) -> torch.Tenso
     return out
 
 
+def quantize_int8_fwd(lib: ctypes.CDLL, x, bits=None, *, block: int = 256):
+    """K5 on CUDA tensors already passed through `check_quantize`; returns
+    (values int8 of x's shape, scales f32 (*lead, ceil(N / block)))."""
+    stream = _stream(x)
+    n = x.shape[-1]
+    rows = math.prod(x.shape[:-1])
+    values = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scales = torch.empty(tuple(x.shape[:-1]) + (n_scale_blocks(n, block),),
+                         dtype=torch.float32, device=x.device)
+    if x.numel():
+        fn = lib.quantize_int8
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _raise_on("quantize_int8", fn(
+            x.data_ptr(), None if bits is None else bits.data_ptr(), values.data_ptr(),
+            scales.data_ptr(), rows, n, block, _CODE[x.dtype], INT8_SCALE_FLOOR, stream))
+        quantize_int8_fwd.launches += 1
+    return values, scales
+
+
+def dequantize_int8_fwd(lib: ctypes.CDLL, values, scales, *, block: int = 256):
+    """K6 on CUDA tensors already passed through `check_dequantize`;
+    returns f32 of values' shape."""
+    stream = _stream(values)
+    out = torch.empty(values.shape, dtype=torch.float32, device=values.device)
+    if values.numel():
+        fn = lib.dequantize_int8
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [
+            ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _raise_on("dequantize_int8", fn(
+            values.data_ptr(), scales.data_ptr(), out.data_ptr(),
+            math.prod(values.shape[:-1]), values.shape[-1], block, stream))
+        dequantize_int8_fwd.launches += 1
+    return out
+
+
 eq1_merge_fwd.launches = 0
 bf16_pack_fwd.launches = 0
 bf16_unpack_fwd.launches = 0
+quantize_int8_fwd.launches = 0
+dequantize_int8_fwd.launches = 0

@@ -19,7 +19,8 @@ import torch
 from repro_torch.kernels import comm_kernels as comm
 from repro_torch.kernels.flash_attention import check_inputs, flash_attention_fwd
 from repro_torch.kernels.ref import (attention_ref, bf16_pack_ref, bf16_unpack_ref,
-                                     eq1_merge_ref)
+                                     dequantize_int8_block_ref, eq1_merge_ref,
+                                     quantize_int8_block_ref)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -116,3 +117,22 @@ def bf16_unpack(x, out_dtype=torch.float32):
     if not _on_card("bf16_unpack", x):
         return bf16_unpack_ref(x, out_dtype)
     return comm.bf16_unpack_fwd(kernel_library("comm_kernels"), x, out_dtype)
+
+
+def quantize_int8(x, bits=None, *, block: int = 256):
+    """Block-scaled int8 quantization over the trailing axis (K5). `bits`
+    (uint32, x's shape) selects stochastic rounding; None rounds to nearest
+    even. Returns (values int8 like x, scales f32 (*lead, ceil(N/block)))."""
+    comm.check_quantize(x, bits, block)
+    if not _on_card("quantize_int8", x):
+        return quantize_int8_block_ref(x, block=block, bits=bits)
+    return comm.quantize_int8_fwd(kernel_library("comm_kernels"), x, bits, block=block)
+
+
+def dequantize_int8(values, scales, *, block: int = 256):
+    """Inverse of `quantize_int8`: f32 of values' shape (K6)."""
+    comm.check_dequantize(values, scales, block)
+    if not _on_card("dequantize_int8", values):
+        return dequantize_int8_block_ref(values, scales, block=block)
+    return comm.dequantize_int8_fwd(kernel_library("comm_kernels"), values, scales,
+                                    block=block)

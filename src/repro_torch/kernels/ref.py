@@ -47,3 +47,65 @@ def bf16_pack_ref(x):
 def bf16_unpack_ref(x, out_dtype=torch.float32):
     """bf16 wire buffer -> arena in `out_dtype` (exact)."""
     return x.to(out_dtype)
+
+
+# keeps all-zero blocks finite (q == 0 regardless); the kernel takes it
+# from here, so plain version and kernel cannot drift
+INT8_SCALE_FLOOR = 1e-12
+
+
+def _blocked(x, block: int):
+    """(..., N) -> ((rows, n_blocks, block) view, zero-padded when block
+    does not divide N, and (lead, N, Np))."""
+    lead, n = tuple(x.shape[:-1]), x.shape[-1]
+    npad = -(-n // block) * block
+    xr = x.reshape(-1, n)
+    if npad != n:
+        xr = torch.nn.functional.pad(xr, (0, npad - n))
+    return xr.reshape(xr.shape[0], npad // block, block), (lead, n, npad)
+
+
+def _unblocked(xb, lead, n, npad):
+    """Inverse of `_blocked`: the padding cut, contiguous as the kernels'
+    outputs are."""
+    return xb.reshape(-1, npad)[:, :n].reshape(lead + (n,)).contiguous()
+
+
+def quantize_int8_block_ref(x, *, block: int = 256, bits=None):
+    """Block-scaled int8 quantization over the trailing axis, as
+    `repro/kernels/ref.py::quantize_int8_block_ref` computes it: blocks of
+    `block` elements never span leading rows, a ragged last block is
+    zero-padded; scale = max(absmax(block), 1e-12) / 127 by true division
+    (the divisor is a tensor on x's device: PyTorch's CUDA `div` by a
+    Python scalar multiplies by the reciprocal); q = round-half-even(x /
+    scale), or floor(x / scale + u) with u = (bits >> 8) * 2^-24 when
+    `bits` (uint32, x's shape) is given; clipped to +-127.
+
+    A block whose absmax is NaN or inf has NaN in place of some x / scale;
+    the reference's float -> int8 cast of NaN is undefined, and here such
+    a value is stored as 0. Returns (values int8 like x, scales f32
+    (*lead, ceil(N / block)))."""
+    xb, meta = _blocked(x.float(), block)
+    d127 = torch.tensor(127.0, dtype=torch.float32, device=x.device)
+    floor = torch.tensor(INT8_SCALE_FLOOR, dtype=torch.float32, device=x.device)
+    # torch.maximum and amax propagate NaN, as jnp.maximum and jnp.max do
+    scale = torch.maximum(xb.abs().amax(dim=-1, keepdim=True), floor) / d127
+    v = xb / scale
+    if bits is None:
+        v = v.round_()
+    else:
+        # torch's uint32 cannot shift: the int32 view shifts arithmetically,
+        # the mask keeps the logical shift's 24 bits
+        bb, _ = _blocked(bits.view(torch.int32), block)
+        u = ((bb >> 8) & 0xFFFFFF).float() * 2.0 ** -24  # exact: < 2^24 times 2^-24
+        v = v.add_(u).floor_()
+    v = v.clamp_(-127.0, 127.0).nan_to_num_(nan=0.0)
+    values = _unblocked(v.to(torch.int8), *meta)
+    lead, _, npad = meta
+    return values, scale.reshape(lead + (npad // block,))
+
+
+def dequantize_int8_block_ref(values, scales, *, block: int = 256):
+    """Inverse of `quantize_int8_block_ref`: q * scale of its block, f32."""
+    vb, meta = _blocked(values, block)
+    return _unblocked(vb.float() * scales.reshape(vb.shape[:-1] + (1,)), *meta)

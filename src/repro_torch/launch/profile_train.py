@@ -1,8 +1,10 @@
 """Where a DASO training step's time goes, mode by mode: llama3.2-1b at
 its published widths (`--layers` of its 16, f32), R = 4 replicas of 2 x 256
 tokens, sgd(0.9, 1e-4) — the train phase of chip_smoke.py. One step of
-each mode (local, send, receive, blocking) from the same carry, timed once
-plain and once under torch.profiler: device time by kernel and the
+each mode (local, send, receive, blocking) from the same carry, then with
+the int8 wire tier and the overlap schedule (the train_int8_overlap phase)
+an ov_sync~3 step (B = 4, W = 1) and an int8 blocking step; each timed
+once plain and once under torch.profiler: device time by kernel and the
 device-busy share (see `profile_serve.profile_phase`).
 
   python -m repro_torch.launch.profile_train [--layers 4] [--trace out.json]
@@ -68,20 +70,32 @@ def main(argv=None):
     b = src.batch(REPLICAS * PER, 0, device=device)
     batch = {k: v.reshape((REPLICAS, PER) + v.shape[1:]) for k, v in b.items()}
 
-    carry = strategy.init_carry(params0)
-    for mode in ("blocking", "send", "local", "receive"):  # warm-up; leaves a send in flight
-        carry, _ = strategy.step_fn(mode, 1)(carry, batch, LR)
-    carry, _ = strategy.step_fn("send", 1)(carry, batch, LR)
     counts = step_counts(cfg, sum(x.numel() for x in leaves(params0)))
     rows = []
-    for mode in ("local", "send", "receive", "blocking"):
-        step = strategy.step_fn(mode, 1)
-        row = profile_phase(mode, lambda: step(carry, batch, LR), device, args.top,
-                            args.trace if mode == "receive" else None)
-        row.update(layers=args.layers, replicas=REPLICAS, tokens_per_replica=PER * SEQ,
-                   device=str(device), **counts)
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+
+    def run(strategy, warmup, modes, wire):
+        carry = strategy.init_carry(params0)
+        for mode in warmup:
+            carry, _ = strategy.step_fn(mode, 1)(carry, batch, LR)
+        for mode in modes:
+            step = strategy.step_fn(mode, 1)
+            row = profile_phase(mode, lambda: step(carry, batch, LR), device, args.top,
+                                args.trace if mode == "receive" else None)
+            row.update(layers=args.layers, replicas=REPLICAS, wire=wire,
+                       tokens_per_replica=PER * SEQ, device=str(device), **counts)
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+
+    # warm-up; leaves a send in flight
+    run(strategy, ("blocking", "send", "local", "receive", "send"),
+        ("local", "send", "receive", "blocking"), "f32 cycling / bf16 blocking")
+    del strategy
+    ov = DasoStrategy(make_lm_loss(cfg), sgd(0.9, 1e-4), DasoConfig(
+        n_replicas=REPLICAS, global_world=REPLICAS * LOCAL_WORLD, wire_format="int8",
+        overlap="one_cycle"))
+    # warm-up; leaves a snapshot pending that differs from the params
+    run(ov, ("blocking", "ov_start", "ov_sync~3", "local"), ("ov_sync~3", "blocking"),
+        "int8")
     return rows
 
 

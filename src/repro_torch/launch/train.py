@@ -6,9 +6,13 @@ device) or the sync baseline, on CUDA unless `--device cpu`.
       --strategy daso --steps 300 --nodes 4 --b-max 4 [--tiny | --full] \\
       [--device cpu]
 
+  # the beyond-paper exchange: int8 on the wire, merged one cycle stale
+  PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \\
+      --wire-format int8 --overlap one_cycle
+
 The reference's other flags (executor, checkpoints, fault plans, topology,
-overlap, tracing, the multi-process runtime) are not ported yet: each is
-refused with the ROADMAP item that will port it.
+tracing, the multi-process runtime) are not ported yet: each is refused
+with the ROADMAP item that will port it.
 """
 import argparse
 import json
@@ -29,8 +33,8 @@ from repro_torch.train.step import make_lm_loss
 # flags of the reference launcher that wait for a later part of the port,
 # with the ROADMAP item that ports them
 LATER_FLAGS = {
-    "--max-cycle-len": 9, "--exchange-impl": 7, "--overlap": 12,
-    "--overlap-serial-exchange": 12, "--dispatch": 16, "--topology": 13,
+    "--max-cycle-len": 9, "--exchange-impl": 7,
+    "--overlap-serial-exchange": 9, "--dispatch": 16, "--topology": 13,
     "--ckpt": 11, "--ckpt-every": 11, "--resume": 11, "--fault-plan": 15,
     "--autotune": 18, "--autotune-every": 18, "--trace-out": 17,
     "--distributed": 16, "--coordinator": 16, "--procs": 16, "--proc-id": 16,
@@ -56,7 +60,13 @@ def parse_args(argv=None):
                     help="per_step (the ported path); macro is ROADMAP item 9")
     ap.add_argument("--wire-format", default=None, choices=["f32", "bf16", "int8"],
                     help="wire tier of the global exchange; default derives "
-                         "bf16 / f32 per phase (int8 is ROADMAP item 12)")
+                         "bf16 / f32 per phase, int8 is the block-scaled tier "
+                         "(K5 / K6)")
+    ap.add_argument("--overlap", default="off", choices=["off", "one_cycle"],
+                    help="double-buffered overlap of the global exchange: each "
+                         "exchange merged one cycle stale (daso only; the per-step "
+                         "executor runs it in order, the stream overlap is the "
+                         "macro executor's, ROADMAP item 9)")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--nodes", type=int, default=4, help="DASO replicas (paper nodes)")
     ap.add_argument("--local-world", type=int, default=4)
@@ -105,7 +115,8 @@ def main(argv=None):
     loop_cfg = TrainLoopConfig(
         strategy=args.strategy, n_steps=args.steps, n_replicas=R,
         local_world=args.local_world, b_max=args.b_max, lr=args.lr,
-        executor=args.executor, wire_format=args.wire_format, device=str(device))
+        executor=args.executor, wire_format=args.wire_format, overlap=args.overlap,
+        device=str(device))
     lr_fn = warmup_linear_scaled(args.lr / (R * args.local_world), R * args.local_world,
                                  max(1, args.steps // 10))
     result = run_training(make_lm_loss(cfg), params0,

@@ -13,6 +13,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+from repro_torch.core.compression import transfer_bytes
 from repro_torch.core.daso import DasoConfig
 from repro_torch.core.executor import get_strategy, list_strategies, make_strategy
 from repro_torch.core.simulator import SimResult, run_per_step_training
@@ -34,9 +35,12 @@ class TrainLoopConfig:
     lr: float = 0.05
     loss_window: int = 20
     executor: str = "per_step"        # "macro" is ROADMAP item 9
-    # wire tier of the global exchange: None derives bf16 / f32 per phase
+    # wire tier of the global exchange: None derives bf16 / f32 per phase,
+    # "f32" | "bf16" | "int8" forces one tier for both
     wire_format: Optional[str] = None
     exchange_impl: str = "fused"
+    # "one_cycle": the double-buffered overlap schedule (core/daso.py
+    # daso_overlap_step), each exchange merged one cycle stale
     overlap: str = "off"
     device: str = "cuda"
 
@@ -67,6 +71,16 @@ def build_strategy(loss_fn: Callable, cfg: TrainLoopConfig, optimizer: Optimizer
     return cls(loss_fn, optimizer, dcfg, controller=controller)
 
 
+def wire_summary(dcfg: DasoConfig, params) -> str:
+    """The wire tier of the cycling and blocking exchanges, and the bytes one
+    exchange of one replica's params puts on the wire at each."""
+    tiers = [dcfg.wire_format_for(blocking=b) for b in (False, True)]
+    nbytes = [transfer_bytes(params, wire_format=t, int8_block=dcfg.int8_block)
+              for t in tiers]
+    return (f"wire(cycling/blocking)={tiers[0]}/{tiers[1]} "
+            f"bytes_per_exchange={nbytes[0]}/{nbytes[1]} overlap={dcfg.overlap}")
+
+
 def run_training(loss_fn: Callable, params0, data_fn: Callable,
                  cfg: TrainLoopConfig, *, optimizer: Optional[Optimizer] = None,
                  lr_fn: Optional[Callable] = None,
@@ -90,8 +104,7 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
     t0 = time.time()
     result = run_per_step_training(strategy, params0, data_fn, lr_fn, cfg.n_steps)
     if log is not None:
-        wire = (f" wire={cfg.wire_format or 'auto'}/{cfg.exchange_impl}"
-                if cfg.strategy != "sync" else "")
+        wire = "" if cfg.strategy == "sync" else " " + wire_summary(strategy.cfg, params0)
         log(f"[train] strategy={cfg.strategy} steps={cfg.n_steps} "
             f"final_loss={result.final_loss:.4f} "
             f"sync_frac={result.sync_fraction:.3f} wall={time.time() - t0:.1f}s"

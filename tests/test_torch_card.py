@@ -12,11 +12,13 @@ import torch
 
 from repro_torch.configs import get_reduced
 from repro_torch.core import daso
+from repro_torch.core.schedule import split_ov
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.kernels import comm_kernels, ops
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.ref import (attention_ref, bf16_pack_ref, bf16_unpack_ref,
-                                     eq1_merge_ref)
+                                     dequantize_int8_block_ref, eq1_merge_ref,
+                                     quantize_int8_block_ref)
 from repro_torch.models.lm import forward, init_params
 from repro_torch.serve.engine import Engine, make_prefill_fn
 from repro_torch.train.loop import TrainLoopConfig, run_training
@@ -190,4 +192,81 @@ def test_daso_training_goes_through_the_kernels(cuda):
     assert comm_kernels.eq1_merge_fwd.launches - k2 == \
         sum(m in ("receive", "send_receive") for m in modes) > 0
     assert comm_kernels.bf16_pack_fwd.launches - k3 == modes.count("blocking") > 0
+    assert res.losses[-1] < res.losses[0]
+
+
+# -- int8 codec kernels K5 / K6: bit-exact with their plain versions ------------
+
+INT8_SIZES = [(1, 999, 0), (4, 999, 0), (4, 256 * 37, 0), (2, 256 * 37 + 5, 0),
+              (4, 4099, 1), (1, 1, 0), (3, 128 * 5, 1)]
+
+
+def _bits(cuda, shape, kind, seed):
+    if kind == "none":
+        return None
+    if kind == "random":
+        b = np.random.default_rng(seed).integers(0, 2 ** 32, shape, dtype=np.uint64)
+    else:
+        b = np.full(shape, 0 if kind == "zeros" else 0xFFFFFFFF, np.uint64)
+    return torch.from_numpy(b.astype(np.uint32)).to(cuda)
+
+
+def _same_or_nan(a, b):
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and _same_bits(torch.where(nan, 0.0, a),
+                                                           torch.where(nan, 0.0, b))
+
+
+@pytest.mark.parametrize("bits", ["none", "zeros", "ones", "random"])
+@pytest.mark.parametrize("block", [64, 128, 256, 100])
+@pytest.mark.parametrize("rows,n,offset", INT8_SIZES)
+def test_int8_kernels_bit_exact(cuda, rows, n, offset, block, bits):
+    x = _arena(cuda, rows * n, rows + n + block, torch.float32, offset).view(rows, n)
+    if n >= 4 * block:  # a zero block, a NaN block and an inf block
+        x[0, :block] = 0.0
+        x[0, block] = float("nan")
+        x[-1, 2 * block] = float("inf")
+    b = _bits(cuda, (rows, n), bits, block)
+    k5 = comm_kernels.quantize_int8_fwd.launches
+    k6 = comm_kernels.dequantize_int8_fwd.launches
+    v, s = ops.quantize_int8(x, b, block=block)
+    vr, sr = quantize_int8_block_ref(x, block=block, bits=b)
+    d = ops.dequantize_int8(v, s, block=block)
+    torch.cuda.synchronize()
+    assert comm_kernels.quantize_int8_fwd.launches == k5 + 1
+    assert comm_kernels.dequantize_int8_fwd.launches == k6 + 1
+    assert torch.equal(v, vr) and _same_or_nan(s, sr)
+    assert _same_or_nan(d, dequantize_int8_block_ref(v, s, block=block))
+
+
+def test_int8_kernels_take_bf16_arenas(cuda):
+    x = _arena(cuda, 3 * 1000, 5, torch.bfloat16).view(3, 1000)
+    v, s = ops.quantize_int8(x, block=128)
+    vr, sr = quantize_int8_block_ref(x, block=128)
+    assert torch.equal(v, vr) and _same_bits(s, sr)
+
+
+def test_int8_overlap_training_goes_through_the_kernels(cuda):
+    """A reduced int8 + overlap run on the card: K5 and K6 once per ov_sync
+    and blocking step, K2 once per ov_sync step (one f32 arena)."""
+    cfg = get_reduced("llama3.2-1b").replace(n_layers=2, vocab_size=256)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    src = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32, seed=0)
+
+    def data(step):
+        b = src.batch(8, step, device=cuda)
+        return {k: v.reshape((4, 2) + v.shape[1:]) for k, v in b.items()}
+
+    before = {f: f.launches for f in (comm_kernels.quantize_int8_fwd,
+                                      comm_kernels.dequantize_int8_fwd,
+                                      comm_kernels.eq1_merge_fwd)}
+    res = run_training(make_lm_loss(cfg), params, data,
+                       TrainLoopConfig(n_steps=30, n_replicas=4, wire_format="int8",
+                                       overlap="one_cycle", device="cuda"), log=None)
+    modes = [split_ov(h[1])[0] for h in res.controller.history]
+    n_sync, n_blocking = modes.count("ov_sync"), modes.count("blocking")
+    got = {f: f.launches - n for f, n in before.items()}
+    assert got[comm_kernels.quantize_int8_fwd] == n_sync + n_blocking
+    assert got[comm_kernels.dequantize_int8_fwd] == n_sync + n_blocking
+    assert got[comm_kernels.eq1_merge_fwd] == n_sync > 0
     assert res.losses[-1] < res.losses[0]

@@ -140,10 +140,9 @@ def test_exchange_without_kernels_takes_cpu_tensors_only():
 def test_unported_options_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 7"):
         daso.DasoConfig(n_replicas=4, global_world=16, exchange_impl="per_leaf")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        daso.DasoConfig(n_replicas=4, global_world=16, overlap="one_cycle")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        daso.DasoConfig(n_replicas=4, global_world=16, wire_format="int8")
+    with pytest.raises(ValueError, match="fused"):  # as the reference refuses it
+        daso.DasoConfig(n_replicas=4, global_world=16, exchange_impl="per_leaf",
+                        wire_format="int8")
     cfg = daso.DasoConfig(n_replicas=4, global_world=16)
     with pytest.raises(NotImplementedError, match="item 13"):
         daso.daso_train_step(None, sgd(), cfg, mode="local", inner_syncs=(("host", 2),))

@@ -2,7 +2,8 @@
 the JAX package's `repro.core.flatbuf` on the CPU, bit-exact throughout:
 layout and pack / unpack on the quickstart parameter tree, the arena means
 (the chain order of the replica reduction, f32 and bf16, R = 2, 3, 4) and
-the f32 / bf16 wire codecs. Inputs are made from a seed with numpy."""
+the f32 / bf16 wire codecs (the int8 tier: tests/test_torch_int8.py).
+Inputs are made from a seed with numpy."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -152,13 +153,6 @@ def test_tree_wire_roundtrip_bit_exact(wire):
     got = flatbuf.tree_wire_roundtrip(_to_torch(tree), wire, batch_dims=1)
     for a, b in zip(leaves(got), jax.tree.leaves(want)):
         np.testing.assert_array_equal(_np(a), _np(b))
-
-
-def test_int8_tier_waits_for_its_kernels():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        flatbuf.encode_wire(torch.zeros(4), "int8")
-    with pytest.raises(ValueError, match="unknown wire_format"):
-        flatbuf.encode_wire(torch.zeros(4), "fp8")
 
 
 def test_plain_codecs_take_cpu_tensors_only():

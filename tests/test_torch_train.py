@@ -224,10 +224,10 @@ def test_launcher_trains_on_the_cpu(tmp_path):
 @pytest.mark.parametrize("argv,err,match", [
     (["--ckpt", "d"], SystemExit, "item 11"),
     (["--topology=chip:4 x pod:2"], SystemExit, "item 13"),
-    (["--overlap", "one_cycle"], SystemExit, "item 12"),
+    (["--overlap-serial-exchange"], SystemExit, "item 9"),
     (["--distributed"], SystemExit, "item 16"),
     (["--executor", "macro"], NotImplementedError, "item 9"),
-    (["--wire-format", "int8"], NotImplementedError, "item 12"),
+    (["--exchange-impl", "per_leaf"], SystemExit, "item 7"),
 ])
 def test_launcher_refuses_unported_flags(argv, err, match):
     with pytest.raises(err, match=match):
