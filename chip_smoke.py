@@ -14,11 +14,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                ragged sizes, on misaligned views, on bf16 edge values and (K5,
                K6) on 1 and 4 rows, blocks 64 / 128 / 256, int8 edge blocks
                and stochastic bits 0, 0xFFFFFFFF and random
+  scan_check   hold K7 against its plain version (tests/test_kernels.py's
+               1e-4 f32 / 5e-2 bf16): f32 and bf16 x / Bm / Cm, zero and
+               random h0, S = 1, Di = 8200 (ragged edge), Bm / Cm as strided
+               column views, and the serving prefill's (4, 1024, 8192, 16)
   serve        Engine.generate on llama3.2-1b at full size (16 layers, bf16,
                seeded random weights): batch 4, prompt 1024, 32 new greedy
                tokens. K1 launches per prefill are counted; the prefill's
                last logits are held against a teacher-forced plain forward
                (bf16), and prefill + decode against it in f32 with 2 layers
+  serve_mamba  Engine.generate on falcon-mamba-7b at full size (64 layers,
+               bf16, seeded random weights): batch 4, prompt 1024, 32 new
+               greedy tokens. K7 launches are counted per prefill (64) and
+               in decode (0); the prefill's last logits are held against a
+               teacher-forced forward whose scan is the plain version (bf16),
+               and prefill + decode against it in f32 with 2 layers
   train_check  at full width (1 layer, f32, R = 4): a receive and a blocking
                step, an int8 send and an int8 blocking step, and an ov_sync
                step with extra staleness 1 (int8), each through the kernels,
@@ -38,7 +48,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                final carry's parameter and momentum arenas (4 x N f32); a
                wire_roundtrip of the parameters launches K3 and K4
   timing       each kernel, its plain version and the library call, at the
-               serving shape (K1) and the training arena (K2 to K6)
+               serving shape (K1, K7) and the training arena (K2 to K6)
 then the `kernels` line, the card's name and power limit, and as the last
 line {"ok": true, "device": {...}}.
 
@@ -55,6 +65,11 @@ from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+# The train phases come close to the card's memory and allocate whole
+# arenas at once; growable segments keep the caching allocator's free memory
+# usable for them after the serving phases (fixed-size segments left it in
+# pieces too small for an arena).
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
@@ -70,6 +85,7 @@ from repro_torch.kernels.comm_kernels import (bf16_pack_fwd, bf16_unpack_fwd,  #
                                               quantize_int8_fwd)
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.ssm_scan import ssm_scan_fwd  # noqa: E402
 from repro_torch.models.lm import forward, init_params  # noqa: E402
 from repro_torch.optim.optimizers import sgd  # noqa: E402
 from repro_torch.serve.engine import Engine, make_decode_fn, make_prefill_fn  # noqa: E402
@@ -78,6 +94,7 @@ from repro_torch.train.loop import TrainLoopConfig, run_training  # noqa: E402
 from repro_torch.train.step import make_lm_loss  # noqa: E402
 
 ARCH = "llama3.2-1b"
+MAMBA_ARCH = "falcon-mamba-7b"
 BATCH, PROMPT, NEW = 4, 1024, 32
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -127,8 +144,15 @@ KERNELS = [{
     "source": "src/repro_torch/csrc/comm_kernels.cu",
     "replaces": "src/repro/kernels/comm_kernels.py:149",
     "counter": dequantize_int8_fwd,
+}, {
+    "name": "ssm_scan",
+    "route": "cuda",
+    "source": "src/repro_torch/csrc/ssm_scan.cu",
+    "replaces": "src/repro/kernels/ssm_scan.py:19",
+    "counter": ssm_scan_fwd,
 }]
 SOURCES = sorted({os.path.basename(k["source"])[:-3] for k in KERNELS})
+COMM_KERNELS = [k for k in KERNELS if k["source"].endswith("comm_kernels.cu")]
 
 # f32 values where a bf16 cast can go wrong: ties to even, values above the
 # largest bf16 (round to inf), infinities, signed zeros, f32 subnormals
@@ -335,6 +359,211 @@ def serve_f32_check(cfg):
                 for i, lg in enumerate(logits)]
     if flash_attention_fwd.launches - before != cfg.n_layers:
         raise AssertionError("f32 prefill did not go through the kernel")
+    if not max(errs) < 2e-3:
+        raise AssertionError(f"f32 prefill/decode vs teacher forcing: {errs}")
+    return {"max_abs_err": max(errs), "tolerance": 2e-3, "steps": len(errs)}
+
+
+# K7 checks, tests/test_kernels.py:83's tolerances: (name, B, S, Di, N, dtype,
+# random h0, Bm / Cm as column views of one (B, S, R + 2N) tensor)
+SCAN_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
+SCAN_CHECKS = [
+    ("small_f32", 2, 64, 128, 16, torch.float32, False, False),
+    ("small_bf16", 1, 128, 64, 8, torch.bfloat16, False, False),
+    ("random_h0_f32", 3, 37, 100, 4, torch.float32, True, False),
+    ("random_h0_bf16", 2, 200, 512, 16, torch.bfloat16, True, False),
+    ("s1_f32", 4, 1, 8192, 16, torch.float32, True, False),
+    ("s1_bf16", 4, 1, 8192, 16, torch.bfloat16, True, True),
+    ("di8200_f32", 2, 300, 8200, 16, torch.float32, True, False),
+    ("di8200_bf16_strided", 2, 300, 8200, 16, torch.bfloat16, False, True),
+    ("strided_f32", 2, 129, 1024, 16, torch.float32, True, True),
+    ("n32_f32", 1, 70, 256, 32, torch.float32, True, True),
+    ("serve_shape_f32", 4, 1024, 8192, 16, torch.float32, False, True),
+    ("serve_shape_bf16", 4, 1024, 8192, 16, torch.bfloat16, False, True),
+]
+
+
+def scan_inputs(B, S, Di, N, dtype, random_h0, strided, seed, dt_rank=256):
+    """K7's inputs on the card, as the mamba mixer makes them: dt from a
+    softplus (f32), A = -exp(.) (f32), Bm / Cm optionally column slices of
+    one (B, S, dt_rank + 2N) projection."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    x = randn(B, S, Di).to(dtype)
+    dt = F.softplus(randn(B, S, Di))  # as tests/test_kernels.py:77 draws it
+    A = -torch.exp(0.5 * randn(Di, N))
+    if strided:
+        _, Bm, Cm = randn(B, S, dt_rank + 2 * N).to(dtype).split([dt_rank, N, N], dim=-1)
+    else:
+        Bm, Cm = randn(B, S, N).to(dtype), randn(B, S, N).to(dtype)
+    h0 = randn(B, Di, N) if random_h0 else torch.zeros((B, Di, N), device="cuda")
+    return x, dt, A, Bm, Cm, h0
+
+
+def phase_scan_check():
+    """K7 against its plain version: y and the final h."""
+    rows = []
+    for i, (name, B, S, Di, N, dtype, random_h0, strided) in enumerate(SCAN_CHECKS):
+        args = scan_inputs(B, S, Di, N, dtype, random_h0, strided, seed=200 + i)
+        y, h = ops.ssm_scan(*args)
+        sync()
+        yr, hr = ref.ssm_scan_ref(*args)
+        err = max((y - yr).abs().max().item(), (h - hr).abs().max().item())
+        rows.append({"case": name, "shape": [B, S, Di, N], "dtype": str(dtype),
+                     "random_h0": random_h0, "strided_b_c": strided,
+                     "max_abs_err": err, "tolerance": SCAN_TOL[dtype]})
+        del args, y, h, yr, hr
+        if not (math.isfinite(err) and err <= SCAN_TOL[dtype]):
+            emit({"phase": "scan_check", "failed": rows[-1]})
+            raise AssertionError(f"ssm_scan check {name}: {err} > {SCAN_TOL[dtype]}")
+    torch.cuda.empty_cache()
+    emit({"phase": "scan_check", "cases": rows})
+    return rows
+
+
+@contextmanager
+def plain_scan():
+    """The mamba mixer's scan through K7's plain version, so the same
+    forward is the teacher-forced reference."""
+    saved = ops.ssm_scan
+    ops.ssm_scan = ref.ssm_scan_ref
+    try:
+        yield
+    finally:
+        ops.ssm_scan = saved
+
+
+def mamba_decode_bytes(cfg, params, cache):
+    """What one decode step must move: every weight once, but of the
+    embedding table only the batch's rows, and the recurrent cache (conv
+    window and state) read and written."""
+    tok = params["embed"]["tok"]
+    return (tensor_bytes(params) - tensor_bytes(tok) + BATCH * tok[0].numel()
+            * tok.element_size() + 2 * tensor_bytes(cache))
+
+
+def phase_serve_mamba():
+    cfg = get_config(MAMBA_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = init_params(cfg, gen, "cuda")
+    n_params = sum(x.numel() for x in leaves(params))
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                            device="cuda")
+    eng = Engine(cfg, params, max_len=PROMPT + NEW, device="cuda")
+    eng.generate(prompts, 2)  # warm-up: kernel load, cuBLAS handles
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompts, NEW)
+    sync()
+    gen_s = time.perf_counter() - t0
+    per_generate = counts()
+    if tuple(tokens.shape) != (BATCH, NEW) or tokens.dtype != torch.int32 or not (
+            0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size):
+        raise AssertionError(f"bad tokens {tokens.shape} {tokens.dtype}")
+
+    with torch.inference_mode():
+        prefill = make_prefill_fn(cfg, cache_len=PROMPT + NEW)
+        decode = make_decode_fn(cfg)
+        sync()
+        zero_counts()
+        t0 = time.perf_counter()
+        st = prefill(params, prompts)
+        sync()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        per_prefill = counts()
+        zero_counts()
+        cache, nxt = st["cache"], st["logits_last"].argmax(-1, keepdim=True)
+        t0 = time.perf_counter()
+        for i in range(NEW - 1):
+            nxt = decode(params, cache, nxt, PROMPT + i)["logits"].argmax(-1, keepdim=True)
+        sync()
+        decode_ms = 1e3 * (time.perf_counter() - t0) / (NEW - 1)
+        in_decode = counts()
+        peak = torch.cuda.max_memory_allocated()
+        decode_bytes = mamba_decode_bytes(cfg, params, cache)
+
+        got = st["logits_last"].float()
+        with plain_scan():
+            want = forward(params, prompts, cfg)["logits"][:, -1].float()
+        peak_logit = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        del prefill, decode, want
+        # both round y, the residual and the logits to bf16; the scans sum in
+        # other orders (y 1e-6 apart in f32), so a bf16 rounding of y flips
+        # now and then and 64 layers carry it: 8 ulps of the largest logit
+        tol = 8 * bf16_ulp(peak_logit)
+        finite = bool(torch.isfinite(got).all())
+        # random weights: the sinusoidal positions (amplitude 1) outweigh the
+        # token embeddings (std 0.02), so greedy tokens may agree across rows;
+        # the logits must still depend on the prompt
+        row_spread = (got - got[:1]).abs().max().item()
+    del params, eng, cache, st
+    torch.cuda.empty_cache()
+    if not row_spread > 0:
+        raise AssertionError("falcon-mamba last logits do not depend on the prompt")
+    want_counts = {k["name"]: 0 for k in KERNELS}
+    if per_prefill != {**want_counts, "ssm_scan": cfg.n_layers} or in_decode != want_counts \
+            or per_generate != per_prefill:
+        raise AssertionError(f"falcon-mamba launches: prefill {per_prefill}, decode "
+                             f"{in_decode}, generate {per_generate}")
+    if not (finite and err <= tol):
+        raise AssertionError(f"bf16 prefill logits: max err {err} > {tol} (finite={finite})")
+
+    f32 = serve_mamba_f32_check(cfg)
+    emit({"phase": "serve_mamba", "arch": MAMBA_ARCH, "layers": cfg.n_layers,
+          "dtype": "bfloat16", "params": n_params,
+          "widths": {"d_model": cfg.d_model, "d_inner": cfg.d_inner,
+                     "d_state": cfg.ssm.d_state, "d_conv": cfg.ssm.d_conv,
+                     "dt_rank": cfg.dt_rank, "vocab": cfg.vocab_size,
+                     "tie_embeddings": cfg.tie_embeddings},
+          "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW,
+          "launches_per_generate": per_generate, "launches_per_prefill": per_prefill,
+          "launches_in_decode": in_decode,
+          "generate_s": gen_s, "tokens_per_s": BATCH * NEW / gen_s,
+          "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+          "decode_bytes": decode_bytes, "decode_bound_ms": 1e3 * decode_bytes / PEAK_BYTES,
+          "max_memory_allocated": peak,
+          "bf16_last_logits_max_abs_err": err, "bf16_tolerance": tol,
+          "max_abs_logit": peak_logit, "last_logits_row_spread": row_spread,
+          "greedy_rows_distinct": len({tuple(r) for r in tokens.tolist()}),
+          "f32_2layer": f32})
+    return per_generate
+
+
+def serve_mamba_f32_check(cfg):
+    """Prefill through K7 + 6 decode steps against a teacher-forced forward
+    through the plain scan, f32, full width, 2 layers, at
+    tests/test_serve.py's 2e-3."""
+    cfg = cfg.replace(n_layers=2, param_dtype=torch.float32,
+                      compute_dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = init_params(cfg, gen, "cuda")
+    B, S, S0 = 2, 256, 250
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    with torch.inference_mode():
+        with plain_scan():
+            full = forward(params, toks, cfg)["logits"]
+        before = ssm_scan_fwd.launches
+        st = make_prefill_fn(cfg, cache_len=S)(params, toks[:, :S0])
+        launched = ssm_scan_fwd.launches - before
+        decode = make_decode_fn(cfg)
+        cache, logits = st["cache"], [st["logits_last"]]
+        for i in range(S - S0):
+            out = decode(params, cache, toks[:, S0 + i:S0 + i + 1], S0 + i)
+            logits.append(out["logits"])
+            cache = out["cache"]
+        errs = [(full[:, S0 - 1 + i] - lg).abs().max().item()
+                for i, lg in enumerate(logits)]
+    del params, full, cache, st
+    torch.cuda.empty_cache()
+    if launched != cfg.n_layers or ssm_scan_fwd.launches - before != cfg.n_layers:
+        raise AssertionError("f32 prefill did not go through K7 once per layer")
     if not max(errs) < 2e-3:
         raise AssertionError(f"f32 prefill/decode vs teacher forcing: {errs}")
     return {"max_abs_err": max(errs), "tolerance": 2e-3, "steps": len(errs)}
@@ -667,7 +896,7 @@ def phase_train_int8_overlap():
     check_launches(row, launches, {
         "flash_attention_fwd": 0, "eq1_merge": n_sync, "bf16_pack": 0,
         "bf16_unpack": 0, "quantize_int8": n_sync + n_blocking,
-        "dequantize_int8": n_sync + n_blocking})
+        "dequantize_int8": n_sync + n_blocking, "ssm_scan": 0})
     row["wire_bytes_per_exchange"] = {
         t: compression.transfer_bytes(params0, wire_format=t) for t in ("f32", "bf16", "int8")}
     emit(row)
@@ -688,7 +917,7 @@ def phase_train():
         "flash_attention_fwd": 0,
         "eq1_merge": sum(m in ("receive", "send_receive") for m in modes),
         "bf16_pack": modes.count("blocking"), "bf16_unpack": 0, "quantize_int8": 0,
-        "dequantize_int8": 0})
+        "dequantize_int8": 0, "ssm_scan": 0})
     emit(row)
     params_r, opt_r, _ = res.carry
     del res, params0
@@ -731,7 +960,7 @@ def phase_arena(trained):
     if launches["bf16_pack"] != 1 or launches["bf16_unpack"] != 1:
         raise AssertionError(f"wire_roundtrip launches {launches}")
     kw = dict(staleness=1, global_world=TRAIN_R * TRAIN_LOCAL_WORLD)
-    checks, errs = {}, {k["name"]: 0.0 for k in KERNELS[1:]}
+    checks, errs = {}, {k["name"]: 0.0 for k in COMM_KERNELS}
 
     def check(kernel, arena_name, got, want):
         """got, want: a tensor, or K5's (values, scales)."""
@@ -771,12 +1000,57 @@ def bytes_bound(nbytes):
     return 1e3 * nbytes / PEAK_BYTES, "bytes"
 
 
-def phase_timing(check_rows, serve_launches, path_launches, arena_parts):
+def mufu_exps_per_s():
+    """The card's peak rate of f32 exps: 16 MUFU ex2 per SM per clock (sm_90)
+    at the largest SM clock nvidia-smi reports."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(r.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 16 * sms * mhz * 1e6, {"sms": sms, "max_sm_clock_mhz": mhz}
+
+
+def scan_timing(scan_rows, mamba_launches):
+    """K7's line at the serving prefill's shape: bf16 x, strided bf16 Bm / Cm
+    as the mixer hands them over, f32 dt, A and h0."""
+    cfg = get_config(MAMBA_ARCH)
+    B, S, Di, N = BATCH, PROMPT, cfg.d_inner, cfg.ssm.d_state
+    args = scan_inputs(B, S, Di, N, torch.bfloat16, False, True, seed=9,
+                       dt_rank=cfg.dt_rank)
+    x, dt, A, Bm, Cm, h0 = args
+    # each input read once (Bm, Cm: the N columns of each row), y and h written
+    nbytes = (x.numel() * x.element_size() + dt.numel() * 4 + A.numel() * 4
+              + 2 * B * S * N * Bm.element_size() + h0.numel() * 4
+              + B * S * Di * 4 + B * Di * N * 4)
+    exps = B * S * Di * N
+    rate, clock = mufu_exps_per_s()
+    bytes_ms, exp_ms = 1e3 * nbytes / PEAK_BYTES, 1e3 * exps / rate
+    row = next(r for r in scan_rows if r["case"] == "serve_shape_bf16")
+    kern = next(k for k in KERNELS if k["name"] == "ssm_scan")
+    line = {
+        "name": kern["name"], "route": kern["route"], "source": kern["source"],
+        "replaces": kern["replaces"], "launches": mamba_launches["ssm_scan"],
+        "max_abs_err": row["max_abs_err"], "tolerance": row["tolerance"],
+        "ms": cuda_ms(lambda: ops.ssm_scan(*args), 20),
+        "plain_ms": cuda_ms(lambda: ref.ssm_scan_ref(*args), 2, warmup=1),
+        "bound_ms": max(bytes_ms, exp_ms),
+        "bound_by": "operations" if exp_ms >= bytes_ms else "bytes",
+        "bytes": nbytes, "bytes_ms": bytes_ms, "exps": exps, "exp_ms": exp_ms,
+        "exp_rate": rate, **clock, "library_ms": None,
+        "library": "none: no single PyTorch call computes a selective-scan recurrence",
+        "shape": [B, S, Di, N], "dtype": "bf16 x / Bm / Cm, f32 dt / A / h0",
+        "path": "serve_mamba prefill (per generate)"}
+    del args, x, dt, A, Bm, Cm, h0
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_timing(check_rows, serve_launches, path_launches, arena_parts, scan_line):
     """Times of each kernel, its plain version and the library call (K1 at
-    the serving shape, K2 to K6 at the training arena), and the kernels
-    line. `path_launches` holds each training path's launch counts: K2 to
-    K4 report the train phase's, K5 and K6 the train_int8_overlap phase's,
-    and every comm kernel lists both."""
+    the serving shape, K2 to K6 at the training arena; K7's line comes from
+    `scan_timing`), and the kernels line. `path_launches` holds each
+    training path's launch counts: K2 to K4 report the train phase's, K5 and
+    K6 the train_int8_overlap phase's, and every comm kernel lists both."""
     q, k, v = qkv(4, 32, 8, PROMPT, PROMPT, 64, torch.bfloat16, seed=7)
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 50)
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v), 10)
@@ -827,7 +1101,7 @@ def phase_timing(check_rows, serve_launches, path_launches, arena_parts):
                             int8_bytes, int8_launches["dequantize_int8"],
                             "train_int8_overlap (ov_sync and blocking steps)"),
     }
-    for kern in KERNELS[1:]:
+    for kern in COMM_KERNELS:
         kernel_fn, plain_fn, library_fn, nbytes, launches, path = timed[kern["name"]]
         bound, by = bytes_bound(nbytes)
         lines.append({
@@ -849,7 +1123,7 @@ def phase_timing(check_rows, serve_launches, path_launches, arena_parts):
     next(line for line in lines if line["name"] == "quantize_int8").update(
         stochastic_ms=cuda_ms(lambda: ops.quantize_int8(arena, bits), 10, warmup=2),
         stochastic_bound_ms=bytes_bound(int8_bytes + n * 4)[0])
-    emit({"kernels": lines})
+    emit({"kernels": lines + [scan_line]})
 
 
 def card_line():
@@ -869,13 +1143,17 @@ def main():
     phase_build()
     rows = phase_check()
     phase_comm_check()
+    scan_rows = phase_scan_check()
     serve_launches = phase_serve()
+    mamba_launches = phase_serve_mamba()
+    scan_line = scan_timing(scan_rows, mamba_launches)
     phase_train_check()
     int8_launches = phase_train_int8_overlap()
     trained = phase_train()
     arena_parts = phase_arena(trained)
     phase_timing(rows, serve_launches, {"train": trained["launches"],
-                                        "train_int8_overlap": int8_launches}, arena_parts)
+                                        "train_int8_overlap": int8_launches}, arena_parts,
+                 scan_line)
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,14 +4,15 @@ Each registered architecture has one module in this package exporting
 CONFIG (the exact published shape). `get_reduced` derives a tiny
 same-family variant for CPU tests. The fields mirror the JAX package's
 `ArchConfig` for the layer kinds the port runs (causal, sliding-window and
-local attention with a dense SwiGLU FFN); dtypes are `torch.dtype`s.
+local attention with a dense SwiGLU FFN, and the Mamba-1 mixer); dtypes are
+`torch.dtype`s.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,22 +20,37 @@ import torch
 ATTN = "attn"              # global causal attention
 ATTN_SWA = "attn_swa"      # sliding-window causal attention
 ATTN_LOCAL = "attn_local"  # local attention (recurrentgemma-style window)
+MAMBA = "mamba"            # Mamba-1 selective-SSM mixer
+RGLRU = "rglru"            # RG-LRU gated linear recurrence mixer (not ported)
 
 ATTENTION_KINDS = (ATTN, ATTN_SWA, ATTN_LOCAL)
+RECURRENT_KINDS = (MAMBA, RGLRU)
+PORTED_KINDS = ATTENTION_KINDS + (MAMBA,)  # RGLRU is the one still to port
+RGLRU_NOT_PORTED = "the RG-LRU mixer is not ported yet (ROADMAP item 19a)"
+
+
+@dataclass(frozen=True)
+class SSMConfig:  # Mamba-1
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
 
 
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # dense
+    family: str                     # dense | ssm
     n_layers: int
     d_model: int
     n_heads: int
     n_kv_heads: int
     head_dim: int
-    d_ff: int                       # dense FFN hidden size
+    d_ff: int                       # dense FFN hidden (0 for attention-free)
     vocab_size: int
     layer_pattern: Tuple[str, ...] = (ATTN,)
+    ssm: Optional[SSMConfig] = None
+    rope_type: str = "standard"     # standard | none (sinusoidal positions)
     rope_theta: float = 10000.0
     sliding_window: int = 0         # window for attn_swa / attn_local layers
     tie_embeddings: bool = False
@@ -45,19 +61,41 @@ class ArchConfig:
     compute_dtype: torch.dtype = torch.bfloat16
     source: str = ""
 
+    @property
+    def dt_rank(self) -> int:
+        if self.ssm is None:
+            return 0
+        return self.ssm.dt_rank or -(-self.d_model // 16)
+
+    @property
+    def d_inner(self) -> int:
+        return 0 if self.ssm is None else self.ssm.expand * self.d_model
+
+    def has_attention(self) -> bool:
+        return any(k in ATTENTION_KINDS for k in self.layer_pattern)
+
     def validate(self) -> None:
-        if self.n_layers < 1 or self.d_model < 1 or self.d_ff < 1:
-            raise ValueError(f"{self.name}: n_layers, d_model and d_ff must be >= 1")
-        if self.n_heads < 1 or self.head_dim < 1 or self.n_kv_heads < 1:
-            raise ValueError(f"{self.name}: heads and head_dim must be >= 1")
-        if self.n_heads % self.n_kv_heads:
-            raise ValueError(f"{self.name}: n_heads % n_kv_heads != 0")
+        """The reference's checks (`repro/configs/base.py::validate`):
+        attention-free and FFN-free configurations are valid."""
+        if self.n_layers < 1 or self.d_model < 1:
+            raise ValueError(f"{self.name}: n_layers and d_model must be >= 1")
+        if self.has_attention():
+            if self.n_heads < 1 or self.head_dim < 1 or self.n_kv_heads < 1:
+                raise ValueError(f"{self.name}: heads and head_dim must be >= 1")
+            if self.n_heads % self.n_kv_heads:
+                raise ValueError(f"{self.name}: n_heads % n_kv_heads != 0")
         for kind in self.layer_pattern:
-            if kind not in ATTENTION_KINDS:
-                raise ValueError(f"{self.name}: layer kind {kind!r} is not ported")
+            if kind not in ATTENTION_KINDS + RECURRENT_KINDS:
+                raise ValueError(f"{self.name}: unknown layer kind {kind!r}")
+            if kind not in PORTED_KINDS:
+                raise ValueError(f"{self.name}: {RGLRU_NOT_PORTED}")
+        if MAMBA in self.layer_pattern and self.ssm is None:
+            raise ValueError(f"{self.name}: mamba layers need an SSMConfig")
         if (any(k in (ATTN_SWA, ATTN_LOCAL) for k in self.layer_pattern)
                 and self.sliding_window <= 0):
             raise ValueError(f"{self.name}: windowed layers need sliding_window > 0")
+        if self.rope_type not in ("standard", "none"):
+            raise ValueError(f"{self.name}: rope_type {self.rope_type!r} is not ported")
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
@@ -76,7 +114,7 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
     head_dim = max(8, d_model // max(n_heads, 1))
     return cfg.replace(
         n_layers=n_layers, d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv,
-        head_dim=head_dim, d_ff=min(cfg.d_ff, 512),
+        head_dim=head_dim, d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
         vocab_size=min(cfg.vocab_size, 512),
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
         long_context_window=min(cfg.long_context_window, 64)
@@ -85,7 +123,7 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
     )
 
 
-ARCH_IDS = ("llama3.2-1b",)
+ARCH_IDS = ("llama3.2-1b", "falcon-mamba-7b")
 
 
 def _module(arch_id: str):

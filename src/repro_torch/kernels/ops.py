@@ -17,10 +17,11 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import comm_kernels as comm
+from repro_torch.kernels import ssm_scan as scan
 from repro_torch.kernels.flash_attention import check_inputs, flash_attention_fwd
 from repro_torch.kernels.ref import (attention_ref, bf16_pack_ref, bf16_unpack_ref,
                                      dequantize_int8_block_ref, eq1_merge_ref,
-                                     quantize_int8_block_ref)
+                                     quantize_int8_block_ref, ssm_scan_ref)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -89,6 +90,16 @@ def _on_card(name: str, t) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {t.device}")
     return True
+
+
+def ssm_scan(x, dt, A, Bm, Cm, h0):
+    """Mamba-1 selective scan (K7): x, dt (B,S,Di); A (Di,N) f32; Bm, Cm
+    (B,S,N); h0 (B,Di,N) f32 -> (y (B,S,Di) f32, h_final (B,Di,N) f32).
+    Forward only: raises NotImplementedError when a gradient is asked for."""
+    scan.check_inputs(x, dt, A, Bm, Cm, h0)
+    if not _on_card("ssm_scan", x):
+        return ssm_scan_ref(x, dt, A, Bm, Cm, h0)
+    return scan.ssm_scan_fwd(kernel_library("ssm_scan"), x, dt, A, Bm, Cm, h0)
 
 
 def eq1_merge(local, stale, *, staleness: int, global_world,

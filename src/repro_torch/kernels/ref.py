@@ -26,6 +26,23 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return o.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+def ssm_scan_ref(x, dt, A, Bm, Cm, h0):
+    """Mamba selective scan, sequential over t, all in f32
+    (`repro/kernels/ref.py::ssm_scan_ref`): h_t = exp(dt_t A) h_{t-1} +
+    (dt_t x_t) B_t, y_t = sum_n h_t C_t. x, dt (B,S,Di); A (Di,N); Bm, Cm
+    (B,S,N); h0 (B,Di,N). Returns (y (B,S,Di) f32, h_final (B,Di,N) f32)."""
+    h = h0.float()
+    A = A.float()
+    ys = []
+    for t in range(x.shape[1]):
+        dt_t = dt[:, t].float()
+        da = torch.exp(dt_t[..., None] * A)
+        db = (dt_t * x[:, t].float())[..., None] * Bm[:, t].float()[:, None, :]
+        h = da * h + db
+        ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t].float()))
+    return torch.stack(ys, dim=1), h
+
+
 def eq1_merge_ref(local, stale, *, staleness, global_world, extra_staleness=0):
     """Paper Eq. (1) over an arena (or any tensor), as
     `repro/kernels/ref.py::eq1_merge_ref` computes it: f32 math, result in

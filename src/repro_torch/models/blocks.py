@@ -1,13 +1,15 @@
-"""Residual block assembly: attention mixer + dense SwiGLU FFN."""
+"""Residual block assembly: mixer (attention / mamba) + dense SwiGLU FFN."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ATTENTION_KINDS, ATTN, ATTN_LOCAL, ATTN_SWA
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_SWA, MAMBA, PORTED_KINDS,
+                                      RGLRU, RGLRU_NOT_PORTED)
 from repro_torch.models.attention import attn_apply, init_attn
 from repro_torch.models.common import dense_init, rms_norm, silu_mlp
+from repro_torch.models.mamba import init_mamba, init_mamba_cache, mamba_apply
 
 
 def _init_ffn(generator, cfg, dtype, device):
@@ -22,18 +24,31 @@ def _init_ffn(generator, cfg, dtype, device):
 
 
 def _check_kind(kind):
-    if kind not in ATTENTION_KINDS:
+    if kind == RGLRU:
+        raise ValueError(RGLRU_NOT_PORTED)
+    if kind not in PORTED_KINDS:
         raise ValueError(f"layer kind {kind!r} is not ported")
+
+
+def _has_ffn(cfg, kind) -> bool:
+    return kind != MAMBA and cfg.d_ff > 0
 
 
 def init_block(generator, cfg, kind, dtype, device):
     _check_kind(kind)
-    return {"attn": init_attn(generator, cfg, dtype, device),
-            "ffn": _init_ffn(generator, cfg, dtype, device)}
+    if kind == MAMBA:
+        p = {"mamba": init_mamba(generator, cfg, dtype, device)}
+    else:
+        p = {"attn": init_attn(generator, cfg, dtype, device)}
+    if _has_ffn(cfg, kind):
+        p["ffn"] = _init_ffn(generator, cfg, dtype, device)
+    return p
 
 
 def init_block_cache(cfg, kind, batch, cache_len, dtype, device):
     _check_kind(kind)
+    if kind == MAMBA:
+        return init_mamba_cache(cfg, batch, dtype, device)
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -51,12 +66,17 @@ def block_window(cfg, kind, window_override: int) -> int:
 def apply_block(kind, p, x, positions, cfg, *, cache: Optional[dict] = None,
                 pos: Optional[int] = None, window_override: int = 0,
                 attn_impl: str = "kernel"):
-    """x (B,S,D) -> (x, cache)."""
+    """x (B,S,D) -> (x, cache); the cache tensors are written in place."""
     _check_kind(kind)
-    delta, cache = attn_apply(p["attn"], x, positions, cfg,
-                              window=block_window(cfg, kind, window_override),
-                              cache=cache, pos=pos, impl=attn_impl)
+    if kind == MAMBA:
+        h = rms_norm(x, p["mamba"]["norm"], cfg.norm_eps)
+        delta, cache = mamba_apply(p["mamba"], h, cfg, cache=cache)
+    else:
+        delta, cache = attn_apply(p["attn"], x, positions, cfg,
+                                  window=block_window(cfg, kind, window_override),
+                                  cache=cache, pos=pos, impl=attn_impl)
     x = x + delta
-    h = rms_norm(x, p["ffn"]["norm"], cfg.norm_eps)
-    x = x + silu_mlp(h, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
+    if _has_ffn(cfg, kind):
+        h = rms_norm(x, p["ffn"]["norm"], cfg.norm_eps)
+        x = x + silu_mlp(h, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
     return x, cache

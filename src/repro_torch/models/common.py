@@ -1,5 +1,7 @@
-"""Shared building blocks: norms, initializers, activations."""
+"""Shared building blocks: norms, initializers, activations, positions."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +30,16 @@ def dense_init(generator, shape, dtype, device, scale=None, axis=0):
 
 def embed_init(generator, shape, dtype, device):
     return _trunc_normal(shape, 0.02, dtype, device, generator)
+
+
+def sinusoidal_positions(positions, dim, max_wavelength=10000.0):
+    """positions (...,) int -> (..., dim) f32 sinusoidal embedding
+    (`repro/models/common.py::sinusoidal_positions`)."""
+    half = dim // 2
+    idx = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freq = torch.exp(-math.log(max_wavelength) * idx / half)
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def silu_mlp(x, w1, w3, w2):

@@ -1,7 +1,9 @@
 """Serving engine: batched prefill + one-token decode over the decoder LM.
 
-Prefill attention runs through the flash attention kernel; decode attends
-one new token against the KV cache, which is written in place.
+Prefill attention runs through the flash attention kernel and the mamba
+mixer's scan through the selective-scan kernel; decode attends one new token
+against the KV cache, or steps the recurrent SSM state. The cache
+(`models/lm.py::init_cache`) is written in place.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.lm import forward, init_cache
+from repro_torch.models.lm import forward, init_cache, layer_views
 
 
 def make_prefill_fn(cfg: ArchConfig, *, cache_len: int,
@@ -32,12 +34,20 @@ def make_prefill_fn(cfg: ArchConfig, *, cache_len: int,
 
 def make_decode_fn(cfg: ArchConfig, *, window_override: int = 0):
     """serve_step(params, cache, token (B,1), pos int) -> {"logits" (B,V),
-    "cache"}: exactly one new token at absolute position `pos`."""
+    "cache"}: exactly one new token at absolute position `pos`. The
+    per-layer views of params and cache are built once per (params, cache)
+    pair, not per token."""
+    held = {"pair": (None, None)}  # the last (params, cache) and its views
+
     def serve_step(params, cache, token, pos: int):
+        p, c = held["pair"]
+        if p is not params or c is not cache:
+            held.update(pair=(params, cache), layers=layer_views(cfg, params, cache))
         positions = torch.full(token.shape, pos, dtype=torch.int32,
                                device=token.device)
         out = forward(params, token, cfg, positions=positions, cache=cache,
-                      pos=pos, window_override=window_override)
+                      pos=pos, window_override=window_override,
+                      layers=held["layers"])
         return {"logits": out["logits"][:, -1], "cache": out["cache"]}
 
     return serve_step
@@ -67,7 +77,8 @@ class Engine:
     def generate(self, prompts: torch.Tensor, max_new_tokens: int, *,
                  temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None):
-        """prompts (B, S_prompt) int -> (B, max_new_tokens) int64."""
+        """prompts (B, S_prompt) int -> (B, max_new_tokens) int32, as the
+        reference engine returns."""
         if prompts.device.type != self.device.type:
             raise ValueError(f"prompts on {prompts.device}, Engine on {self.device}")
         S = prompts.shape[1]
@@ -90,4 +101,4 @@ class Engine:
             step = self._decode(self.params, cache, nxt, pos)
             logits, cache = step["logits"], step["cache"]
             pos += 1
-        return torch.cat(outs, dim=1)
+        return torch.cat(outs, dim=1).to(torch.int32)

@@ -18,9 +18,10 @@ from repro_torch.kernels import comm_kernels, ops
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.ref import (attention_ref, bf16_pack_ref, bf16_unpack_ref,
                                      dequantize_int8_block_ref, eq1_merge_ref,
-                                     quantize_int8_block_ref)
+                                     quantize_int8_block_ref, ssm_scan_ref)
+from repro_torch.kernels.ssm_scan import ssm_scan_fwd
 from repro_torch.models.lm import forward, init_params
-from repro_torch.serve.engine import Engine, make_prefill_fn
+from repro_torch.serve.engine import Engine, make_decode_fn, make_prefill_fn
 from repro_torch.train.loop import TrainLoopConfig, run_training
 from repro_torch.train.step import make_lm_loss
 
@@ -270,3 +271,79 @@ def test_int8_overlap_training_goes_through_the_kernels(cuda):
     assert got[comm_kernels.dequantize_int8_fwd] == n_sync + n_blocking
     assert got[comm_kernels.eq1_merge_fwd] == n_sync > 0
     assert res.losses[-1] < res.losses[0]
+
+
+# -- K7 ssm_scan: within the reference's tolerance of its plain version ----------
+
+SCAN_ATOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}  # tests/test_kernels.py:83
+# (B, S, Di, N, random h0, Bm / Cm as column views of one (B, S, R + 2N) tensor)
+SCAN_CASES = [
+    (2, 64, 128, 16, False, False),
+    (1, 128, 64, 8, True, False),
+    (3, 37, 100, 4, True, False),
+    (2, 1, 8200, 16, True, False),     # S = 1; Di past a multiple of the block
+    (2, 300, 8200, 16, False, True),   # ragged edge and strided Bm / Cm
+    (1, 70, 256, 32, True, True),
+    (4, 1024, 8192, 16, False, True),  # the serving prefill's shape
+]
+
+
+def _scan_inputs(cuda, B, S, Di, N, random_h0, strided, dtype, seed):
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda)
+
+    x = f32(B, S, Di).to(dtype)
+    dt = torch.nn.functional.softplus(f32(B, S, Di))
+    A = -torch.exp(0.5 * f32(Di, N))
+    if strided:
+        _, Bm, Cm = f32(B, S, 8 + 2 * N).to(dtype).split([8, N, N], dim=-1)
+    else:
+        Bm, Cm = f32(B, S, N).to(dtype), f32(B, S, N).to(dtype)
+    h0 = f32(B, Di, N) if random_h0 else torch.zeros((B, Di, N), device=cuda)
+    return x, dt, A, Bm, Cm, h0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Di,N,random_h0,strided", SCAN_CASES)
+def test_ssm_scan_kernel_matches_plain(cuda, B, S, Di, N, random_h0, strided, dtype):
+    args = _scan_inputs(cuda, B, S, Di, N, random_h0, strided, dtype, seed=S + Di + N)
+    before = ssm_scan_fwd.launches
+    y, h = ops.ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert ssm_scan_fwd.launches == before + 1
+    assert y.dtype == h.dtype == torch.float32
+    yr, hr = ssm_scan_ref(*args)
+    assert (y - yr).abs().max().item() <= SCAN_ATOL[dtype]
+    assert (h - hr).abs().max().item() <= SCAN_ATOL[dtype]
+
+
+def test_ssm_scan_refuses_a_gradient_on_the_card(cuda):
+    x, dt, A, Bm, Cm, h0 = _scan_inputs(cuda, 1, 8, 64, 16, False, False, torch.float32, 0)
+    with pytest.raises(NotImplementedError, match="item 23"):
+        ops.ssm_scan(x, dt.requires_grad_(), A, Bm, Cm, h0)
+
+
+def test_mamba_serving_goes_through_the_kernel(cuda):
+    """falcon-mamba-7b's widths at 2 layers, f32: one K7 launch per layer per
+    prefill and none in decode; prefill + decode agree with a teacher-forced
+    forward (tests/test_serve.py's 2e-3); generate returns int32."""
+    cfg = get_reduced("falcon-mamba-7b").replace(d_model=4096, vocab_size=65024)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_params(cfg, gen, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen, device=cuda)
+    with torch.inference_mode():
+        full = forward(params, toks, cfg)["logits"]
+        before = ssm_scan_fwd.launches
+        st = make_prefill_fn(cfg, cache_len=40)(params, toks[:, :32])
+        assert ssm_scan_fwd.launches - before == cfg.n_layers
+        decode = make_decode_fn(cfg)
+        cache, errs = st["cache"], [(st["logits_last"] - full[:, 31]).abs().max().item()]
+        for i in range(32, 40):
+            out = decode(params, cache, toks[:, i:i + 1], i)
+            errs.append((out["logits"] - full[:, i]).abs().max().item())
+        assert ssm_scan_fwd.launches - before == cfg.n_layers  # decode: no K7
+    assert max(errs) < 2e-3, errs
+    out = Engine(cfg, params, max_len=48).generate(toks[:, :8], 4)
+    assert out.shape == (2, 4) and out.dtype == torch.int32

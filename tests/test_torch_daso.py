@@ -72,7 +72,7 @@ def problem():
 
 
 def _port(tree):
-    return state_from_jax(tree, "cpu", batch_dims=1)
+    return state_from_jax(tree, "cpu")
 
 
 def _assert_tree_close(got, want_jax_np, atol):

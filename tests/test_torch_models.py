@@ -102,7 +102,8 @@ def test_attn_apply_matches_jax(variant, impl):
     want, _ = jax_attention.attn_apply(
         jattn, jnp.asarray(x), jnp.asarray(pos), jcfg,
         impl="pallas" if impl == "kernel" else "jnp")
-    got, _ = attention.attn_apply(tp["layers"][0]["attn"], torch.from_numpy(x),
+    tattn = {k: v[0] for k, v in tp["blocks"][0]["attn"].items()}
+    got, _ = attention.attn_apply(tattn, torch.from_numpy(x),
                                   torch.from_numpy(pos.copy()), cfg, impl=impl)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL_F32)
 
@@ -130,19 +131,12 @@ def test_forward_window_override_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL_F32)
 
 
-def _jax_leaves_by_layer(jp):
-    """(port key path, numpy leaf) for every leaf of a JAX LM tree."""
-    plen = len(jp["blocks"])
-    out = []
-    for path, leaf in jax.tree_util.tree_leaves_with_path(jp):
-        keys = [getattr(k, "key", getattr(k, "idx", None)) for k in path]
-        leaf = np.asarray(leaf)
-        if keys[0] == "blocks":
-            for r in range(leaf.shape[0]):
-                out.append((("layers", r * plen + keys[1], *keys[2:]), leaf[r]))
-        else:
-            out.append((tuple(keys), leaf))
-    return out
+def _jax_leaves(jp):
+    """(key path, numpy leaf) for every leaf of a JAX LM tree; the port's
+    tree has the same paths."""
+    return [(tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path),
+             np.asarray(leaf))
+            for path, leaf in jax.tree_util.tree_leaves_with_path(jp)]
 
 
 def _get(tree, path):
@@ -156,8 +150,9 @@ def test_params_from_jax_round_trips_every_leaf(dtype):
     jcfg = jax_get_reduced(ARCH).replace(param_dtype=dtype)
     jp = jax_init_params(jcfg, jax.random.PRNGKey(3))
     tp = params_from_jax(_np(jp))
-    leaves = _jax_leaves_by_layer(jp)
-    assert len(leaves) == 2 + jcfg.n_layers * 9  # embed, final norm, 9 per layer
+    leaves = _jax_leaves(jp)
+    # embed, final norm, 9 per pattern slot (stacked over the layers)
+    assert len(leaves) == 2 + len(jcfg.layer_pattern) * 9
     for path, want in leaves:
         got = _get(tp, path)
         assert got.dtype == getattr(torch, dtype), path
@@ -172,7 +167,7 @@ def test_init_params_matches_jax_shapes_dtypes_and_scale(dtype):
     cfg = get_reduced(ARCH).replace(param_dtype=getattr(torch, dtype))
     jp = jax_init_params(jcfg, jax.random.PRNGKey(0))
     tp = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    leaves = _jax_leaves_by_layer(jp)
+    leaves = _jax_leaves(jp)
     n_port = len(jax.tree_util.tree_leaves(
         jax.tree.map(lambda t: 0, tp)))
     assert n_port == len(leaves)

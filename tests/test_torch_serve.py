@@ -26,14 +26,17 @@ from repro_torch.serve.engine import (Engine, make_decode_fn, make_prefill_fn,
                                       resolve_device)
 
 ARCH = "llama3.2-1b"
+MAMBA_ARCH = "falcon-mamba-7b"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VARIANTS = {"mha": {}, "gqa": {"n_kv_heads": 2}}
+# the serve twins run the llama variants and the reduced falcon-mamba-7b
+ARCHS = {"mha": ARCH, "gqa": ARCH, "mamba": MAMBA_ARCH}
 
 
 def _setup(variant, seed):
-    kw = VARIANTS[variant]
-    jcfg = jax_get_reduced(ARCH).replace(**kw)
-    cfg = get_reduced(ARCH).replace(**kw)
+    kw = VARIANTS.get(variant, {})
+    jcfg = jax_get_reduced(ARCHS[variant]).replace(**kw)
+    cfg = get_reduced(ARCHS[variant]).replace(**kw)
     jp = jax_init_params(jcfg, jax.random.PRNGKey(seed))
     return jcfg, cfg, jp, params_from_jax(jax.tree.map(np.asarray, jp))
 
@@ -66,7 +69,7 @@ def _port_serve(cfg, tp, toks, S0, n_dec, cache_len, window_override=0):
     return logits
 
 
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("variant", sorted(ARCHS))
 def test_prefill_and_decode_match_jax(variant):
     jcfg, cfg, jp, tp = _setup(variant, 1)
     B, S, S0 = 2, 32, 26
@@ -105,7 +108,7 @@ def test_decode_matches_own_teacher_forcing(variant, window_override):
     assert max(errs) < 2e-3, errs
 
 
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("variant", sorted(ARCHS))
 def test_greedy_tokens_equal_jax_engine(variant):
     jcfg, cfg, jp, tp = _setup(variant, 0)
     prompts = np.random.default_rng(7).integers(0, cfg.vocab_size, (3, 8))
@@ -114,6 +117,31 @@ def test_greedy_tokens_equal_jax_engine(variant):
     got = Engine(cfg, tp, max_len=64, device="cpu").generate(
         torch.from_numpy(prompts), max_new_tokens=8)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_mamba_decode_matches_own_teacher_forcing():
+    """Kernel-path prefill + recurrent decode against a teacher-forced
+    forward (tests/test_serve.py:24 for the arch), at its 2e-3."""
+    cfg = get_reduced(MAMBA_ARCH)
+    tp = init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    B, S, S0 = 2, 32, 26
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (B, S))
+    full = forward(tp, torch.from_numpy(toks), cfg)["logits"].numpy()
+    got = _port_serve(cfg, tp, toks, S0, S - S0, S)
+    errs = [float(np.abs(full[:, S0 - 1 + i] - g).max()) for i, g in enumerate(got)]
+    assert max(errs) < 2e-3, errs
+
+
+@pytest.mark.parametrize("arch", [ARCH, MAMBA_ARCH])
+def test_generate_returns_int32_as_the_reference(arch):
+    cfg = get_reduced(arch)
+    tp = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 8),
+                            generator=torch.Generator().manual_seed(1))
+    eng = Engine(cfg, tp, max_len=32, device="cpu")
+    assert eng.generate(prompts, 4).dtype == torch.int32
+    assert eng.generate(prompts, 4, temperature=0.8,
+                        generator=torch.Generator().manual_seed(3)).dtype == torch.int32
 
 
 def test_temperature_sampling_follows_the_generator():
@@ -143,6 +171,13 @@ def test_cli_serves_on_cpu_when_asked(capsys):
                           "--max-new", "4"])
     assert tuple(out.shape) == (2, 4)
     assert "[serve] llama3.2-1b on cpu" in capsys.readouterr().out
+
+
+def test_cli_serves_mamba_on_cpu(capsys):
+    out = serve_cli.main(["--arch", MAMBA_ARCH, "--device", "cpu", "--batch", "2",
+                          "--prompt-len", "8", "--max-new", "4"])
+    assert tuple(out.shape) == (2, 4) and out.dtype == torch.int32
+    assert f"[serve] {MAMBA_ARCH} on cpu" in capsys.readouterr().out
 
 
 def _no_cuda(monkeypatch):
@@ -201,3 +236,11 @@ def test_profile_serve_runs_on_cpu(tmp_path, capsys):
                for r in rows)
     assert trace.exists()
     assert capsys.readouterr().out.count('"phase"') == 2
+
+
+def test_profile_serve_runs_mamba_on_cpu(capsys):
+    from repro_torch.launch import profile_serve
+    rows = profile_serve.main(["--arch", MAMBA_ARCH, "--device", "cpu", "--batch", "1",
+                               "--prompt-len", "16", "--decode-steps", "2"])
+    assert [r["phase"] for r in rows] == ["prefill", "decode"]
+    assert all(r["arch"] == MAMBA_ARCH for r in rows)

@@ -206,7 +206,7 @@ def test_state_from_jax_converts_an_optimizer_state():
     st = jax.tree.map(np.asarray, jopt.adamw().init(p))
     out = state_from_jax(st)
     assert sorted(out) == ["m", "t", "v"] and out["t"].dtype == torch.int32
-    assert len(out["m"]["layers"]) == 2
+    assert out["m"]["blocks"][0]["attn"]["wq"].shape[0] == 2  # stacked layers
 
 
 # -- launcher and quickstart ------------------------------------------------------
@@ -232,6 +232,11 @@ def test_launcher_trains_on_the_cpu(tmp_path):
 def test_launcher_refuses_unported_flags(argv, err, match):
     with pytest.raises(err, match=match):
         launch_train.main(["--tiny", "--device", "cpu", "--steps", "2"] + argv)
+
+
+def test_launcher_refuses_to_train_the_ssm_family():
+    with pytest.raises(SystemExit, match="item 23"):
+        launch_train.main(["--arch", "falcon-mamba-7b", "--device", "cpu", "--steps", "2"])
 
 
 def test_quickstart_twin_runs(capsys):
