@@ -6,10 +6,12 @@ sm_90a). Run from the repository root:
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
   build        compile every CUDA source of the port from src/repro_torch/csrc
-               with nvcc (sm_90a), all at once, with ptxas's report
+               with nvcc (sm_90a), all at once, with ptxas's report (each
+               kernel instance's name, registers and spills)
   check        hold K1 against its plain PyTorch version on the card, at the
-               serving shape and a sweep (dtypes, ragged lengths, head dims,
-               window, q shorter than kv)
+               serving shapes (head_dim 64 GQA; head_dim 256 MQA, window
+               2048) and a sweep (dtypes, ragged lengths, head dims, window,
+               q shorter than kv, kv longer than the window)
   comm_check   hold K2 to K6 against their plain versions, bit-exact, at
                ragged sizes, on misaligned views, on bf16 edge values and (K5,
                K6) on 1 and 4 rows, blocks 64 / 128 / 256, int8 edge blocks
@@ -18,6 +20,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                1e-4 f32 / 5e-2 bf16): f32 and bf16 x / Bm / Cm, zero and
                random h0, S = 1, Di = 8200 (ragged edge), Bm / Cm as strided
                column views, and the serving prefill's (4, 1024, 8192, 16)
+  rglru_check  hold K8 against its plain version, bit for bit: f32 and bf16
+               a / gx, zero and random h0, S = 1, W = 4100 (ragged edge),
+               and the serving prefill's (4, 1024, 4096)
   serve        Engine.generate on llama3.2-1b at full size (16 layers, bf16,
                seeded random weights): batch 4, prompt 1024, 32 new greedy
                tokens. K1 launches per prefill are counted; the prefill's
@@ -29,6 +34,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                in decode (0); the prefill's last logits are held against a
                teacher-forced forward whose scan is the plain version (bf16),
                and prefill + decode against it in f32 with 2 layers
+  serve_rgemma Engine.generate on recurrentgemma-9b at full size (38 layers,
+               bf16, seeded random weights): batch 4, prompt 1024, 32 new
+               greedy tokens. K8 (26) and K1 at head_dim 256 (12) launches
+               are counted per prefill, and 0 of each in decode; the
+               prefill's last logits are held against a teacher-forced
+               forward through plain attention and the plain scan (bf16),
+               and prefill + decode against it in f32 with 5 layers (one
+               repeat and the two-layer remainder). Then, on the same
+               weights, a generate past the local-attention window (batch 1,
+               prompt 3072 > 2048, 8 new tokens): prefill rolls the ring,
+               decode wraps it, and every step's logits are held against
+               the plain teacher-forced forward
   train_check  at full width (1 layer, f32, R = 4): a receive and a blocking
                step, an int8 send and an int8 blocking step, and an ov_sync
                step with extra staleness 1 (int8), each through the kernels,
@@ -48,7 +65,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                final carry's parameter and momentum arenas (4 x N f32); a
                wire_roundtrip of the parameters launches K3 and K4
   timing       each kernel, its plain version and the library call, at the
-               serving shape (K1, K7) and the training arena (K2 to K6)
+               serving shapes (K1, K7, K8) and the training arena (K2 to K6)
 then the `kernels` line, the card's name and power limit, and as the last
 line {"ok": true, "device": {...}}.
 
@@ -85,6 +102,7 @@ from repro_torch.kernels.comm_kernels import (bf16_pack_fwd, bf16_unpack_fwd,  #
                                               quantize_int8_fwd)
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan_fwd  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan_fwd  # noqa: E402
 from repro_torch.models.lm import forward, init_params  # noqa: E402
 from repro_torch.optim.optimizers import sgd  # noqa: E402
@@ -95,6 +113,8 @@ from repro_torch.train.step import make_lm_loss  # noqa: E402
 
 ARCH = "llama3.2-1b"
 MAMBA_ARCH = "falcon-mamba-7b"
+RGEMMA_ARCH = "recurrentgemma-9b"
+RING_PROMPT, RING_NEW = 3072, 8  # past recurrentgemma-9b's 2048-slot window
 BATCH, PROMPT, NEW = 4, 1024, 32
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -150,6 +170,12 @@ KERNELS = [{
     "source": "src/repro_torch/csrc/ssm_scan.cu",
     "replaces": "src/repro/kernels/ssm_scan.py:19",
     "counter": ssm_scan_fwd,
+}, {
+    "name": "rglru_scan",
+    "route": "cuda",
+    "source": "src/repro_torch/csrc/rglru_scan.cu",
+    "replaces": "src/repro/kernels/rglru_scan.py:16",
+    "counter": rglru_scan_fwd,
 }]
 SOURCES = sorted({os.path.basename(k["source"])[:-3] for k in KERNELS})
 COMM_KERNELS = [k for k in KERNELS if k["source"].endswith("comm_kernels.cu")]
@@ -174,6 +200,15 @@ CHECKS = [
     ("q_suffix_f32", 2, 8, 2, 256, 1024, 64, torch.float32, 0),
     ("q_suffix_ragged_f32", 2, 8, 2, 100, 777, 128, torch.float32, 0),
     ("q_suffix_ragged_bf16", 2, 8, 4, 37, 555, 32, torch.bfloat16, 0),
+    # head_dim 256, MQA: recurrentgemma-9b's local attention (window 2048)
+    ("d256_serve_shape_bf16", 4, 16, 1, 1024, 1024, 256, torch.bfloat16, 2048),
+    ("d256_serve_shape_f32", 4, 16, 1, 1024, 1024, 256, torch.float32, 2048),
+    ("d256_past_window_bf16", 1, 16, 1, 3072, 3072, 256, torch.bfloat16, 2048),
+    ("d256_past_window_f32", 1, 16, 1, 3072, 3072, 256, torch.float32, 2048),
+    ("d256_q_suffix_bf16", 2, 16, 1, 256, 1024, 256, torch.bfloat16, 2048),
+    ("d256_q_suffix_window_f32", 2, 16, 1, 256, 1024, 256, torch.float32, 300),
+    ("d256_ragged_bf16", 2, 16, 1, 333, 777, 256, torch.bfloat16, 300),
+    ("d256_ragged_f32", 1, 8, 1, 500, 500, 256, torch.float32, 0),
 ]
 
 
@@ -229,7 +264,8 @@ def phase_build():
         report = ops.build(name)
         return {"source": name, "seconds": time.perf_counter() - t0,
                 "ptxas": [ln.strip() for ln in report.splitlines()
-                          if "registers" in ln or "spill" in ln]}
+                          if "entry function" in ln or "registers" in ln
+                          or "spill" in ln]}
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -323,7 +359,7 @@ def phase_serve():
     if not (finite and err <= tol):
         raise AssertionError(f"bf16 prefill logits: max err {err} > {tol} (finite={finite})")
 
-    f32 = serve_f32_check(cfg)
+    f32 = serve_f32_check(cfg, 2, 1, {"flash_attention_fwd": 2})
     emit({"phase": "serve", "arch": ARCH, "layers": cfg.n_layers, "dtype": "bfloat16",
           "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW,
           "launches_per_prefill": launches,
@@ -336,32 +372,43 @@ def phase_serve():
     return launches
 
 
-def serve_f32_check(cfg):
-    """Prefill + 6 decode steps against a teacher-forced plain forward, f32,
-    full width, 2 layers, at tests/test_serve.py's 2e-3 (TF32 off)."""
-    cfg = cfg.replace(n_layers=2, param_dtype=torch.float32,
+def serve_f32_check(cfg, n_layers, seed, want):
+    """Prefill through the kernels + 6 decode steps against a teacher-forced
+    forward through plain attention and the plain scans, f32 (TF32 off),
+    full width, `n_layers` layers, at tests/test_serve.py's 2e-3. `want`:
+    the launches of the prefill (decode launches none)."""
+    cfg = cfg.replace(n_layers=n_layers, param_dtype=torch.float32,
                       compute_dtype=torch.float32)
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_params(cfg, gen, "cuda")
     B, S, S0 = 2, 256, 250
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
-    before = flash_attention_fwd.launches
     with torch.inference_mode():
-        full = forward(params, toks, cfg, attn_impl="plain")["logits"]
+        with plain_scan():
+            full = forward(params, toks, cfg, attn_impl="plain")["logits"]
+        zero_counts()
         st = make_prefill_fn(cfg, cache_len=S)(params, toks[:, :S0])
+        per_prefill = counts()
+        zero_counts()
         decode = make_decode_fn(cfg)
         cache, logits = st["cache"], [st["logits_last"]]
         for i in range(S - S0):
             out = decode(params, cache, toks[:, S0 + i:S0 + i + 1], S0 + i)
             logits.append(out["logits"])
             cache = out["cache"]
+        in_decode = counts()
         errs = [(full[:, S0 - 1 + i] - lg).abs().max().item()
                 for i, lg in enumerate(logits)]
-    if flash_attention_fwd.launches - before != cfg.n_layers:
-        raise AssertionError("f32 prefill did not go through the kernel")
+    del params, full, cache, st
+    torch.cuda.empty_cache()
+    none = {k["name"]: 0 for k in KERNELS}
+    if per_prefill != {**none, **want} or in_decode != none:
+        raise AssertionError(f"f32 {n_layers}-layer launches: prefill {per_prefill}, "
+                             f"decode {in_decode}, expected prefill {want}")
     if not max(errs) < 2e-3:
         raise AssertionError(f"f32 prefill/decode vs teacher forcing: {errs}")
-    return {"max_abs_err": max(errs), "tolerance": 2e-3, "steps": len(errs)}
+    return {"max_abs_err": max(errs), "tolerance": 2e-3, "steps": len(errs),
+            "layers": n_layers, "launches_per_prefill": want}
 
 
 # K7 checks, tests/test_kernels.py:83's tolerances: (name, B, S, Di, N, dtype,
@@ -426,17 +473,17 @@ def phase_scan_check():
 
 @contextmanager
 def plain_scan():
-    """The mamba mixer's scan through K7's plain version, so the same
-    forward is the teacher-forced reference."""
-    saved = ops.ssm_scan
-    ops.ssm_scan = ref.ssm_scan_ref
+    """The recurrent mixers' scans through the plain versions of K7 and
+    K8, so the same forward is the teacher-forced reference."""
+    saved = ops.ssm_scan, ops.rglru_scan
+    ops.ssm_scan, ops.rglru_scan = ref.ssm_scan_ref, ref.rglru_scan_ref
     try:
         yield
     finally:
-        ops.ssm_scan = saved
+        ops.ssm_scan, ops.rglru_scan = saved
 
 
-def mamba_decode_bytes(cfg, params, cache):
+def mamba_decode_bytes(params, cache):
     """What one decode step must move: every weight once, but of the
     embedding table only the batch's rows, and the recurrent cache (conv
     window and state) read and written."""
@@ -445,9 +492,18 @@ def mamba_decode_bytes(cfg, params, cache):
             * tok.element_size() + 2 * tensor_bytes(cache))
 
 
-def phase_serve_mamba():
-    cfg = get_config(MAMBA_ARCH)
-    gen = torch.Generator(device="cuda").manual_seed(3)
+def serve_cell(cfg, seed, want_prefill, decode_bytes):
+    """Engine.generate at full size from seeded weights: batch BATCH, prompt
+    PROMPT, NEW greedy tokens after a 2-token warm-up. Launches are counted
+    per generate, per prefill (`want_prefill`, the other kernels none) and
+    in decode (none); the prefill and the decode steps are timed apart. The
+    prefill's bf16 last logits are held against a teacher-forced forward
+    through plain attention and the plain scans: both round the mixers'
+    outputs, the residual and the logits to bf16 at different points, and
+    the scans sum in other orders, so a bf16 rounding flips now and then and
+    the layers carry it: 8 ulps of the largest logit. Returns (the phase's
+    row, params, the generator)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_params(cfg, gen, "cuda")
     n_params = sum(x.numel() for x in leaves(params))
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
@@ -486,87 +542,195 @@ def phase_serve_mamba():
         decode_ms = 1e3 * (time.perf_counter() - t0) / (NEW - 1)
         in_decode = counts()
         peak = torch.cuda.max_memory_allocated()
-        decode_bytes = mamba_decode_bytes(cfg, params, cache)
+        n_bytes = decode_bytes(params, cache)
 
         got = st["logits_last"].float()
         with plain_scan():
-            want = forward(params, prompts, cfg)["logits"][:, -1].float()
+            want = forward(params, prompts, cfg, attn_impl="plain")["logits"][:, -1].float()
         peak_logit = want.abs().max().item()
         err = (got - want).abs().max().item()
         del prefill, decode, want
-        # both round y, the residual and the logits to bf16; the scans sum in
-        # other orders (y 1e-6 apart in f32), so a bf16 rounding of y flips
-        # now and then and 64 layers carry it: 8 ulps of the largest logit
         tol = 8 * bf16_ulp(peak_logit)
         finite = bool(torch.isfinite(got).all())
-        # random weights: the sinusoidal positions (amplitude 1) outweigh the
-        # token embeddings (std 0.02), so greedy tokens may agree across rows;
-        # the logits must still depend on the prompt
+        # random weights: the logits must still depend on the prompt (with
+        # sinusoidal positions, amplitude 1 against token embeddings of std
+        # 0.02, greedy tokens may agree across rows)
         row_spread = (got - got[:1]).abs().max().item()
-    del params, eng, cache, st
+    del eng, cache, st
     torch.cuda.empty_cache()
     if not row_spread > 0:
-        raise AssertionError("falcon-mamba last logits do not depend on the prompt")
-    want_counts = {k["name"]: 0 for k in KERNELS}
-    if per_prefill != {**want_counts, "ssm_scan": cfg.n_layers} or in_decode != want_counts \
+        raise AssertionError(f"{cfg.name} last logits do not depend on the prompt")
+    none = {k["name"]: 0 for k in KERNELS}
+    if per_prefill != {**none, **want_prefill} or in_decode != none \
             or per_generate != per_prefill:
-        raise AssertionError(f"falcon-mamba launches: prefill {per_prefill}, decode "
+        raise AssertionError(f"{cfg.name} launches: prefill {per_prefill}, decode "
                              f"{in_decode}, generate {per_generate}")
     if not (finite and err <= tol):
         raise AssertionError(f"bf16 prefill logits: max err {err} > {tol} (finite={finite})")
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": "bfloat16",
+           "params": n_params, "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW,
+           "launches_per_generate": per_generate, "launches_per_prefill": per_prefill,
+           "launches_in_decode": in_decode,
+           "generate_s": gen_s, "tokens_per_s": BATCH * NEW / gen_s,
+           "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+           "decode_bytes": n_bytes, "decode_bound_ms": 1e3 * n_bytes / PEAK_BYTES,
+           "max_memory_allocated": peak,
+           "bf16_last_logits_max_abs_err": err, "bf16_tolerance": tol,
+           "max_abs_logit": peak_logit, "last_logits_row_spread": row_spread,
+           "greedy_rows_distinct": len({tuple(r) for r in tokens.tolist()})}
+    return row, params, gen
 
-    f32 = serve_mamba_f32_check(cfg)
-    emit({"phase": "serve_mamba", "arch": MAMBA_ARCH, "layers": cfg.n_layers,
-          "dtype": "bfloat16", "params": n_params,
-          "widths": {"d_model": cfg.d_model, "d_inner": cfg.d_inner,
+
+def phase_serve_mamba():
+    cfg = get_config(MAMBA_ARCH)
+    row, params, _ = serve_cell(cfg, 3, {"ssm_scan": cfg.n_layers}, mamba_decode_bytes)
+    del params
+    torch.cuda.empty_cache()
+    row["widths"] = {"d_model": cfg.d_model, "d_inner": cfg.d_inner,
                      "d_state": cfg.ssm.d_state, "d_conv": cfg.ssm.d_conv,
                      "dt_rank": cfg.dt_rank, "vocab": cfg.vocab_size,
-                     "tie_embeddings": cfg.tie_embeddings},
-          "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW,
-          "launches_per_generate": per_generate, "launches_per_prefill": per_prefill,
-          "launches_in_decode": in_decode,
-          "generate_s": gen_s, "tokens_per_s": BATCH * NEW / gen_s,
-          "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
-          "decode_bytes": decode_bytes, "decode_bound_ms": 1e3 * decode_bytes / PEAK_BYTES,
-          "max_memory_allocated": peak,
-          "bf16_last_logits_max_abs_err": err, "bf16_tolerance": tol,
-          "max_abs_logit": peak_logit, "last_logits_row_spread": row_spread,
-          "greedy_rows_distinct": len({tuple(r) for r in tokens.tolist()}),
-          "f32_2layer": f32})
-    return per_generate
+                     "tie_embeddings": cfg.tie_embeddings}
+    row["f32_2layer"] = serve_f32_check(cfg, 2, 4, {"ssm_scan": 2})
+    emit({"phase": "serve_mamba", **row})
+    return row["launches_per_generate"]
 
 
-def serve_mamba_f32_check(cfg):
-    """Prefill through K7 + 6 decode steps against a teacher-forced forward
-    through the plain scan, f32, full width, 2 layers, at
-    tests/test_serve.py's 2e-3."""
-    cfg = cfg.replace(n_layers=2, param_dtype=torch.float32,
-                      compute_dtype=torch.float32)
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    params = init_params(cfg, gen, "cuda")
-    B, S, S0 = 2, 256, 250
-    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
-    with torch.inference_mode():
-        with plain_scan():
-            full = forward(params, toks, cfg)["logits"]
-        before = ssm_scan_fwd.launches
-        st = make_prefill_fn(cfg, cache_len=S)(params, toks[:, :S0])
-        launched = ssm_scan_fwd.launches - before
-        decode = make_decode_fn(cfg)
-        cache, logits = st["cache"], [st["logits_last"]]
-        for i in range(S - S0):
-            out = decode(params, cache, toks[:, S0 + i:S0 + i + 1], S0 + i)
-            logits.append(out["logits"])
-            cache = out["cache"]
-        errs = [(full[:, S0 - 1 + i] - lg).abs().max().item()
-                for i, lg in enumerate(logits)]
-    del params, full, cache, st
+# K8 checks, bit for bit: (name, B, S, W, dtype of a / gx, random h0)
+RGLRU_CHECKS = [
+    ("small_f32", 2, 64, 128, torch.float32, False),
+    ("small_bf16", 2, 64, 128, torch.bfloat16, True),
+    ("s1_f32", 4, 1, 4096, torch.float32, True),
+    ("s1_bf16", 4, 1, 4096, torch.bfloat16, False),
+    ("w4100_f32", 2, 300, 4100, torch.float32, True),
+    ("w4100_bf16", 3, 37, 4100, torch.bfloat16, True),
+    ("serve_shape_f32", 4, 1024, 4096, torch.float32, False),
+    ("serve_shape_f32_h0", 4, 1024, 4096, torch.float32, True),
+    ("serve_shape_bf16", 4, 1024, 4096, torch.bfloat16, True),
+]
+
+
+def rglru_inputs(B, S, W, dtype, random_h0, seed):
+    """K8's inputs on the card as the mixer makes them: a in (0, 1) (a
+    sigmoid here, exp(log_a) there), gx of either sign, h0 f32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.sigmoid(torch.randn((B, S, W), generator=g, device="cuda")).to(dtype)
+    gx = torch.randn((B, S, W), generator=g, device="cuda").to(dtype)
+    h0 = (torch.randn((B, W), generator=g, device="cuda") if random_h0
+          else torch.zeros((B, W), device="cuda"))
+    return a, gx, h0
+
+
+def phase_rglru_check():
+    """K8 against its plain version: hs and the final h, bit for bit (both
+    round a * h and then + gx)."""
+    rows = []
+    for i, (name, B, S, W, dtype, random_h0) in enumerate(RGLRU_CHECKS):
+        args = rglru_inputs(B, S, W, dtype, random_h0, seed=300 + i)
+        hs, h = ops.rglru_scan(*args)
+        sync()
+        hsr, hr = ref.rglru_scan_ref(*args)
+        exact = same_bits(hs, hsr) and same_bits(h, hr)
+        err = max((hs - hsr).abs().max().item(), (h - hr).abs().max().item())
+        rows.append({"case": name, "shape": [B, S, W], "dtype": str(dtype),
+                     "random_h0": random_h0, "bit_exact": exact, "max_abs_err": err})
+        del args, hs, h, hsr, hr
+        if not exact:
+            emit({"phase": "rglru_check", "failed": rows[-1]})
+            raise AssertionError(f"rglru_scan check {name}: not bit-exact ({err})")
     torch.cuda.empty_cache()
-    if launched != cfg.n_layers or ssm_scan_fwd.launches - before != cfg.n_layers:
-        raise AssertionError("f32 prefill did not go through K7 once per layer")
-    if not max(errs) < 2e-3:
-        raise AssertionError(f"f32 prefill/decode vs teacher forcing: {errs}")
-    return {"max_abs_err": max(errs), "tolerance": 2e-3, "steps": len(errs)}
+    emit({"phase": "rglru_check", "cases": rows})
+    return rows
+
+
+def rgemma_decode_bytes(params, cache):
+    """What one decode step must move: every weight once (the tied
+    embedding table is read whole by the unembedding), the KV caches read,
+    and the recurrent state and conv window read and written."""
+    recurrent = sum(tensor_bytes(c) for c in cache["groups"] + cache["rem"]
+                    if "h" in c)
+    return tensor_bytes(params) + tensor_bytes(cache) + recurrent
+
+
+def phase_serve_rgemma():
+    cfg = get_config(RGEMMA_ARCH)
+    # layer i has the kind of pattern slot i mod len(pattern): repeats, remainder
+    kinds = [cfg.layer_pattern[i % len(cfg.layer_pattern)] for i in range(cfg.n_layers)]
+    want = {"rglru_scan": kinds.count("rglru"), "flash_attention_fwd": kinds.count("attn_local")}
+    if want != {"rglru_scan": 26, "flash_attention_fwd": 12}:
+        raise AssertionError(f"recurrentgemma-9b layer kinds: {want}")
+    row, params, gen = serve_cell(cfg, 5, want, rgemma_decode_bytes)
+    ring = serve_rgemma_ring(cfg, params, gen, row["launches_per_prefill"])
+    del params
+    torch.cuda.empty_cache()
+    row["widths"] = {"d_model": cfg.d_model, "lru_width": cfg.lru_width,
+                     "conv_width": cfg.rglru.conv_width,
+                     "c_exponent": cfg.rglru.c_exponent, "n_heads": cfg.n_heads,
+                     "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+                     "window": cfg.sliding_window, "d_ff": cfg.d_ff,
+                     "vocab": cfg.vocab_size, "tie_embeddings": cfg.tie_embeddings}
+    row["f32_5layer"] = serve_f32_check(
+        cfg, 5, 6, {"rglru_scan": 4, "flash_attention_fwd": 1})
+    emit({"phase": "serve_rgemma", **row})
+    emit(ring)
+    return row["launches_per_prefill"]
+
+
+def serve_rgemma_ring(cfg, params, gen, want_prefill):
+    """Engine.generate past the local-attention window: batch 1, prompt
+    RING_PROMPT > window, RING_NEW new greedy tokens. The attn_local caches
+    hold `window` slots, so prefill takes the roll branch and decode
+    overwrites the oldest slots. Then the same tokens teacher-forced: the
+    prefill's and every decode step's logits against the plain forward of
+    the whole sequence, 8 bf16 ulps of the step's largest logit."""
+    prompt = torch.randint(0, cfg.vocab_size, (1, RING_PROMPT), generator=gen,
+                           device="cuda")
+    eng = Engine(cfg, params, max_len=RING_PROMPT + RING_NEW, device="cuda")
+    zero_counts()
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompt, RING_NEW)
+    sync()
+    gen_s = time.perf_counter() - t0
+    per_generate = counts()
+    with torch.inference_mode():
+        zero_counts()
+        st = make_prefill_fn(cfg, cache_len=RING_PROMPT + RING_NEW)(params, prompt)
+        per_prefill = counts()
+        cache = st["cache"]
+        slots = {c["k"].shape[-3] for c in cache["groups"] + cache["rem"] if "k" in c}
+        decode = make_decode_fn(cfg)
+        zero_counts()
+        logits = [st["logits_last"]]
+        for i in range(RING_NEW - 1):
+            out = decode(params, cache, tokens[:, i:i + 1].long(), RING_PROMPT + i)
+            logits.append(out["logits"])
+        sync()
+        in_decode = counts()
+        seq = torch.cat([prompt, tokens[:, :-1].long()], dim=1)
+        with plain_scan():
+            full = forward(params, seq, cfg, attn_impl="plain")["logits"]
+        errs, tols = [], []
+        for i, lg in enumerate(logits):
+            want = full[:, RING_PROMPT - 1 + i].float()
+            errs.append((lg.float() - want).abs().max().item())
+            tols.append(8 * bf16_ulp(want.abs().max().item()))
+        finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
+    del eng, cache, st, full, logits
+    torch.cuda.empty_cache()
+    none = {k["name"]: 0 for k in KERNELS}
+    if slots != {cfg.sliding_window} or not RING_PROMPT > cfg.sliding_window:
+        raise AssertionError(f"ring caches hold {slots} slots, window {cfg.sliding_window}")
+    if per_prefill != want_prefill or per_generate != want_prefill or in_decode != none:
+        raise AssertionError(f"ring launches: prefill {per_prefill}, decode {in_decode}, "
+                             f"generate {per_generate}")
+    if not (finite and all(e <= t for e, t in zip(errs, tols))):
+        raise AssertionError(f"ring logits vs teacher forcing: {errs} > {tols}")
+    return {"phase": "serve_rgemma_ring", "arch": RGEMMA_ARCH, "dtype": "bfloat16",
+            "batch": 1, "prompt": RING_PROMPT, "new_tokens": RING_NEW,
+            "window": cfg.sliding_window, "ring_slots": sorted(slots),
+            "decode_positions": [RING_PROMPT, RING_PROMPT + RING_NEW - 2],
+            "launches_per_generate": per_generate, "launches_per_prefill": per_prefill,
+            "launches_in_decode": in_decode, "generate_s": gen_s,
+            "bf16_step_logits_max_abs_err": errs, "bf16_tolerances": tols}
 
 
 def same_bits(a, b):
@@ -896,7 +1060,7 @@ def phase_train_int8_overlap():
     check_launches(row, launches, {
         "flash_attention_fwd": 0, "eq1_merge": n_sync, "bf16_pack": 0,
         "bf16_unpack": 0, "quantize_int8": n_sync + n_blocking,
-        "dequantize_int8": n_sync + n_blocking, "ssm_scan": 0})
+        "dequantize_int8": n_sync + n_blocking, "ssm_scan": 0, "rglru_scan": 0})
     row["wire_bytes_per_exchange"] = {
         t: compression.transfer_bytes(params0, wire_format=t) for t in ("f32", "bf16", "int8")}
     emit(row)
@@ -917,7 +1081,7 @@ def phase_train():
         "flash_attention_fwd": 0,
         "eq1_merge": sum(m in ("receive", "send_receive") for m in modes),
         "bf16_pack": modes.count("blocking"), "bf16_unpack": 0, "quantize_int8": 0,
-        "dequantize_int8": 0, "ssm_scan": 0})
+        "dequantize_int8": 0, "ssm_scan": 0, "rglru_scan": 0})
     emit(row)
     params_r, opt_r, _ = res.carry
     del res, params0
@@ -1045,10 +1209,58 @@ def scan_timing(scan_rows, mamba_launches):
     return line
 
 
-def phase_timing(check_rows, serve_launches, path_launches, arena_parts, scan_line):
+def rgemma_timing(check_rows, rglru_rows, rgemma_launches):
+    """K8's line at the recurrentgemma-9b prefill's shape (a, gx f32 as the
+    mixer makes them, zero h0), and K1's at its local attention's (MQA,
+    head_dim 256, window 2048)."""
+    cfg = get_config(RGEMMA_ARCH)
+    B, S, W = BATCH, PROMPT, cfg.lru_width
+    a, gx, h0 = rglru_inputs(B, S, W, torch.float32, False, seed=10)
+    # a and gx read once, h0 read once, hs and h written once
+    nbytes = (a.numel() + gx.numel() + h0.numel() + B * S * W + B * W) * 4
+    row = next(r for r in rglru_rows if r["case"] == "serve_shape_f32")
+    k8 = next(k for k in KERNELS if k["name"] == "rglru_scan")
+    bound, by = bytes_bound(nbytes)
+    lines = [{
+        "name": k8["name"], "route": k8["route"], "source": k8["source"],
+        "replaces": k8["replaces"], "launches": rgemma_launches["rglru_scan"],
+        "max_abs_err": row["max_abs_err"], "bit_exact": row["bit_exact"],
+        "ms": cuda_ms(lambda: ops.rglru_scan(a, gx, h0), 20),
+        "plain_ms": cuda_ms(lambda: ref.rglru_scan_ref(a, gx, h0), 2, warmup=1),
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "library_ms": None,
+        "library": "none: no single PyTorch call computes a first-order linear "
+                   "recurrence",
+        "shape": [B, S, W], "dtype": "float32",
+        "path": "serve_rgemma prefill (per prefill)"}]
+    del a, gx, h0
+
+    Hq, Hk, D, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.sliding_window
+    q, k, v = qkv(BATCH, Hq, Hk, PROMPT, PROMPT, D, torch.bfloat16, seed=8)
+    bound, by = attention_bound_ms(q, k, v, window)
+    row = next(r for r in check_rows if r["case"] == "d256_serve_shape_bf16")
+    fa = KERNELS[0]
+    lines.append({
+        "name": "flash_attention_fwd_d256", "route": fa["route"], "source": fa["source"],
+        "replaces": fa["replaces"], "launches": rgemma_launches[fa["name"]],
+        "max_abs_err": row["max_abs_err"], "tolerance": row["tolerance"],
+        "ms": cuda_ms(lambda: ops.flash_attention(q, k, v, window=window), 50),
+        "plain_ms": cuda_ms(lambda: attention_ref(q, k, v, window=window), 10),
+        "bound_ms": bound, "bound_by": by,
+        # window 2048 >= the prompt's 1024: causal attention is the same function
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 50),
+        "shape": [BATCH, Hq, Hk, PROMPT, PROMPT, D], "dtype": "bfloat16",
+        "window": window, "path": "serve_rgemma prefill (per prefill)"})
+    del q, k, v
+    torch.cuda.empty_cache()
+    return lines
+
+
+def phase_timing(check_rows, serve_launches, path_launches, arena_parts, model_lines):
     """Times of each kernel, its plain version and the library call (K1 at
-    the serving shape, K2 to K6 at the training arena; K7's line comes from
-    `scan_timing`), and the kernels line. `path_launches` holds each
+    the llama serving shape, K2 to K6 at the training arena; `model_lines`
+    holds the lines of K7, K8 and K1 at head_dim 256 from `scan_timing` and
+    `rgemma_timing`), and the kernels line. `path_launches` holds each
     training path's launch counts: K2 to K4 report the train phase's, K5 and
     K6 the train_int8_overlap phase's, and every comm kernel lists both."""
     q, k, v = qkv(4, 32, 8, PROMPT, PROMPT, 64, torch.bfloat16, seed=7)
@@ -1123,7 +1335,7 @@ def phase_timing(check_rows, serve_launches, path_launches, arena_parts, scan_li
     next(line for line in lines if line["name"] == "quantize_int8").update(
         stochastic_ms=cuda_ms(lambda: ops.quantize_int8(arena, bits), 10, warmup=2),
         stochastic_bound_ms=bytes_bound(int8_bytes + n * 4)[0])
-    emit({"kernels": lines + [scan_line]})
+    emit({"kernels": lines + model_lines})
 
 
 def card_line():
@@ -1144,16 +1356,19 @@ def main():
     rows = phase_check()
     phase_comm_check()
     scan_rows = phase_scan_check()
+    rglru_rows = phase_rglru_check()
     serve_launches = phase_serve()
     mamba_launches = phase_serve_mamba()
     scan_line = scan_timing(scan_rows, mamba_launches)
+    rgemma_launches = phase_serve_rgemma()
+    rgemma_lines = rgemma_timing(rows, rglru_rows, rgemma_launches)
     phase_train_check()
     int8_launches = phase_train_int8_overlap()
     trained = phase_train()
     arena_parts = phase_arena(trained)
     phase_timing(rows, serve_launches, {"train": trained["launches"],
                                         "train_int8_overlap": int8_launches}, arena_parts,
-                 scan_line)
+                 [scan_line] + rgemma_lines)
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

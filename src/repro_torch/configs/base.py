@@ -4,8 +4,8 @@ Each registered architecture has one module in this package exporting
 CONFIG (the exact published shape). `get_reduced` derives a tiny
 same-family variant for CPU tests. The fields mirror the JAX package's
 `ArchConfig` for the layer kinds the port runs (causal, sliding-window and
-local attention with a dense SwiGLU FFN, and the Mamba-1 mixer); dtypes are
-`torch.dtype`s.
+local attention with a dense SwiGLU FFN, the Mamba-1 mixer and the RG-LRU
+mixer); dtypes are `torch.dtype`s.
 """
 from __future__ import annotations
 
@@ -21,12 +21,10 @@ ATTN = "attn"              # global causal attention
 ATTN_SWA = "attn_swa"      # sliding-window causal attention
 ATTN_LOCAL = "attn_local"  # local attention (recurrentgemma-style window)
 MAMBA = "mamba"            # Mamba-1 selective-SSM mixer
-RGLRU = "rglru"            # RG-LRU gated linear recurrence mixer (not ported)
+RGLRU = "rglru"            # RG-LRU gated linear recurrence mixer
 
 ATTENTION_KINDS = (ATTN, ATTN_SWA, ATTN_LOCAL)
 RECURRENT_KINDS = (MAMBA, RGLRU)
-PORTED_KINDS = ATTENTION_KINDS + (MAMBA,)  # RGLRU is the one still to port
-RGLRU_NOT_PORTED = "the RG-LRU mixer is not ported yet (ROADMAP item 19a)"
 
 
 @dataclass(frozen=True)
@@ -38,9 +36,16 @@ class SSMConfig:  # Mamba-1
 
 
 @dataclass(frozen=True)
+class RGLRUConfig:
+    lru_width: int = 0     # 0 -> d_model
+    conv_width: int = 4
+    c_exponent: float = 8.0
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # dense | ssm
+    family: str                     # dense | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -50,6 +55,7 @@ class ArchConfig:
     vocab_size: int
     layer_pattern: Tuple[str, ...] = (ATTN,)
     ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     rope_type: str = "standard"     # standard | none (sinusoidal positions)
     rope_theta: float = 10000.0
     sliding_window: int = 0         # window for attn_swa / attn_local layers
@@ -71,6 +77,12 @@ class ArchConfig:
     def d_inner(self) -> int:
         return 0 if self.ssm is None else self.ssm.expand * self.d_model
 
+    @property
+    def lru_width(self) -> int:
+        if self.rglru is None:
+            return 0
+        return self.rglru.lru_width or self.d_model
+
     def has_attention(self) -> bool:
         return any(k in ATTENTION_KINDS for k in self.layer_pattern)
 
@@ -87,10 +99,10 @@ class ArchConfig:
         for kind in self.layer_pattern:
             if kind not in ATTENTION_KINDS + RECURRENT_KINDS:
                 raise ValueError(f"{self.name}: unknown layer kind {kind!r}")
-            if kind not in PORTED_KINDS:
-                raise ValueError(f"{self.name}: {RGLRU_NOT_PORTED}")
         if MAMBA in self.layer_pattern and self.ssm is None:
             raise ValueError(f"{self.name}: mamba layers need an SSMConfig")
+        if RGLRU in self.layer_pattern and self.rglru is None:
+            raise ValueError(f"{self.name}: rglru layers need an RGLRUConfig")
         if (any(k in (ATTN_SWA, ATTN_LOCAL) for k in self.layer_pattern)
                 and self.sliding_window <= 0):
             raise ValueError(f"{self.name}: windowed layers need sliding_window > 0")
@@ -112,10 +124,14 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
     while n_heads % n_kv:
         n_kv -= 1
     head_dim = max(8, d_model // max(n_heads, 1))
+    rglru = cfg.rglru
+    if rglru is not None:
+        rglru = dataclasses.replace(
+            rglru, lru_width=min(rglru.lru_width or cfg.d_model, d_model))
     return cfg.replace(
         n_layers=n_layers, d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv,
         head_dim=head_dim, d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
-        vocab_size=min(cfg.vocab_size, 512),
+        vocab_size=min(cfg.vocab_size, 512), rglru=rglru,
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
         long_context_window=min(cfg.long_context_window, 64)
         if cfg.long_context_window else 0,
@@ -123,7 +139,7 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
     )
 
 
-ARCH_IDS = ("llama3.2-1b", "falcon-mamba-7b")
+ARCH_IDS = ("llama3.2-1b", "falcon-mamba-7b", "recurrentgemma-9b")
 
 
 def _module(arch_id: str):

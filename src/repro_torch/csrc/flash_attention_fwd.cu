@@ -418,7 +418,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q (B,Hq,Sq,D), k/v (B,Hk,Sk,D), o (B,Hq,Sq,D), all contiguous and 16-byte
-// aligned, of one dtype (is_bf16: 0 f32, 1 bf16). D in {32, 64, 128},
+// aligned, of one dtype (is_bf16: 0 f32, 1 bf16). D in {32, 64, 128, 256},
 // Hq % Hk == 0, 0 < Sq <= Sk. Returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int is_bf16, int B, int Hq, int Hk,
@@ -432,9 +432,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     case 32 * 2 + 1: return launch_bf16<32>(FA_ARGS);
     case 64 * 2 + 1: return launch_bf16<64>(FA_ARGS);
     case 128 * 2 + 1: return launch_bf16<128>(FA_ARGS);
+    case 256 * 2 + 1: return launch_bf16<256>(FA_ARGS);  // 101,376 B of shared memory
     case 32 * 2: return launch_f32<32>(FA_ARGS);
     case 64 * 2: return launch_f32<64>(FA_ARGS);
     case 128 * 2: return launch_f32<128>(FA_ARGS);
+    case 256 * 2: return launch_f32<256>(FA_ARGS);  // 131,072 B of shared memory
     default: return cudaErrorInvalidValue;
   }
 #undef FA_ARGS

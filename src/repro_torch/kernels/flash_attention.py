@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -17,11 +17,13 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import comm_kernels as comm
+from repro_torch.kernels import rglru_scan as rglru
 from repro_torch.kernels import ssm_scan as scan
 from repro_torch.kernels.flash_attention import check_inputs, flash_attention_fwd
 from repro_torch.kernels.ref import (attention_ref, bf16_pack_ref, bf16_unpack_ref,
                                      dequantize_int8_block_ref, eq1_merge_ref,
-                                     quantize_int8_block_ref, ssm_scan_ref)
+                                     quantize_int8_block_ref, rglru_scan_ref,
+                                     ssm_scan_ref)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -100,6 +102,17 @@ def ssm_scan(x, dt, A, Bm, Cm, h0):
     if not _on_card("ssm_scan", x):
         return ssm_scan_ref(x, dt, A, Bm, Cm, h0)
     return scan.ssm_scan_fwd(kernel_library("ssm_scan"), x, dt, A, Bm, Cm, h0)
+
+
+def rglru_scan(a, gx, h0):
+    """RG-LRU diagonal recurrence h_t = a_t * h_{t-1} + gx_t (K8): a, gx
+    (B,S,W) of one dtype; h0 (B,W) f32 -> (hs (B,S,W) f32, h_final (B,W)
+    f32). Forward only: raises NotImplementedError when a gradient is asked
+    for."""
+    rglru.check_inputs(a, gx, h0)
+    if not _on_card("rglru_scan", a):
+        return rglru_scan_ref(a, gx, h0)
+    return rglru.rglru_scan_fwd(kernel_library("rglru_scan"), a, gx, h0)
 
 
 def eq1_merge(local, stale, *, staleness: int, global_world,

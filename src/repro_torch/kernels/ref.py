@@ -43,6 +43,19 @@ def ssm_scan_ref(x, dt, A, Bm, Cm, h0):
     return torch.stack(ys, dim=1), h
 
 
+def rglru_scan_ref(a, gx, h0):
+    """Diagonal recurrence h_t = a_t * h_{t-1} + gx_t, sequential over t, in
+    f32 (`repro/kernels/ref.py::rglru_scan_ref`): the product and the sum
+    are two roundings, as K8 computes them. a, gx (B,S,W); h0 (B,W).
+    Returns (hs (B,S,W) f32, h_final (B,W) f32)."""
+    h = h0.float()
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t].float() * h + gx[:, t].float()
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
 def eq1_merge_ref(local, stale, *, staleness, global_world, extra_staleness=0):
     """Paper Eq. (1) over an arena (or any tensor), as
     `repro/kernels/ref.py::eq1_merge_ref` computes it: f32 math, result in

@@ -4,7 +4,8 @@ by kernel and the device-busy share: the profiled device time (one
 stream, so kernel times add up without overlap) over the plain run's wall
 time, since the profiler's own host cost lengthens the profiled one.
 
-  python -m repro_torch.launch.profile_serve --full [--arch falcon-mamba-7b] \
+  python -m repro_torch.launch.profile_serve --full \
+      [--arch falcon-mamba-7b | recurrentgemma-9b] \
       [--batch 4] [--prompt-len 1024] [--decode-steps 8] [--trace out.json]
 
 Runs on CUDA unless --device cpu is given (then only host times exist and

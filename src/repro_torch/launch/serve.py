@@ -4,6 +4,8 @@
       --max-new 32 [--temperature 0.8] [--device cpu]
   python -m repro_torch.launch.serve --arch falcon-mamba-7b --full --batch 4 \
       --prompt-len 1024 --max-new 32
+  python -m repro_torch.launch.serve --arch recurrentgemma-9b --full --batch 4 \
+      --prompt-len 1024 --max-new 32
 
 Runs on CUDA unless --device cpu is given. Without --full it serves the
 reduced config. Weights are random, drawn from --seed.

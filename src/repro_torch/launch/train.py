@@ -22,7 +22,7 @@ import sys
 import torch
 
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.configs.base import MAMBA
+from repro_torch.configs.base import MAMBA, RGLRU
 from repro_torch.core.executor import list_strategies
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.device import resolve_device
@@ -92,6 +92,9 @@ def build_config(args):
     if MAMBA in cfg.layer_pattern:
         raise SystemExit(f"train: {args.arch} needs a backward through the selective "
                          f"scan, which is not ported (ROADMAP item 23)")
+    if RGLRU in cfg.layer_pattern:
+        raise SystemExit(f"train: {args.arch} needs a backward through the RG-LRU "
+                         f"scan (K8), which is not ported (ROADMAP item 23)")
     if args.tiny:
         if args.full:
             raise SystemExit("train: --tiny and --full are mutually exclusive")

@@ -1,15 +1,17 @@
-"""Residual block assembly: mixer (attention / mamba) + dense SwiGLU FFN."""
+"""Residual block assembly: mixer (attention / mamba / RG-LRU) + dense SwiGLU
+FFN."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_SWA, MAMBA, PORTED_KINDS,
-                                      RGLRU, RGLRU_NOT_PORTED)
+from repro_torch.configs.base import (ATTENTION_KINDS, ATTN, ATTN_LOCAL, ATTN_SWA,
+                                      MAMBA, RECURRENT_KINDS, RGLRU)
 from repro_torch.models.attention import attn_apply, init_attn
 from repro_torch.models.common import dense_init, rms_norm, silu_mlp
 from repro_torch.models.mamba import init_mamba, init_mamba_cache, mamba_apply
+from repro_torch.models.rglru import init_rglru, init_rglru_cache, rglru_apply
 
 
 def _init_ffn(generator, cfg, dtype, device):
@@ -24,10 +26,8 @@ def _init_ffn(generator, cfg, dtype, device):
 
 
 def _check_kind(kind):
-    if kind == RGLRU:
-        raise ValueError(RGLRU_NOT_PORTED)
-    if kind not in PORTED_KINDS:
-        raise ValueError(f"layer kind {kind!r} is not ported")
+    if kind not in ATTENTION_KINDS + RECURRENT_KINDS:
+        raise ValueError(f"unknown layer kind {kind!r}")
 
 
 def _has_ffn(cfg, kind) -> bool:
@@ -38,6 +38,8 @@ def init_block(generator, cfg, kind, dtype, device):
     _check_kind(kind)
     if kind == MAMBA:
         p = {"mamba": init_mamba(generator, cfg, dtype, device)}
+    elif kind == RGLRU:
+        p = {"rec": init_rglru(generator, cfg, dtype, device)}
     else:
         p = {"attn": init_attn(generator, cfg, dtype, device)}
     if _has_ffn(cfg, kind):
@@ -49,6 +51,8 @@ def init_block_cache(cfg, kind, batch, cache_len, dtype, device):
     _check_kind(kind)
     if kind == MAMBA:
         return init_mamba_cache(cfg, batch, dtype, device)
+    if kind == RGLRU:
+        return init_rglru_cache(cfg, batch, dtype, device)
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -71,6 +75,9 @@ def apply_block(kind, p, x, positions, cfg, *, cache: Optional[dict] = None,
     if kind == MAMBA:
         h = rms_norm(x, p["mamba"]["norm"], cfg.norm_eps)
         delta, cache = mamba_apply(p["mamba"], h, cfg, cache=cache)
+    elif kind == RGLRU:
+        h = rms_norm(x, p["rec"]["norm"], cfg.norm_eps)
+        delta, cache = rglru_apply(p["rec"], h, cfg, cache=cache)
     else:
         delta, cache = attn_apply(p["attn"], x, positions, cfg,
                                   window=block_window(cfg, kind, window_override),

@@ -73,7 +73,8 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *, device,
                dtype=None, window_override: int = 0):
     """Decode cache {"groups": [stacked per pattern slot], "rem": [...]}.
     cache_len: positions held by full-attention layers; windowed layers hold
-    min(window, cache_len); mamba layers hold their conv window and state."""
+    min(window, cache_len); mamba and RG-LRU layers hold their conv window
+    and state."""
     dtype = dtype or cfg.compute_dtype
     n_full, n_rem = _pattern_counts(cfg)
 

@@ -3,7 +3,8 @@
 Prefill runs the selective scan through K7 (`kernels/ops.py::ssm_scan`),
 which computes what the reference's chunked `associative_scan` computes;
 one-token decode takes the reference's fast path in plain PyTorch. The
-decode cache {"conv", "h"} is written in place.
+decode cache {"conv", "h"} is written in place. `linear_recurrence`, the
+diagonal recurrence the RG-LRU mixer scans, runs through K8.
 """
 from __future__ import annotations
 
@@ -60,6 +61,16 @@ def selective_scan(xh, dt, A, Bm, Cm, h0):
     (B,S,N); h0 (B,Di,N) f32. Returns (y (B,S,Di) in xh's dtype, h f32)."""
     y, h = ops.ssm_scan(xh, dt, A, Bm, Cm, h0)
     return y.to(xh.dtype), h
+
+
+def linear_recurrence(da, db, h0):
+    """Diagonal recurrence h_t = da_t * h_{t-1} + db_t along axis 1 of
+    (B,S,W) tensors, through K8 on the card (the reference computes it with
+    a chunked associative scan). h0 (B,W) f32. Returns (hs (B,S,W) f32,
+    h_final (B,W) f32): the reference's scan multiplies every step by the
+    f32 state, so its hs is f32 whatever db's dtype (its docstring says
+    db's)."""
+    return ops.rglru_scan(da, db, h0)
 
 
 def causal_conv1d(x, w, b, carry: Optional[torch.Tensor] = None):

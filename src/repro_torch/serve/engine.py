@@ -1,9 +1,10 @@
 """Serving engine: batched prefill + one-token decode over the decoder LM.
 
-Prefill attention runs through the flash attention kernel and the mamba
-mixer's scan through the selective-scan kernel; decode attends one new token
-against the KV cache, or steps the recurrent SSM state. The cache
-(`models/lm.py::init_cache`) is written in place.
+Prefill attention runs through the flash attention kernel, the mamba mixer's
+scan through the selective-scan kernel and the RG-LRU mixer's through the
+RG-LRU scan kernel; decode attends one new token against the KV cache, or
+steps the recurrent state. The cache (`models/lm.py::init_cache`) is written
+in place.
 """
 from __future__ import annotations
 

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_reduced
+from repro_torch.configs import get_config, get_reduced
 from repro_torch.core import daso
 from repro_torch.core.schedule import split_ov
 from repro_torch.data.synthetic import SyntheticLM
@@ -18,7 +18,9 @@ from repro_torch.kernels import comm_kernels, ops
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.ref import (attention_ref, bf16_pack_ref, bf16_unpack_ref,
                                      dequantize_int8_block_ref, eq1_merge_ref,
-                                     quantize_int8_block_ref, ssm_scan_ref)
+                                     quantize_int8_block_ref, rglru_scan_ref,
+                                     ssm_scan_ref)
+from repro_torch.kernels.rglru_scan import rglru_scan_fwd
 from repro_torch.kernels.ssm_scan import ssm_scan_fwd
 from repro_torch.models.lm import forward, init_params
 from repro_torch.serve.engine import Engine, make_decode_fn, make_prefill_fn
@@ -40,6 +42,9 @@ CASES = [
     (4, 32, 8, 1024, 1024, 64, 64),
     (1, 4, 2, 100, 100, 64, 0),
     (2, 4, 1, 40, 100, 128, 0),
+    (4, 16, 1, 1024, 1024, 256, 2048),  # recurrentgemma-9b's local attention
+    (1, 16, 1, 3072, 3072, 256, 2048),  # kv past the window
+    (2, 16, 1, 333, 777, 256, 300),     # ragged q suffix
 ]
 
 
@@ -344,6 +349,79 @@ def test_mamba_serving_goes_through_the_kernel(cuda):
             out = decode(params, cache, toks[:, i:i + 1], i)
             errs.append((out["logits"] - full[:, i]).abs().max().item())
         assert ssm_scan_fwd.launches - before == cfg.n_layers  # decode: no K7
+    assert max(errs) < 2e-3, errs
+    out = Engine(cfg, params, max_len=48).generate(toks[:, :8], 4)
+    assert out.shape == (2, 4) and out.dtype == torch.int32
+
+
+# -- K8 rglru_scan: bit-exact with its plain version ----------------------------
+
+# (B, S, W, random h0): S = 1, a ragged W, the serving prefill's shape
+RGLRU_CASES = [
+    (2, 64, 128, False),
+    (4, 1, 4096, True),
+    (2, 300, 4100, True),
+    (3, 37, 4100, False),
+    (4, 1024, 4096, True),
+]
+
+
+def _rglru_inputs(cuda, B, S, W, random_h0, dtype, seed):
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda)
+
+    a = torch.sigmoid(f32(B, S, W)).to(dtype)
+    gx = f32(B, S, W).to(dtype)
+    h0 = f32(B, W) if random_h0 else torch.zeros((B, W), device=cuda)
+    return a, gx, h0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,W,random_h0", RGLRU_CASES)
+def test_rglru_scan_kernel_bit_exact(cuda, B, S, W, random_h0, dtype):
+    args = _rglru_inputs(cuda, B, S, W, random_h0, dtype, seed=S + W)
+    before = rglru_scan_fwd.launches
+    hs, h = ops.rglru_scan(*args)
+    torch.cuda.synchronize()
+    assert rglru_scan_fwd.launches == before + 1
+    hsr, hr = rglru_scan_ref(*args)
+    assert torch.equal(hs.view(torch.int32), hsr.view(torch.int32))
+    assert torch.equal(h.view(torch.int32), hr.view(torch.int32))
+
+
+def test_rglru_scan_refuses_a_gradient_on_the_card(cuda):
+    a, gx, h0 = _rglru_inputs(cuda, 1, 8, 64, False, torch.float32, 0)
+    with pytest.raises(NotImplementedError, match="item 23"):
+        ops.rglru_scan(a.requires_grad_(), gx, h0)
+
+
+def test_rgemma_serving_goes_through_the_kernels(cuda):
+    """recurrentgemma-9b's widths at 5 layers (one repeat and the two-layer
+    remainder), f32: K8 once per RG-LRU layer and K1 (head_dim 256) once per
+    local-attention layer per prefill, neither in decode; prefill + decode
+    agree with a teacher-forced forward through the plain paths
+    (tests/test_serve.py's 2e-3)."""
+    cfg = get_config("recurrentgemma-9b").replace(
+        n_layers=5, param_dtype=torch.float32, compute_dtype=torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_params(cfg, gen, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen, device=cuda)
+    with torch.inference_mode():
+        full = forward(params, toks, cfg, attn_impl="plain")["logits"]
+        before = rglru_scan_fwd.launches, flash_attention_fwd.launches
+        st = make_prefill_fn(cfg, cache_len=40)(params, toks[:, :32])
+        launched = (rglru_scan_fwd.launches - before[0],
+                    flash_attention_fwd.launches - before[1])
+        assert launched == (4, 1)
+        decode = make_decode_fn(cfg)
+        cache, errs = st["cache"], [(st["logits_last"] - full[:, 31]).abs().max().item()]
+        for i in range(32, 40):
+            out = decode(params, cache, toks[:, i:i + 1], i)
+            errs.append((out["logits"] - full[:, i]).abs().max().item())
+        assert (rglru_scan_fwd.launches - before[0],
+                flash_attention_fwd.launches - before[1]) == launched
     assert max(errs) < 2e-3, errs
     out = Engine(cfg, params, max_len=48).generate(toks[:, :8], 4)
     assert out.shape == (2, 4) and out.dtype == torch.int32

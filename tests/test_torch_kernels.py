@@ -48,6 +48,9 @@ CASES = [
     # ragged lengths
     (1, 4, 2, 100, 100, 64, 0),
     (2, 4, 1, 40, 100, 64, 0),
+    # head dim 256, MQA (recurrentgemma-9b's local attention)
+    (2, 4, 1, 128, 128, 256, 0),
+    (1, 4, 1, 64, 192, 256, 64),    # q suffix, window
 ]
 
 

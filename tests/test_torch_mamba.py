@@ -240,11 +240,16 @@ def test_config_fields_match_jax(full):
 
 
 def test_rglru_is_not_ported_yet():
+    """RG-LRU layers are ported (tests/test_torch_rglru.py): a config with
+    them validates once it carries an RGLRUConfig, and a block builds the
+    reference's "rec" mixer."""
     cfg = get_reduced("llama3.2-1b").replace(layer_pattern=(RGLRU,))
-    with pytest.raises(ValueError, match="item 19a"):
+    with pytest.raises(ValueError, match="RGLRUConfig"):
         cfg.validate()
-    with pytest.raises(ValueError, match="item 19a"):
-        init_block(torch.Generator(), cfg, RGLRU, torch.float32, "cpu")
+    cfg = cfg.replace(rglru=get_reduced("recurrentgemma-9b").rglru)
+    cfg.validate()
+    p = init_block(torch.Generator(), cfg, RGLRU, torch.float32, "cpu")
+    assert sorted(p) == ["ffn", "rec"]
 
 
 # -- the LM tree of both packages (stacked "blocks" / "rem") --------------------------
