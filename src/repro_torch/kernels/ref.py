@@ -26,6 +26,24 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return o.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+ROW_ULPS = 8
+
+
+def attention_row_ratio(out, ref32, ulps: int = ROW_ULPS) -> float:
+    """The per-row rule for a bf16 attention output: for each row,
+    max_d |out - ref32| must be at most `ulps` bf16 ulps of max_d |ref32|.
+    `ref32` is `attention_ref` on f32 upcasts of the same bf16 inputs, kept
+    in f32. Returns the worst ratio of error to limit: the rule holds at
+    <= 1. A row's limit scales with its own output, so a key dropped or
+    added at an edge shows in the rows it touches even where the error is
+    below an absolute tolerance."""
+    err = (out.float() - ref32).abs().amax(dim=-1)
+    peak = ref32.abs().amax(dim=-1).clamp_min(torch.finfo(torch.bfloat16).tiny)
+    _, e = torch.frexp(peak)  # peak = m * 2**e, m in [0.5, 1): ulp 2**(e - 8)
+    limit = ulps * torch.ldexp(torch.ones_like(peak), e - 8)
+    return (err / limit).max().item()
+
+
 def ssm_scan_ref(x, dt, A, Bm, Cm, h0):
     """Mamba selective scan, sequential over t, all in f32
     (`repro/kernels/ref.py::ssm_scan_ref`): h_t = exp(dt_t A) h_{t-1} +

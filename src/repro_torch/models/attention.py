@@ -121,7 +121,8 @@ def attn_apply(p, x, positions, cfg, *, window: int = 0,
     q = (h @ p["wq"]).reshape(B, S, Hq, hd)
     k = (h @ p["wk"]).reshape(B, S, K, hd)
     v = (h @ p["wv"]).reshape(B, S, K, hd)
-    q, k = apply_rope(q, k, positions, cfg.rope_theta)
+    if cfg.rope_type == "standard":  # "none": lm.forward adds sinusoidal positions
+        q, k = apply_rope(q, k, positions, cfg.rope_theta)
 
     if cache is not None and pos is not None and S == 1:  # decode
         S_c = cache["k"].shape[1]

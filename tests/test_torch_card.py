@@ -16,8 +16,8 @@ from repro_torch.core.schedule import split_ov
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.kernels import comm_kernels, ops
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.kernels.ref import (attention_ref, bf16_pack_ref, bf16_unpack_ref,
-                                     dequantize_int8_block_ref, eq1_merge_ref,
+from repro_torch.kernels.ref import (attention_ref, attention_row_ratio, bf16_pack_ref,
+                                     bf16_unpack_ref, dequantize_int8_block_ref, eq1_merge_ref,
                                      quantize_int8_block_ref, rglru_scan_ref,
                                      ssm_scan_ref)
 from repro_torch.kernels.rglru_scan import rglru_scan_fwd
@@ -45,6 +45,10 @@ CASES = [
     (4, 16, 1, 1024, 1024, 256, 2048),  # recurrentgemma-9b's local attention
     (1, 16, 1, 3072, 3072, 256, 2048),  # kv past the window
     (2, 16, 1, 333, 777, 256, 300),     # ragged q suffix
+    (4, 16, 1, 1024, 1024, 256, 0),     # head_dim 256 without a window
+    (4, 32, 8, 500, 500, 32, 0),        # head_dim 32 at the serving GQA ratio, ragged
+    (2, 8, 2, 1, 1, 64, 0),             # one key
+    (2, 8, 2, 200, 777, 64, 0),         # q-suffix tiles ragged at both ends
 ]
 
 
@@ -72,6 +76,10 @@ def test_kernel_matches_plain(cuda, B, Hq, Hk, Sq, Sk, D, window, dtype, causal)
     ref = attention_ref(q, k, v, causal=causal, window=window)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= ATOL[dtype], err
+    if dtype == torch.bfloat16:  # and each row within 8 ulps of its f32 reference
+        ref32 = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                              window=window)
+        assert attention_row_ratio(out, ref32) <= 1.0
 
 
 def test_misaligned_tensor_raises(cuda):

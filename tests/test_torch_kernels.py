@@ -1,6 +1,9 @@
 """Port's flash attention (plain version on CPU tensors; the CUDA kernel on
 the card) held against the JAX package: the Pallas kernel run in interpret
 mode, and the jnp oracle. Inputs are made from a seed with numpy."""
+import importlib.util
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,8 +12,10 @@ import torch
 from repro.kernels.ops import flash_attention as jax_flash
 from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.flash_attention import check_inputs, flash_attention_fwd
+from repro_torch.kernels.ref import attention_ref, attention_row_ratio
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # tests/test_kernels.py tolerances: f32 to 2e-5; bf16 to 2e-2 (the kernel
 # rounds the probabilities to bf16 before the PV product, the oracle does not)
@@ -90,6 +95,66 @@ def test_attention_ref_matches_jax_ref(B, Hq, Hk, Sq, Sk, D, window, dtype):
     np.testing.assert_allclose(_f32(got), _f32(want), atol=ATOL[dtype])
 
 
+def _masked_attention(q, k, v, mask):
+    """attention_ref's arithmetic under an explicit (Sq, Sk) mask, in q's
+    dtype: the plain version with a mask a faulty kernel might compute."""
+    B, Hq, Sq, D = q.shape
+    Hk = k.shape[1]
+    qg = q.reshape(B, Hk, Hq // Hk, Sq, D).float()
+    s = torch.einsum("bkgqd,bkld->bkgql", qg, k.float()) * D ** -0.5
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    o = torch.einsum("bkgql,bkld->bkgqd", p, v.float())
+    return o.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+ROW_RULE_SHAPE = (1, 4, 2, 80, 80, 64)  # Sk = 80: a full 64-key tile and a ragged one
+ROW_RULE_WINDOW = 16
+
+
+def _row_rule_mask(Sq, Sk, window, mutation):
+    row = torch.arange(Sq)[:, None] + (Sk - Sq)
+    col = torch.arange(Sk)[None, :]
+    mask = col <= row
+    if mutation == "window_edge_off_by_one":
+        return mask & (col >= row - window)
+    mask &= col > row - window
+    if mutation == "drop_last_key":
+        mask &= col < Sk - 1
+    elif mutation == "drop_last_kv_tile":
+        mask &= col < (Sk - 1) // 64 * 64
+    return mask
+
+
+@pytest.mark.parametrize("mutation", [None, "drop_last_key", "drop_last_kv_tile",
+                                      "window_edge_off_by_one"])
+def test_row_rule_flags_edge_faults(mutation):
+    """`attention_row_ratio` passes the plain version's own bf16 output and
+    flags plain versions that drop the last key at the Sk edge, drop the
+    last kv tile, or move the window edge by one."""
+    B, Hq, Hk, Sq, Sk, D = ROW_RULE_SHAPE
+    window = 0 if mutation in ("drop_last_key", "drop_last_kv_tile") else ROW_RULE_WINDOW
+    _, (q, k, v) = _both(_qkv(21, B, Hq, Hk, Sq, Sk, D), "bfloat16")
+    ref32 = attention_ref(q.float(), k.float(), v.float(), causal=True, window=window)
+    if mutation is None:
+        out = attention_ref(q, k, v, causal=True, window=window)
+        assert attention_row_ratio(out, ref32) <= 1.0
+    else:
+        out = _masked_attention(q, k, v, _row_rule_mask(Sq, Sk, window or Sk, mutation))
+        assert attention_row_ratio(out, ref32) > 1.0
+
+
+def test_row_rule_limit_is_eight_ulps_of_the_row_peak():
+    ref32 = torch.tensor([[[[0.75, -0.5], [3.0, 1.0]]]])
+    # row 0: peak 0.75, bf16 ulp 2**-8, limit 8 ulps = 2**-5
+    out = ref32.clone()
+    out[..., 0, 1] += 2 ** -5
+    assert attention_row_ratio(out, ref32) == pytest.approx(1.0)
+    # row 1: peak 3.0, ulp 2**-6, limit 2**-3
+    out = ref32.clone()
+    out[..., 1, 0] += 2 ** -4
+    assert attention_row_ratio(out, ref32) == pytest.approx(0.5)
+
+
 def test_cpu_tensors_never_count_a_launch():
     flash_attention_fwd.launches = 0
     _, (tq, tk, tv) = _both(_qkv(0, 1, 4, 2, 64, 64, 64), "float32")
@@ -135,3 +200,40 @@ def test_build_without_nvcc_is_an_error(monkeypatch, tmp_path):
     monkeypatch.setattr(ops, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         ops.build("flash_attention_fwd")
+
+
+@pytest.fixture
+def chip_smoke(monkeypatch):
+    """chip_smoke.py as a module (its main() runs only as a script). The
+    allocator setting it defaults is set here first, so the test's
+    environment is restored after it."""
+    monkeypatch.setenv("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_card_checks_are_inputs_the_kernel_takes(chip_smoke):
+    """Every K1 case that chip_smoke.py runs on the card passes the
+    wrapper's checks (shapes only: tensors on the meta device)."""
+    for name, B, Hq, Hk, Sq, Sk, D, dtype, window, causal in chip_smoke.CHECKS:
+        q = torch.empty(B, Hq, Sq, D, dtype=dtype, device="meta")
+        kv = torch.empty(B, Hk, Sk, D, dtype=dtype, device="meta")
+        check_inputs(q, kv, kv, window)
+        assert isinstance(causal, bool), name
+
+
+def test_ptxas_report_is_read_per_instance(chip_smoke):
+    report = """ptxas info    : Compiling entry function '_Z15fwd_kernel_bf16ILi64E' for 'sm_90a'
+ptxas info    : Function properties for _Z15fwd_kernel_bf16ILi64E
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_Z14fwd_kernel_f32ILi64E' for 'sm_90a'
+ptxas info    : Function properties for _Z14fwd_kernel_f32ILi64E
+    56 bytes stack frame, 88 bytes spill stores, 76 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers, 56 bytes cumulative stack size"""
+    assert chip_smoke.ptxas_instances(report) == {
+        "_Z15fwd_kernel_bf16ILi64E": {"spill_stores": 0, "spill_loads": 0, "registers": 168},
+        "_Z14fwd_kernel_f32ILi64E": {"spill_stores": 88, "spill_loads": 76, "registers": 255}}

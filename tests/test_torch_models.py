@@ -121,6 +121,41 @@ def test_forward_logits_match_jax(variant, impl):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL_F32)
 
 
+ATOL_ROPE_NONE = 1e-5  # f32, 2 layers: the re-anchor's gap under "standard" was 1.3e-6
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+def test_rope_none_attn_apply_matches_jax(impl):
+    """rope_type "none": q and k are not rotated (the reference rotates only
+    under "standard", `repro/models/attention.py:147`)."""
+    jcfg, cfg = (c.replace(rope_type="none") for c in _cfgs("gqa"))
+    jp, tp = _layer_params(jcfg, 0)
+    B, S = 2, 16
+    x = 0.5 * _rng(0).standard_normal((B, S, cfg.d_model), dtype=np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    jattn = jax.tree.map(lambda a: a[0], jp["blocks"][0]["attn"])
+    want, _ = jax_attention.attn_apply(
+        jattn, jnp.asarray(x), jnp.asarray(pos), jcfg,
+        impl="pallas" if impl == "kernel" else "jnp")
+    tattn = {k: v[0] for k, v in tp["blocks"][0]["attn"].items()}
+    got, _ = attention.attn_apply(tattn, torch.from_numpy(x),
+                                  torch.from_numpy(pos.copy()), cfg, impl=impl)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL_ROPE_NONE)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+def test_rope_none_forward_logits_match_jax(impl):
+    """The whole LM under rope_type "none": sinusoidal positions added to the
+    embeddings and no rotation in any attention layer."""
+    jcfg, cfg = (c.replace(rope_type="none") for c in _cfgs("gqa"))
+    jp, tp = _layer_params(jcfg, 0)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+    want = jax_forward(jp, jnp.asarray(toks, jnp.int32), jcfg,
+                       attn_impl="pallas" if impl == "kernel" else "jnp")["logits"]
+    got = forward(tp, torch.from_numpy(toks), cfg, attn_impl=impl)["logits"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL_ROPE_NONE)
+
+
 def test_forward_window_override_matches_jax():
     jcfg, cfg = _cfgs("gqa")
     jp, tp = _layer_params(jcfg, 6)
