@@ -19,7 +19,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   comm_check   hold K2 to K6 against their plain versions, bit-exact, at
                ragged sizes, on misaligned views, on bf16 edge values and (K5,
                K6) on 1 and 4 rows, blocks 64 / 128 / 256, int8 edge blocks
-               and stochastic bits 0, 0xFFFFFFFF and random
+               and stochastic bits 0, 0xFFFFFFFF and random; K2 to K4 also
+               on Eq. (1) edge pairs (subnormals, overflow, +-inf, NaN,
+               signed zeros; NaN compared as NaN), at the stream ring's
+               boundaries (one chunk - 1 and + 1, one turn of the ring + 1),
+               on views whose misalignment x, y and out share (the ring's
+               scalar head) and on views where they do not
   scan_check   hold K7 against its plain version (tests/test_kernels.py's
                1e-4 f32 / 5e-2 bf16): f32 and bf16 x / Bm / Cm, zero and
                random h0, S = 1, Di = 8200 (ragged edge), Bm / Cm as strided
@@ -72,7 +77,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                serving shapes (K1, K7, K8) and the training arena (K2 to K6);
                K1's rows also give the bf16 kernel's tiles, ptxas's
                registers and spills for the instance, and the wrapper's
-               host time per call
+               host time per call; K2 to K4's the stream ring's choice,
+               ptxas's registers and spills, and the achieved TB/s; K6's
+               library call is the broadcast product through views
 then the `kernels` line, the card's name and power limit, and as the last
 line {"ok": true, "device": {...}}.
 
@@ -107,7 +114,8 @@ from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.comm_kernels import (bf16_pack_fwd, bf16_unpack_fwd,  # noqa: E402
                                               dequantize_int8_fwd, eq1_merge_fwd,
-                                              quantize_int8_fwd)
+                                              launch_cast, launch_eq1_merge,
+                                              quantize_int8_fwd, ring_config)
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, attention_row_ratio  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan_fwd  # noqa: E402
@@ -193,6 +201,25 @@ COMM_KERNELS = [k for k in KERNELS if k["source"].endswith("comm_kernels.cu")]
 BF16_EDGES = [1 + 2 ** -8, 1 + 3 * 2 ** -8, -(1 + 2 ** -8), 3.3961e38, 3.3962e38,
               3.4e38, -3.4e38, float("inf"), float("-inf"), 0.0, -0.0, 1e-40, -1e-40,
               1.4e-45, 1.17e-38, 9e-39, 1.0, -2.5]
+
+# Eq. (1) edges, taken pairwise (x from the first list, y from the second):
+# subnormal inputs and results, s2 * x or p * y past the largest f32 (inf),
+# infinities, NaN, signed zeros
+EQ1_X = [0.0, -0.0, 1e-40, -1e-40, 1.4e-45, 9e-39, 1.2e-38, 1e-36, 1.17e-38, 3e38,
+         -3e38, 3.4e38, float("inf"), float("-inf"), float("nan"), 1.0, -2.5, 2e37]
+EQ1_Y = [0.0, -0.0, -9e-39, 1e-40, 1.4e-45, 1e-38, 3e38, -3e38, 2.2e37, -2.2e37,
+         float("inf"), float("-inf"), float("nan"), 1.0, -1.0, 1e-30]
+
+# the stream ring's instance of each of K2 to K4 at the training arena's
+# dtypes, as ptxas names it (f32 Eq. (1), f32 -> bf16, bf16 -> f32)
+RING_INSTANCES = {"eq1_merge": "stream_ring_kernelINS_8Eq1MergeIfEE",
+                  "bf16_pack": "stream_ring_kernelINS_4CastIf13__nv_bfloat16EE",
+                  "bf16_unpack": "stream_ring_kernelINS_4CastI13__nv_bfloat16fEE"}
+# (entry, input dtype, output dtype) of the casts K3 and K4
+CASTS = [("bf16_pack", torch.float32, torch.bfloat16),
+         ("bf16_pack", torch.bfloat16, torch.bfloat16),
+         ("bf16_unpack", torch.bfloat16, torch.float32),
+         ("bf16_unpack", torch.bfloat16, torch.bfloat16)]
 
 # (name, B, Hq, Hk, Sq, Sk, D, dtype, window, causal)
 CHECKS = [
@@ -294,6 +321,16 @@ def bf16_tiles(lib, D):
     if fn(D, out):
         return None
     return dict(zip(("block_q", "block_kv", "stages", "smem_bytes"), out))
+
+
+def stream_extras(report, kernel, ring, nbytes, ms):
+    """K2 to K4's row additions: ptxas's report of the kernel's stream-ring
+    instance at the training arena's dtypes (registers, spills), the ring's
+    choice (`comm_kernels.ring_config`) and the achieved TB/s."""
+    name, regs = next((n, r) for n, r in ptxas_instances(report).items()
+                      if RING_INSTANCES[kernel] in n)
+    return {"ptxas": {"instance": name, **regs}, "ring": ring,
+            "tb_per_s": nbytes / ms / 1e9}
 
 
 def attended_pairs(Sq, Sk, causal, window):
@@ -854,6 +891,119 @@ def same_bits_or_nan(a, b):
         torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
 
 
+def eq1_edge_arenas(n, dtype, offset=0):
+    """x, y: n values on the card (n >= every EQ1_X x EQ1_Y pair), the
+    pairs first, then 40 * randn; offset as `card_arena`."""
+    pairs = [torch.tensor(EQ1_X).repeat_interleave(len(EQ1_Y)),
+             torch.tensor(EQ1_Y).repeat(len(EQ1_X))]
+    out = []
+    for seed, edges in zip((6, 7), pairs):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        v = 40 * torch.randn(n + offset, generator=g, device="cuda")
+        v[offset:offset + edges.numel()] = edges.to("cuda")
+        out.append(v.to(dtype)[offset:])
+    return out
+
+
+def ring_edge_sizes(ring):
+    """Sizes at the stream ring's boundaries, from its `ring_config`: one
+    chunk - 1 and + 1, and one full turn of the ring over the persistent
+    grid (every CTA through each of its stages once) + 1."""
+    chunk = ring["chunk_elements"]
+    return [chunk - 1, chunk + 1, ring["grid"] * ring["stages"] * chunk + 1]
+
+
+def shared_offset(x_offset, in_size, out_size):
+    """The offset (elements) of an output view that reaches 16-byte
+    alignment at the same element as an input view `x_offset` elements
+    into an aligned buffer: the ring's head path."""
+    head = -x_offset % (16 // in_size)
+    return -head % (16 // out_size)
+
+
+def offset_out(n, dtype, offset):
+    """(buffer, view): n elements `offset` into a buffer of 7.0s that
+    reaches 16 past the view, so a write outside the view shows."""
+    buf = torch.full((n + offset + 16,), 7.0, dtype=dtype, device="cuda")
+    return buf, buf[offset:offset + n]
+
+
+def untouched(buf, view):
+    start = view.data_ptr() - buf.data_ptr()
+    lo, hi = start // buf.element_size(), start // buf.element_size() + view.numel()
+    return bool((buf[:lo] == 7).all()) and bool((buf[hi:] == 7).all())
+
+
+def check_streams(record):
+    """K2 to K4 on the stream ring's edges, bit for bit (NaN as NaN): Eq. (1)
+    on edge pairs (f32 and bf16 arenas), sizes at the ring's boundaries,
+    views whose 16-byte misalignment x, y and out share (the ring's scalar
+    head; the output through the entry point, checked for writes outside
+    the view) and views where they do not (the scalar loop)."""
+    lib = ops.kernel_library("comm_kernels")
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtype in (f32, bf16):
+        for n, offset in ((999, 0), (4099, 1)):
+            x, y = eq1_edge_arenas(n, dtype, offset)
+            for S, P, E in ((1, 16, 0), (3, 16, 1), (1, 1, 0)):
+                kw = dict(staleness=S, global_world=P, extra_staleness=E)
+                record("eq1_merge", same_bits_or_nan(ops.eq1_merge(x, y, **kw),
+                                                     ref.eq1_merge_ref(x, y, **kw)),
+                       case="edge pairs", n=n, offset=offset, dtype=str(dtype), S=S, P=P,
+                       E=E)
+    kw = dict(staleness=1, global_world=16)
+    for dtype in (f32, bf16):
+        for n in ring_edge_sizes(ring_config(lib, "eq1_merge", dtype, 2 ** 40)):
+            x, y = card_arena(n, 8, dtype), card_arena(n, 9, dtype)
+            record("eq1_merge", same_bits(ops.eq1_merge(x, y, **kw),
+                                          ref.eq1_merge_ref(x, y, **kw)),
+                   case="ring size", n=n, dtype=str(dtype))
+    for entry, din, dout in CASTS:
+        kernel = ops.bf16_pack if entry == "bf16_pack" else (
+            lambda x, dout=dout: ops.bf16_unpack(x, dout))
+        plain = ref.bf16_pack_ref if entry == "bf16_pack" else (
+            lambda x, dout=dout: ref.bf16_unpack_ref(x, dout))
+        ring = ring_config(lib, entry, din if entry == "bf16_pack" else dout, 2 ** 40)
+        for n in ring_edge_sizes(ring):
+            x = card_arena(n, 10, din, edges=True)
+            x[n // 2] = x[-1] = float("nan")  # in the ring's body and in the tail
+            record(entry, same_bits_or_nan(kernel(x), plain(x)), case="ring size", n=n,
+                   dtype=f"{din} -> {dout}")
+    # the head path: x, y and out misaligned alike
+    for dtype in (f32, bf16):
+        for n in (2, 999, 2 ** 20 + 3):
+            for offset in ((1, 3) if dtype == f32 else (1, 5)):
+                x, y = eq1_edge_arenas(n, dtype, offset) if n >= 288 else (
+                    card_arena(n, 11, dtype, offset), card_arena(n, 12, dtype, offset))
+                buf, out = offset_out(n, dtype, offset)
+                launch_eq1_merge(lib, x, y, out, **kw)
+                record("eq1_merge", same_bits_or_nan(out, ref.eq1_merge_ref(x, y, **kw))
+                       and untouched(buf, out), case="shared misalignment", n=n,
+                       offset=offset, dtype=str(dtype))
+    for entry, din, dout in CASTS:
+        for n in (2, 999, 2 ** 20 + 3):
+            for offset in (1, 3):
+                x = card_arena(n, 13, din, offset, edges=n >= len(BF16_EDGES))
+                buf, out = offset_out(n, dout, shared_offset(offset, din.itemsize,
+                                                             dout.itemsize))
+                launch_cast(lib, entry, x, out)
+                record(entry, same_bits(out, x.to(dout)) and untouched(buf, out),
+                       case="shared misalignment", n=n, offset=offset,
+                       dtype=f"{din} -> {dout}")
+    # the scalar loop: y misaligned unlike x, an output view unlike x
+    for dtype in (f32, bf16):
+        x, y = card_arena(4099, 14, dtype, 1), card_arena(4099, 15, dtype, 2)
+        record("eq1_merge", same_bits(ops.eq1_merge(x, y, **kw), ref.eq1_merge_ref(x, y, **kw)),
+               case="unshared misalignment", n=4099, offset=[1, 2], dtype=str(dtype))
+    for entry, din, dout in CASTS:
+        x = card_arena(4099, 16, din, edges=True)
+        buf, out = offset_out(4099, dout, 1)
+        launch_cast(lib, entry, x, out)
+        record(entry, same_bits(out, x.to(dout)) and untouched(buf, out),
+               case="unshared misalignment", n=4099, offset=[0, 1],
+               dtype=f"{din} -> {dout}")
+
+
 def int8_edges(x, block):
     """Edge blocks at the start of x's first row (x is (rows, N), N >= 8
     blocks), zero but for the values listed: all zeros (scale 1e-12 / 127),
@@ -937,8 +1087,9 @@ def check_int8(record):
 
 def phase_comm_check():
     """K2 to K6 bit-exact against their plain versions at ragged sizes,
-    misaligned views and edge values; and what PyTorch's CUDA division by a
-    Python scalar does to the plain Eq. (1)."""
+    misaligned views and edge values, K2 to K4 also on the stream ring's
+    edges (`check_streams`); and what PyTorch's CUDA division by a Python
+    scalar does to the plain Eq. (1)."""
     rows = []
 
     def record(kernel, ok, **case):
@@ -964,6 +1115,7 @@ def phase_comm_check():
     nan = ops.bf16_pack(torch.tensor([float("nan"), 1.0], device="cuda"))
     if not (bool(torch.isnan(nan[0])) and nan[1].item() == 1.0):
         raise AssertionError(f"bf16_pack of NaN: {nan}")
+    check_streams(record)
     check_int8(record)
 
     # the plain Eq. (1) divides by a device tensor; a Python-scalar divisor
@@ -1376,8 +1528,8 @@ def phase_timing(check_rows, serve_launches, path_launches, arena_parts, model_l
     values, scales = ops.quantize_int8(arena)
     # K5 reads 4 B and writes 1 B per element and 4 B per scale; K6 the reverse
     int8_bytes = n * 5 + scales.numel() * 4
-    no_library = ("none: no single PyTorch call computes a block-absmax int8 "
-                  "quantization; dequantize needs a broadcast of the scales")
+    no_library = "none: no single PyTorch call computes a block-absmax int8 quantization"
+    rows = values.shape[0]
     timed = {
         "eq1_merge": (lambda: ops.eq1_merge(arena, stale, **kw),
                       lambda: ref.eq1_merge_ref(arena, stale, **kw),
@@ -1394,14 +1546,19 @@ def phase_timing(check_rows, serve_launches, path_launches, arena_parts, model_l
                           lambda: ref.quantize_int8_block_ref(arena), None, int8_bytes,
                           int8_launches["quantize_int8"],
                           "train_int8_overlap (ov_sync and blocking steps)"),
+        # every block of the arena is full (N = 256 x 1,976,392): one
+        # broadcast product through views, exact as K6 (one rounding)
         "dequantize_int8": (lambda: ops.dequantize_int8(values, scales),
-                            lambda: ref.dequantize_int8_block_ref(values, scales), None,
+                            lambda: ref.dequantize_int8_block_ref(values, scales),
+                            lambda: torch.mul(values.view(rows, -1, 256), scales.unsqueeze(-1)),
                             int8_bytes, int8_launches["dequantize_int8"],
                             "train_int8_overlap (ov_sync and blocking steps)"),
     }
+    lib = ops.kernel_library("comm_kernels")
     for kern in COMM_KERNELS:
         kernel_fn, plain_fn, library_fn, nbytes, launches, path = timed[kern["name"]]
         bound, by = bytes_bound(nbytes)
+        ms = cuda_ms(kernel_fn, 10, warmup=2)
         lines.append({
             "name": kern["name"], "route": kern["route"], "source": kern["source"],
             "replaces": kern["replaces"], "launches": launches,
@@ -1409,13 +1566,20 @@ def phase_timing(check_rows, serve_launches, path_launches, arena_parts, model_l
             "max_abs_err": errs[kern["name"]],
             "bit_exact": all(v for k, v in checks.items()
                              if k.startswith(kern["name"] + "/")),
-            "ms": cuda_ms(kernel_fn, 10, warmup=2),
-            "plain_ms": cuda_ms(plain_fn, 5, warmup=1), "bound_ms": bound,
+            "ms": ms, "plain_ms": cuda_ms(plain_fn, 5, warmup=1), "bound_ms": bound,
             "bound_by": by,
             "library_ms": None if library_fn is None else cuda_ms(library_fn, 10, warmup=2),
             "bytes": nbytes, "shape": list(arena.shape), "path": path})
         if library_fn is None:
             lines[-1]["library"] = no_library
+        if kern["name"] in RING_INSTANCES:  # the training arena is f32
+            lines[-1].update(stream_extras(
+                reports["comm_kernels"], kern["name"],
+                ring_config(lib, kern["name"], torch.float32, n), nbytes, ms))
+    k6 = next(line for line in lines if line["name"] == "dequantize_int8")
+    k6.update(library="torch.mul(values.view(rows, -1, 256), scales.unsqueeze(-1))",
+              library_bit_exact=same_bits(timed["dequantize_int8"][2]().view(values.shape),
+                                          ops.dequantize_int8(values, scales)))
     # the stochastic K5 (not on the training path) reads the bits as well
     bits = flatbuf.random_bits(arena.shape, torch.Generator(device="cuda").manual_seed(9))
     next(line for line in lines if line["name"] == "quantize_int8").update(

@@ -13,8 +13,8 @@
 // Replace the Pallas TPU kernels of repro/kernels/comm_kernels.py:
 // `_eq1_kernel` (wrapper `eq1_merge`), `_cast_kernel` (wrappers `bf16_pack`
 // and `bf16_unpack`), `_quantize_kernel` (wrapper `quantize_int8`) and
-// `_dequantize_kernel` (wrapper `dequantize_int8`). K3 and K4 are two
-// instances of one templated cast kernel, as on the TPU.
+// `_dequantize_kernel` (wrapper `dequantize_int8`). K3 and K4 are instances
+// of one cast op, as on the TPU.
 //
 // What bounds them: each element is read once per input and written once,
 // with a handful of flops in between: 12 bytes per f32 element for K2, 6 for
@@ -25,14 +25,37 @@
 // K5 or K6.
 //
 // Design, against that bound:
-//  - K2 to K4: the arena is one flat contiguous range walked by a
-//    grid-stride loop, eight elements per thread and iteration, with 64-bit
-//    indices (the training arena holds 2.02e9 elements, 94 % of INT32_MAX).
-//    The TPU wrappers padded the arena to a multiple of the block and ran a
-//    (rows,) grid, a tiling artifact of the TPU that is not reproduced here.
-//  - Where every pointer is 16-byte aligned, the eight elements move as
-//    16-byte vector loads and stores (two for f32, one for bf16); the tail
-//    and misaligned views take a scalar loop.
+//  - K2 to K4 stream the arena as one flat range through one skeleton,
+//    `stream_ring_kernel<Op>`, instantiated for Eq. (1) (two inputs) and for
+//    the cast (one input). A persistent grid holds the CTAs that fit on the
+//    card in one wave (SMs x the residency the occupancy query gives for the
+//    ring's shared memory). Indices are 64-bit (the training arena holds
+//    2.02e9 elements, 94 % of INT32_MAX).
+//  - In each CTA one thread of a producer warp keeps as many chunks of
+//    kChunkBytes per input in flight as kRingBytes of shared memory hold,
+//    with TMA bulk copies (`cp.async.bulk`), each stage's arrival counted
+//    on its `mbarrier`. Eight consumer warps compute a stage from shared
+//    memory into its output slot (the first input's slot where the element
+//    sizes match), fence it for the async proxy, meet at a named barrier,
+//    and one of them writes the slot back with a bulk store. The slot goes
+//    back to the producer once that store has read it
+//    (`cp.async.bulk.wait_group.read`), one chunk later, so the store
+//    overlaps the next chunk.
+//  - The producers take chunks in order from one ticket counter per launch,
+//    so the whole grid streams one narrow window of the arena. Dealt
+//    round-robin, the CTAs drift apart and with them the DRAM pages they
+//    touch: on the card that cost K2 4 % and K3 3 %, and an L2 evict-first
+//    hint on the copies cost 2 to 3 % more (PERF.md, Findings).
+//  - What held the earlier grid-stride kernels back was neither registers
+//    (32 for K2, 8 CTAs per SM, one wave) nor the division (a reciprocal
+//    multiply gained 1.6 %): too few bytes in flight per SM and default
+//    caching, and, once those were fixed, the drift above.
+//  - Bulk copies need 16-byte aligned addresses and sizes. Where x, (y) and
+//    out reach 16-byte alignment at the same element, a scalar head brings
+//    them there, the ring takes the rest in multiples of eight elements and
+//    a scalar tail (under eight) finishes the range. Where they do not (an
+//    offset view against a fresh output), the whole range takes a scalar
+//    grid-stride loop, `stream_loop_kernel<Op>`, on the same entry point.
 //  - K5 / K6: one warp per scale block (a block of a row's trailing axis;
 //    blocks never span rows, a row's ragged last block is short, as the
 //    reference's zero padding makes it), grid-stride over the blocks. For
@@ -60,16 +83,23 @@
 //    an inf or NaN) is stored as 0, the plain version's stated rule: the
 //    reference's float -> int8 cast of NaN is undefined. K6 is
 //    __fmul_rn(q, scale), exact to one rounding as the reference.
+//  - Subnormals are kept (no .ftz form anywhere, nvcc's default -ftz=false),
+//    as the plain versions keep them under IEEE arithmetic. XLA on the CPU
+//    (and the TPU) flushes subnormal inputs and results of Eq. (1) and of
+//    the replica mean to zero, so the JAX reference differs there; the port
+//    keeps IEEE subnormals (ROADMAP §3).
 //  - The kernels allocate nothing, launch on the caller's stream and return
 //    the launch's cudaError.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPack = 8;  // elements per thread and iteration
+constexpr int kPack = 8;  // elements per thread and step: 16 bytes of bf16, 32 of f32
 constexpr int kBlocksPerSm = 8;
 
 enum DType { kF32 = 0, kBF16 = 1 };
@@ -121,43 +151,207 @@ __device__ __forceinline__ float eq1(float x, float y, float s2, float p, float 
   return __fdiv_rn(__fadd_rn(__fmul_rn(s2, x), __fmul_rn(p, y)), denom);
 }
 
-// -- K2 ------------------------------------------------------------------------
+// -- K2 to K4: the ops the stream kernels apply -------------------------------
 
+// K2: Eq. (1) over two arenas of one dtype.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-eq1_merge_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                 T* __restrict__ out, int64_t n, float s2, float p,
-                 float denom, int vec) {
-  const int64_t stride = int64_t(gridDim.x) * kThreads;
-  const int64_t tid = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t n_packs = vec ? n / kPack : 0;
-  for (int64_t i = tid; i < n_packs; i += stride) {
+struct Eq1Merge {
+  using In = T;
+  using Out = T;
+  static constexpr int kInputs = 2;
+  float s2, p, denom;
+  __device__ __forceinline__ Out one(In x, In y) const {
+    return from_float<T>(eq1(to_float(x), to_float(y), s2, p, denom));
+  }
+  __device__ __forceinline__ void pack(const In* x, const In* y, Out* out) const {
     float a[kPack], b[kPack];
-    load8(x + i * kPack, a);
-    load8(y + i * kPack, b);
+    load8(x, a);
+    load8(y, b);
 #pragma unroll
     for (int k = 0; k < kPack; ++k) a[k] = eq1(a[k], b[k], s2, p, denom);
-    store8(out + i * kPack, a);
+    store8(out, a);
   }
-  for (int64_t i = n_packs * kPack + tid; i < n; i += stride)
-    out[i] = from_float<T>(eq1(to_float(x[i]), to_float(y[i]), s2, p, denom));
+};
+
+// K3 / K4: the cast between an arena dtype and the bf16 wire (y unused).
+template <typename I, typename O>
+struct Cast {
+  using In = I;
+  using Out = O;
+  static constexpr int kInputs = 1;
+  __device__ __forceinline__ Out one(In x, In) const { return from_float<O>(to_float(x)); }
+  __device__ __forceinline__ void pack(const In* x, const In*, Out* out) const {
+    float a[kPack];
+    load8(x, a);
+    store8(out, a);
+  }
+};
+
+// One flat range: out[i] = op(x[i], y[i]) for i < n. The ring takes
+// [head, head + body); the scalar path the head and [head + body, n).
+template <typename Op>
+struct Stream {
+  const typename Op::In* x;
+  const typename Op::In* y;  // K2's second input; null for the cast
+  typename Op::Out* out;
+  int64_t n, head, body;
+  unsigned long long* ticket;  // the ring's next chunk, zero at launch
+};
+
+template <typename Op>
+__device__ __forceinline__ void scalar_step(const Stream<Op>& st, const Op& op, int64_t i) {
+  st.out[i] = op.one(st.x[i], Op::kInputs == 2 ? st.y[i] : st.x[i]);
 }
 
-// -- K3 / K4: one cast kernel --------------------------------------------------
+// -- the ring: TMA bulk copies, mbarriers, a named barrier ---------------------
 
-template <typename In, typename Out>
-__global__ void __launch_bounds__(kThreads)
-cast_kernel(const In* __restrict__ x, Out* __restrict__ out, int64_t n, int vec) {
-  const int64_t stride = int64_t(gridDim.x) * kThreads;
-  const int64_t tid = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t n_packs = vec ? n / kPack : 0;
-  for (int64_t i = tid; i < n_packs; i += stride) {
-    float a[kPack];
-    load8(x + i * kPack, a);
-    store8(out + i * kPack, a);
+constexpr int kConsumerWarps = 8;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kRingThreads = kConsumers + 32;  // and one producer warp
+constexpr int kChunkBytes = 16384;             // per input and stage
+constexpr int kRingBytes = 196608;             // a CTA's stages: as many as fit
+constexpr int kConsumerBarrier = 1;            // named barrier of the consumers
+
+template <typename Op>
+struct Ring {
+  using In = typename Op::In;
+  using Out = typename Op::Out;
+  static constexpr int kChunk = kChunkBytes / sizeof(In);  // elements, a multiple of kPack
+  static constexpr bool kInPlace = sizeof(Out) == sizeof(In);
+  static constexpr int kOutBytes = kInPlace ? 0 : kChunk * sizeof(Out);
+  static constexpr int kStageBytes = Op::kInputs * kChunkBytes + kOutBytes;
+  static constexpr int kStages = kRingBytes / kStageBytes;
+  // the stages, then per stage a full and an empty mbarrier and its chunk
+  static constexpr int kSmemBytes = kStages * (kStageBytes + 3 * 8);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   }
-  for (int64_t i = n_packs * kPack + tid; i < n; i += stride)
-    out[i] = from_float<Out>(to_float(x[i]));
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(src), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <typename Op>
+__global__ void __launch_bounds__(kRingThreads)
+stream_ring_kernel(const Stream<Op> st, const Op op) {
+  using R = Ring<Op>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t full = smem_u32(smem + R::kStages * R::kStageBytes);
+  const uint32_t empty = full + 8 * R::kStages;
+  // each stage's chunk, written by the producer before the stage's arrival
+  int64_t* chunk_of = reinterpret_cast<int64_t*>(smem + R::kStages * (R::kStageBytes + 16));
+  const int64_t n_chunks = (st.body + R::kChunk - 1) / R::kChunk;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 32) {
+    // ---- producer: one thread keeps the ring's stages loading ----
+    if (threadIdx.x == 0) {
+      for (int k = 0;; ++k) {
+        const int s = k % R::kStages;
+        if (k >= R::kStages) mbar_wait(empty + 8 * s, (k / R::kStages - 1) & 1);
+        const int64_t c = int64_t(atomicAdd(st.ticket, 1ull));
+        chunk_of[s] = c;
+        if (c >= n_chunks) {  // none left: the stage tells the consumers so
+          mbar_arrive(full + 8 * s);
+          break;
+        }
+        const int64_t first = st.head + c * R::kChunk;
+        const int64_t left = st.body - c * R::kChunk;
+        const uint32_t bytes = uint32_t(left < R::kChunk ? left : R::kChunk) * sizeof(typename R::In);
+        const uint32_t slot = smem_u32(smem + s * R::kStageBytes);
+        mbar_expect_tx(full + 8 * s, Op::kInputs * bytes);
+        bulk_load(slot, st.x + first, bytes, full + 8 * s);
+        if constexpr (Op::kInputs == 2)
+          bulk_load(slot + kChunkBytes, st.y + first, bytes, full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  const int ct = threadIdx.x - 32;
+  if (blockIdx.x == gridDim.x - 1) {  // the scalar head and tail
+    for (int64_t i = ct; i < st.head; i += kConsumers) scalar_step(st, op, i);
+    for (int64_t i = st.head + st.body + ct; i < st.n; i += kConsumers) scalar_step(st, op, i);
+  }
+  for (int k = 0;; ++k) {
+    const int s = k % R::kStages;
+    mbar_wait(full + 8 * s, (k / R::kStages) & 1);
+    const int64_t c = chunk_of[s];
+    if (c >= n_chunks) break;
+    const int64_t left = st.body - c * R::kChunk;
+    const int len = int(left < R::kChunk ? left : R::kChunk);
+    uint8_t* slot = smem + s * R::kStageBytes;
+    const auto* a = reinterpret_cast<const typename R::In*>(slot);
+    const auto* b = reinterpret_cast<const typename R::In*>(slot + kChunkBytes);
+    auto* o = reinterpret_cast<typename R::Out*>(
+        R::kInPlace ? slot : slot + Op::kInputs * kChunkBytes);
+    for (int i = ct; i < len / kPack; i += kConsumers)
+      op.pack(a + i * kPack, b + i * kPack, o + i * kPack);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, %1;\n" :: "r"(kConsumerBarrier), "r"(kConsumers) : "memory");
+    if (ct == 0) {
+      bulk_store(st.out + st.head + c * R::kChunk, smem_u32(o),
+                 uint32_t(len) * sizeof(typename R::Out));
+      if (k > 0) {  // the previous chunk's slot is read out: hand it back
+        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+        mbar_arrive(empty + 8 * ((k - 1) % R::kStages));
+      }
+    }
+  }
+  if (ct == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The range where x, (y) and out are not 16-byte aligned at one element.
+template <typename Op>
+__global__ void __launch_bounds__(kThreads)
+stream_loop_kernel(const Stream<Op> st, const Op op) {
+  const int64_t stride = int64_t(gridDim.x) * kThreads;
+  for (int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x; i < st.n; i += stride)
+    scalar_step(st, op, i);
 }
 
 // -- K5 / K6: block-scaled int8, one warp per scale block ---------------------
@@ -319,40 +513,97 @@ bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-int grid_for(int64_t n, int vec) {
+int sm_count() {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t items = vec ? (n / kPack + n % kPack) : n;
-  const int64_t want = (items + kThreads - 1) / kThreads;
-  const int64_t cap = int64_t(sms) * kBlocksPerSm;
-  return int(want < 1 ? 1 : (want < cap ? want : cap));
+  return sms;
 }
 
-template <typename T>
-int launch_eq1(const void* x, const void* y, void* out, int64_t n, float s2,
-               float p, float denom, cudaStream_t s) {
-  const int vec = aligned(x, 16) && aligned(y, 16) && aligned(out, 16);
-  eq1_merge_kernel<T><<<grid_for(n, vec), kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y), static_cast<T*>(out),
-      n, s2, p, denom, vec);
+// The ring's chunk tickets: each launch takes the next of kTicketSlots
+// counters and zeroes it on its own stream, so launches in flight on other
+// streams count on counters of their own.
+constexpr int kTicketSlots = 64;
+__device__ unsigned long long g_tickets[kTicketSlots];
+std::atomic<unsigned> g_next_ticket{0};
+
+cudaError_t take_ticket(cudaStream_t s, unsigned long long** ticket) {
+  void* base = nullptr;
+  const cudaError_t err = cudaGetSymbolAddress(&base, g_tickets);
+  if (err != cudaSuccess) return err;
+  *ticket = static_cast<unsigned long long*>(base) + g_next_ticket.fetch_add(1) % kTicketSlots;
+  return cudaMemsetAsync(*ticket, 0, sizeof(**ticket), s);
+}
+
+// The ring's CTAs per SM at its shared memory, or a negative cudaError.
+template <typename Op>
+int ring_residency() {
+  using R = Ring<Op>;
+  cudaError_t err = cudaFuncSetAttribute(
+      stream_ring_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmemBytes);
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, stream_ring_kernel<Op>,
+                                                        kRingThreads, R::kSmemBytes);
+  if (err == cudaSuccess && ctas < 1) err = cudaErrorInvalidConfiguration;
+  return err == cudaSuccess ? ctas : -int(err);
+}
+
+// One wave: every chunk's CTA resident at once, or fewer CTAs than that.
+int ring_grid(int64_t body, int chunk, int ctas_per_sm) {
+  const int64_t n_chunks = (body + chunk - 1) / chunk;
+  const int64_t wave = int64_t(sm_count()) * ctas_per_sm;
+  return int(n_chunks < 1 ? 1 : (n_chunks < wave ? n_chunks : wave));
+}
+
+template <typename Op>
+int launch_stream(const void* x, const void* y, void* out, int64_t n, const Op op,
+                  cudaStream_t s) {
+  using R = Ring<Op>;
+  using In = typename R::In;
+  using Out = typename R::Out;
+  Stream<Op> st{static_cast<const In*>(x), static_cast<const In*>(y),
+                static_cast<Out*>(out), n, 0, 0, nullptr};
+  // the head: elements before x is 16-byte aligned; the ring needs y and out
+  // aligned at the same element
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(x) % 16;
+  const int64_t head = int64_t((16 - mis) % 16 / sizeof(In));
+  st.head = head < n ? head : n;
+  const bool ring = mis % sizeof(In) == 0 && aligned(st.out + st.head, 16) &&
+                    (Op::kInputs == 1 || aligned(st.y + st.head, 16));
+  if (!ring) {
+    const int64_t want = (n + kThreads - 1) / kThreads;
+    const int64_t cap = int64_t(sm_count()) * kBlocksPerSm;
+    stream_loop_kernel<Op><<<int(want < cap ? want : cap), kThreads, 0, s>>>(st, op);
+    return int(cudaGetLastError());
+  }
+  st.body = (n - st.head) / kPack * kPack;
+  const int ctas = ring_residency<Op>();
+  if (ctas < 0) return -ctas;
+  const cudaError_t err = take_ticket(s, &st.ticket);
+  if (err != cudaSuccess) return int(err);
+  stream_ring_kernel<Op><<<ring_grid(st.body, R::kChunk, ctas), kRingThreads,
+                           R::kSmemBytes, s>>>(st, op);
   return int(cudaGetLastError());
 }
 
-template <typename In, typename Out>
-int launch_cast(const void* x, void* out, int64_t n, cudaStream_t s) {
-  const int vec = aligned(x, 16) && aligned(out, 16);
-  cast_kernel<In, Out><<<grid_for(n, vec), kThreads, 0, s>>>(
-      static_cast<const In*>(x), static_cast<Out*>(out), n, vec);
-  return int(cudaGetLastError());
+// {chunk bytes per input, chunk elements, stages, CTAs per SM, dynamic
+// shared bytes, grid} of the ring for n elements whose x, (y) and out are
+// 16-byte aligned.
+template <typename Op>
+int ring_config(int64_t n, int* out) {
+  using R = Ring<Op>;
+  const int ctas = ring_residency<Op>();
+  if (ctas < 0) return -ctas;
+  const int cfg[6] = {kChunkBytes, R::kChunk, R::kStages, ctas, R::kSmemBytes,
+                      ring_grid(n / kPack * kPack, R::kChunk, ctas)};
+  for (int i = 0; i < 6; ++i) out[i] = cfg[i];
+  return 0;
 }
 
 int warp_grid(int64_t n_blocks) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int64_t want = (n_blocks + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const int64_t cap = int64_t(sms) * kBlocksPerSm;
+  const int64_t cap = int64_t(sm_count()) * kBlocksPerSm;
   return int(want < 1 ? 1 : (want < cap ? want : cap));
 }
 
@@ -377,6 +628,8 @@ int launch_quantize(const void* x, const void* bits, void* values, void* scales,
   return int(cudaGetLastError());
 }
 
+using Bf16 = __nv_bfloat16;
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. Each entry point returns the
@@ -387,8 +640,8 @@ extern "C" int eq1_merge(const void* x, const void* y, void* out, int64_t n,
   if (n <= 0) return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return launch_eq1<float>(x, y, out, n, s2, p, denom, s);
-    case kBF16: return launch_eq1<__nv_bfloat16>(x, y, out, n, s2, p, denom, s);
+    case kF32: return launch_stream(x, y, out, n, Eq1Merge<float>{s2, p, denom}, s);
+    case kBF16: return launch_stream(x, y, out, n, Eq1Merge<Bf16>{s2, p, denom}, s);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -398,8 +651,8 @@ extern "C" int bf16_pack(const void* x, void* out, int64_t n, int in_dtype,
   if (n <= 0) return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (in_dtype) {
-    case kF32: return launch_cast<float, __nv_bfloat16>(x, out, n, s);
-    case kBF16: return launch_cast<__nv_bfloat16, __nv_bfloat16>(x, out, n, s);
+    case kF32: return launch_stream(x, nullptr, out, n, Cast<float, Bf16>{}, s);
+    case kBF16: return launch_stream(x, nullptr, out, n, Cast<Bf16, Bf16>{}, s);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -409,8 +662,21 @@ extern "C" int bf16_unpack(const void* x, void* out, int64_t n, int out_dtype,
   if (n <= 0) return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (out_dtype) {
-    case kF32: return launch_cast<__nv_bfloat16, float>(x, out, n, s);
-    case kBF16: return launch_cast<__nv_bfloat16, __nv_bfloat16>(x, out, n, s);
+    case kF32: return launch_stream(x, nullptr, out, n, Cast<Bf16, float>{}, s);
+    case kBF16: return launch_stream(x, nullptr, out, n, Cast<Bf16, Bf16>{}, s);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// The ring's choice (see ring_config) for entry 0 = eq1_merge at `dtype`,
+// 1 = bf16_pack from `dtype`, 2 = bf16_unpack into `dtype`, at n elements.
+extern "C" int stream_ring_config(int entry, int dtype, int64_t n, int* out) {
+  if (n <= 0 || (dtype != kF32 && dtype != kBF16)) return int(cudaErrorInvalidValue);
+  const bool f32 = dtype == kF32;
+  switch (entry) {
+    case 0: return f32 ? ring_config<Eq1Merge<float>>(n, out) : ring_config<Eq1Merge<Bf16>>(n, out);
+    case 1: return f32 ? ring_config<Cast<float, Bf16>>(n, out) : ring_config<Cast<Bf16, Bf16>>(n, out);
+    case 2: return f32 ? ring_config<Cast<Bf16, float>>(n, out) : ring_config<Cast<Bf16, Bf16>>(n, out);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -13,6 +13,9 @@ range; K5 and K6 treat them as (rows, N) over the trailing axis. `check_*`
 validate on every device, so the CPU path accepts exactly what the card
 path accepts; the `*_fwd` launchers take CUDA tensors only, launch on the
 current stream, raise on a non-zero cudaError and count their launches.
+`launch_eq1_merge` and `launch_cast` call K2 to K4's entry points into an
+output the caller gives (a view at any alignment) and count nothing: the
+checks use them. `ring_config` reads the stream ring's sizing.
 """
 from __future__ import annotations
 
@@ -120,51 +123,88 @@ def _raise_on(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: launch failed with cudaError {err}")
 
 
+_ARGTYPES = {
+    "eq1_merge": [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int] + [
+        ctypes.c_float] * 3 + [ctypes.c_void_p],
+    "bf16_pack": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
+    "bf16_unpack": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
+    "stream_ring_config": [ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p],
+}
+
+
+def _entry(lib: ctypes.CDLL, name: str):
+    fn = getattr(lib, name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_eq1_merge(lib: ctypes.CDLL, local, stale, out, *, staleness: int,
+                     global_world, extra_staleness: int = 0) -> None:
+    """K2's entry point into `out`, a CUDA tensor of local's shape and
+    dtype at any alignment (a view whose 16-byte misalignment x and y share
+    takes the ring's scalar head). Counts nothing: `eq1_merge_fwd` is the
+    path's launch."""
+    s2, p, denom = eq1_weights(staleness, global_world, extra_staleness)
+    _raise_on("eq1_merge", _entry(lib, "eq1_merge")(
+        local.data_ptr(), stale.data_ptr(), out.data_ptr(), local.numel(),
+        _CODE[local.dtype], s2, p, denom, _stream(local)))
+
+
+def launch_cast(lib: ctypes.CDLL, name: str, x, out) -> None:
+    """The cast entry point `name` ("bf16_pack": K3, arena -> bf16;
+    "bf16_unpack": K4, bf16 -> arena dtype) into `out`, as
+    `launch_eq1_merge`."""
+    code = _CODE[x.dtype] if name == "bf16_pack" else _CODE[out.dtype]
+    _raise_on(name, _entry(lib, name)(x.data_ptr(), out.data_ptr(), x.numel(), code,
+                                      _stream(x)))
+
+
+_RING_FIELDS = ("chunk_bytes", "chunk_elements", "stages", "ctas_per_sm", "smem_bytes",
+                "grid")
+_RING_ENTRIES = {"eq1_merge": 0, "bf16_pack": 1, "bf16_unpack": 2}
+
+
+def ring_config(lib: ctypes.CDLL, entry: str, dtype, n: int) -> dict:
+    """The stream ring's choice for `entry` (K2 at arena `dtype`, K3 from
+    it, K4 into it) at n aligned elements on the current device: chunk
+    bytes per input and elements, stages, CTAs per SM (the occupancy
+    query's), dynamic shared bytes and grid."""
+    out = (ctypes.c_int * len(_RING_FIELDS))()
+    _raise_on("stream_ring_config", _entry(lib, "stream_ring_config")(
+        _RING_ENTRIES[entry], _CODE[dtype], n, out))
+    return dict(zip(_RING_FIELDS, out))
+
+
 def eq1_merge_fwd(lib: ctypes.CDLL, local, stale, *, staleness: int,
                   global_world, extra_staleness: int = 0) -> torch.Tensor:
     """K2 on CUDA tensors already passed through `check_eq1`; returns a new
     tensor of local's shape and dtype."""
-    stream = _stream(local)
+    _stream(local)  # refuses a CPU tensor before anything is allocated
     out = torch.empty_like(local)
     if local.numel():
-        fn = lib.eq1_merge
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int] + [
-            ctypes.c_float] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        s2, p, denom = eq1_weights(staleness, global_world, extra_staleness)
-        _raise_on("eq1_merge", fn(local.data_ptr(), stale.data_ptr(), out.data_ptr(),
-                                  local.numel(), _CODE[local.dtype], s2, p, denom,
-                                  stream))
+        launch_eq1_merge(lib, local, stale, out, staleness=staleness,
+                         global_world=global_world, extra_staleness=extra_staleness)
         eq1_merge_fwd.launches += 1
     return out
 
 
 def bf16_pack_fwd(lib: ctypes.CDLL, x) -> torch.Tensor:
     """K3 on a CUDA tensor already passed through `check_pack`."""
-    stream = _stream(x)
+    _stream(x)
     out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
     if x.numel():
-        fn = lib.bf16_pack
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int,
-                                               ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _raise_on("bf16_pack", fn(x.data_ptr(), out.data_ptr(), x.numel(),
-                                  _CODE[x.dtype], stream))
+        launch_cast(lib, "bf16_pack", x, out)
         bf16_pack_fwd.launches += 1
     return out
 
 
 def bf16_unpack_fwd(lib: ctypes.CDLL, x, out_dtype=torch.float32) -> torch.Tensor:
     """K4 on a CUDA tensor already passed through `check_unpack`."""
-    stream = _stream(x)
+    _stream(x)
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     if x.numel():
-        fn = lib.bf16_unpack
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int,
-                                               ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _raise_on("bf16_unpack", fn(x.data_ptr(), out.data_ptr(), x.numel(),
-                                    _CODE[out_dtype], stream))
+        launch_cast(lib, "bf16_unpack", x, out)
         bf16_unpack_fwd.launches += 1
     return out
 

@@ -131,6 +131,13 @@ def _same_bits(a, b):
                                               b.view(as_int[b.dtype]))
 
 
+def _same_or_nan(a, b):
+    """Bit-exact equality, NaN equal to NaN whatever its payload."""
+    nan = torch.isnan(a)
+    return a.shape == b.shape and torch.equal(nan, torch.isnan(b)) and _same_bits(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
 SIZES = [(999, 0), (2 ** 20 + 3, 0), (4099, 1), (4099, 3), (8, 0), (1, 0)]
 
 
@@ -173,6 +180,116 @@ def test_bf16_unpack_kernel_bit_exact(cuda, n, offset, out_dtype):
 def test_bf16_pack_keeps_nan_nan(cuda):
     x = torch.tensor([float("nan"), 1.0], device=cuda)
     assert torch.isnan(ops.bf16_pack(x)[0]) and ops.bf16_pack(x)[1].item() == 1.0
+
+
+# Eq. (1) edges, taken pairwise (x from the first list, y from the second):
+# subnormal inputs and results, s2 * x or p * y past the largest f32,
+# infinities, NaN, signed zeros
+EQ1_X = [0.0, -0.0, 1e-40, -1e-40, 1.4e-45, 9e-39, 1.2e-38, 1e-36, 1.17e-38, 3e38, -3e38,
+         3.4e38, np.inf, -np.inf, np.nan, 1.0, -2.5, 2e37]
+EQ1_Y = [0.0, -0.0, -9e-39, 1e-40, 1.4e-45, 1e-38, 3e38, -3e38, 2.2e37, -2.2e37, np.inf,
+         -np.inf, np.nan, 1.0, -1.0, 1e-30]
+F32, BF16 = torch.float32, torch.bfloat16
+# (entry point, input dtype, output dtype) of K2 to K4
+STREAMS = [("eq1_merge", F32, F32), ("eq1_merge", BF16, BF16), ("bf16_pack", F32, BF16),
+           ("bf16_pack", BF16, BF16), ("bf16_unpack", BF16, F32), ("bf16_unpack", BF16, BF16)]
+EQ1_KW = dict(staleness=1, global_world=16)
+
+
+def _eq1_edge_pair(cuda, n, dtype, offset=0):
+    """x, y of n >= 288 values: every (EQ1_X, EQ1_Y) pair first."""
+    edges = (np.repeat(np.float32(EQ1_X), len(EQ1_Y)), np.tile(np.float32(EQ1_Y), len(EQ1_X)))
+    out = []
+    for seed, e in zip((5, 6), edges):
+        v = np.random.default_rng(seed).standard_normal(n + offset, dtype=np.float32) * 40
+        v[offset:offset + e.size] = e
+        out.append(torch.from_numpy(v).to(cuda, dtype)[offset:])
+    return out
+
+
+def _stream_inputs(cuda, entry, n, din, offset=0):
+    if entry == "eq1_merge":
+        return (_eq1_edge_pair(cuda, n, din, offset) if n >= len(EQ1_X) * len(EQ1_Y)
+                else (_arena(cuda, n, 7, din, offset), _arena(cuda, n, 8, din, offset)))
+    return _arena(cuda, n, 9, din, offset, edges=n >= len(EDGES)), None
+
+
+def _plain(entry, x, y, dout):
+    if entry == "eq1_merge":
+        return eq1_merge_ref(x, y, **EQ1_KW)
+    return bf16_pack_ref(x) if entry == "bf16_pack" else bf16_unpack_ref(x, dout)
+
+
+def _into(entry, x, y, out):
+    """The entry point into `out` (no launch counted)."""
+    lib = ops.kernel_library("comm_kernels")
+    if entry == "eq1_merge":
+        comm_kernels.launch_eq1_merge(lib, x, y, out, **EQ1_KW)
+    else:
+        comm_kernels.launch_cast(lib, entry, x, out)
+
+
+def _ring_sizes(entry, din, dout):
+    """One chunk - 1 and + 1, one turn of the ring over the persistent grid + 1."""
+    ring = comm_kernels.ring_config(ops.kernel_library("comm_kernels"), entry,
+                                    dout if entry == "bf16_unpack" else din, 2 ** 40)
+    chunk = ring["chunk_elements"]
+    return [chunk - 1, chunk + 1, ring["grid"] * ring["stages"] * chunk + 1]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_eq1_merge_kernel_edge_pairs(cuda, dtype, offset):
+    x, y = _eq1_edge_pair(cuda, 999, dtype, offset)
+    for S, P, E in ((1, 16, 0), (3, 16, 1), (1, 1, 0)):
+        kw = dict(staleness=S, global_world=P, extra_staleness=E)
+        got = ops.eq1_merge(x, y, **kw)
+        torch.cuda.synchronize()
+        assert _same_or_nan(got, eq1_merge_ref(x, y, **kw))
+
+
+@pytest.mark.parametrize("entry,din,dout", STREAMS)
+def test_stream_kernels_at_ring_boundaries(cuda, entry, din, dout):
+    for n in _ring_sizes(entry, din, dout):
+        x, y = _stream_inputs(cuda, entry, n, din)
+        x[n // 2] = float("nan")  # NaN in the ring's body
+        out = torch.empty(n, dtype=dout, device=cuda)
+        _into(entry, x, y, out)
+        torch.cuda.synchronize()
+        assert _same_or_nan(out, _plain(entry, x, y, dout)), n
+
+
+def _shared_offset(x_offset, din, dout):
+    head = -x_offset % (16 // din.itemsize)
+    return -head % (16 // dout.itemsize)
+
+
+@pytest.mark.parametrize("n", [2, 999, 2 ** 20 + 3])
+@pytest.mark.parametrize("offset", [1, 3, 5])
+@pytest.mark.parametrize("entry,din,dout", STREAMS)
+def test_stream_kernels_on_views_misaligned_alike(cuda, entry, din, dout, offset, n):
+    """x, y and out reach 16-byte alignment at one element: the ring's scalar
+    head, and nothing written outside the output view."""
+    x, y = _stream_inputs(cuda, entry, n, din, offset)
+    o = _shared_offset(offset, din, dout)
+    buf = torch.full((n + o + 16,), 7.0, dtype=dout, device=cuda)
+    _into(entry, x, y, buf[o:o + n])
+    torch.cuda.synchronize()
+    assert _same_or_nan(buf[o:o + n], _plain(entry, x, y, dout))
+    assert (buf[:o] == 7).all() and (buf[o + n:] == 7).all()
+
+
+@pytest.mark.parametrize("entry,din,dout", STREAMS)
+def test_stream_kernels_on_views_misaligned_unlike(cuda, entry, din, dout):
+    """x and out (or y) reach alignment at different elements: the scalar loop."""
+    x, y = _stream_inputs(cuda, entry, 4099, din)
+    if y is not None:
+        y = _arena(cuda, 4099, 10, din, 2)
+    buf = torch.full((4099 + 17,), 7.0, dtype=dout, device=cuda)
+    _into(entry, x, y, buf[1:4100])
+    torch.cuda.synchronize()
+    assert _same_or_nan(buf[1:4100], _plain(entry, x, y, dout))
+    assert buf[0] == 7 and (buf[4100:] == 7).all()
 
 
 def test_exchange_without_kernels_raises_on_the_card(cuda):
@@ -223,12 +340,6 @@ def _bits(cuda, shape, kind, seed):
     else:
         b = np.full(shape, 0 if kind == "zeros" else 0xFFFFFFFF, np.uint64)
     return torch.from_numpy(b.astype(np.uint32)).to(cuda)
-
-
-def _same_or_nan(a, b):
-    nan = torch.isnan(a)
-    return torch.equal(nan, torch.isnan(b)) and _same_bits(torch.where(nan, 0.0, a),
-                                                           torch.where(nan, 0.0, b))
 
 
 @pytest.mark.parametrize("bits", ["none", "zeros", "ones", "random"])

@@ -12,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import daso as jdaso
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
+from repro_torch.core import daso
 from repro_torch.kernels import comm_kernels, ops, ref
 
 # (staleness, global_world, extra_staleness)
@@ -152,3 +154,80 @@ def test_launchers_refuse_cpu_tensors():
         comm_kernels.eq1_merge_fwd(None, x, x, staleness=1, global_world=4)
     with pytest.raises(ValueError, match="CUDA"):
         comm_kernels.bf16_pack_fwd(None, x)
+
+
+# -- subnormals: the port keeps IEEE subnormals, XLA on the CPU flushes them --
+#
+# XLA's CPU backend (as the TPU) treats subnormal f32 / bf16 inputs as zero and
+# flushes subnormal results to a signed zero; the port's plain versions and
+# kernels keep them (IEEE, nvcc's -ftz=false). These tests hold the port to
+# numpy's IEEE f32 arithmetic and the JAX reference to the same arithmetic
+# with every input and result flushed, so the split stays visible (ROADMAP §3).
+
+TINY = np.finfo(np.float32).tiny
+# x, y pairs: subnormal y beside a normal x, a subnormal result of normal
+# inputs, subnormal inputs, and normal control pairs (last two)
+SUB_X = np.float32([1e-36, 1.2e-38, 1e-40, 3e-39, -1e-39, -1.2e-38, 1.0, -2.5e-38])
+SUB_Y = np.float32([-9e-39, 0.0, 1e-40, 0.0, 5e-39, 0.0, 1.0, 1e-30])
+SUBNORMAL_AT = [True] * 6 + [False] * 2
+
+
+def _ftz(v):
+    """v (f32) with subnormals flushed to a zero of their sign."""
+    v = np.asarray(v, np.float32)
+    return np.where(np.abs(v) < TINY, np.copysign(np.float32(0), v), v).astype(np.float32)
+
+
+def _as_f32(a, dtype):
+    """f32 values of `a` after a cast to `dtype` (float32 or bfloat16)."""
+    return a if dtype == "float32" else a.astype(ml_dtypes.bfloat16).astype(np.float32)
+
+
+def _to(a, dtype):
+    return a if dtype == "float32" else a.astype(ml_dtypes.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_eq1_merge_keeps_subnormals_where_jax_cpu_flushes(dtype):
+    x, y = _as_f32(SUB_X, dtype), _as_f32(SUB_Y, dtype)
+    s2, p, d = np.float32(2), np.float32(16), np.float32(18)
+    ieee = _to((s2 * x + p * y) / d, dtype)
+    flushed = _to(_ftz(_ftz(_ftz(s2 * _ftz(x)) + _ftz(p * _ftz(y))) / d), dtype)
+    tx, ty = (torch.from_numpy(x).to(getattr(torch, dtype)),
+              torch.from_numpy(y).to(getattr(torch, dtype)))
+    for got in (ref.eq1_merge_ref(tx, ty, staleness=1, global_world=16),
+                ops.eq1_merge(tx, ty, staleness=1, global_world=16)):
+        np.testing.assert_array_equal(_bits(got), _bits(ieee))
+    jax_out = jax_ref.eq1_merge_ref(jnp.asarray(_to(x, dtype)), jnp.asarray(_to(y, dtype)),
+                                    staleness=1, global_world=16)
+    np.testing.assert_array_equal(_bits(jax_out), _bits(flushed))
+    split = _bits(jax_out) != _bits(ieee)
+    np.testing.assert_array_equal(split, SUBNORMAL_AT)
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+def test_replica_mean_keeps_subnormals_where_jax_cpu_flushes(wire):
+    """(R, N) = (4, 5) rows: column 0 all subnormal, column 2 subnormal
+    values, column 4 a subnormal sum of normal values; columns 1 and 3
+    normal. The port's mean is the chain of adds in the wire dtype times
+    1/R; the reference's `lax.reduce` starts from 0."""
+    rows = np.float32([[1e-39, 1.0, 3e-39, 1.2e-38, 2e-38],
+                       [1e-39, 1.0, 1e-39, 1.2e-38, -1.5e-38],
+                       [1e-39, 1.0, -1e-39, 1.2e-38, 0.0],
+                       [1e-39, 1.0, 2e-39, 1.2e-38, 0.0]])
+    dtype = "float32" if wire == "f32" else "bfloat16"
+
+    def mean(flush):
+        f = _ftz if flush else (lambda v: v)
+        w = f(_as_f32(rows, dtype))
+        acc = f(np.zeros_like(w[0]) + w[0]) if flush else w[0]
+        for row in w[1:]:
+            acc = f(_as_f32(acc + row, dtype))
+        return _as_f32(f(acc * _as_f32(np.float32(0.25), dtype)), dtype)
+
+    got = daso.replica_mean({"w": torch.from_numpy(rows)}, wire_format=wire)["w"]
+    want = jdaso.replica_mean({"w": jnp.asarray(rows)}, wire_format=wire)["w"]
+    np.testing.assert_array_equal(_bits(got), np.broadcast_to(_bits(mean(False)), (4, 5)))
+    np.testing.assert_array_equal(_bits(want), np.broadcast_to(_bits(mean(True)), (4, 5)))
+    split = _bits(got[0]) != _bits(want[0])
+    np.testing.assert_array_equal(split, [True, False, True, False, True])

@@ -252,6 +252,24 @@ def test_int8_wire_halves_bf16_bytes():
 
 # -- validation ------------------------------------------------------------------
 
+@pytest.mark.parametrize("rows,n_blocks", [(4, 37), (1, 1), (3, 8)])
+def test_dequantize_library_call_bit_exact_on_full_blocks(rows, n_blocks):
+    """K6's yardstick on the card, one broadcast product through views
+    (`torch.mul(values.view(rows, -1, 256), scales.unsqueeze(-1))`), is
+    bit-exact with the plain version and the JAX reference where every
+    block is full, as on the training arena: int8 -> f32 is exact and the
+    product rounds once."""
+    x = _x(rows * n_blocks, (rows, 256 * n_blocks), scale=3e3)
+    x[0, :256] = 0.0  # a block at the scale floor
+    v, s = ref.quantize_int8_block_ref(torch.from_numpy(x))
+    library = torch.mul(v.view(rows, -1, 256), s.unsqueeze(-1)).view(rows, -1)
+    np.testing.assert_array_equal(_f32_bits(library),
+                                  _f32_bits(ref.dequantize_int8_block_ref(v, s)))
+    jax_out = jax_ref.dequantize_int8_block_ref(jnp.asarray(v.numpy()), jnp.asarray(s.numpy()),
+                                                block=256)
+    np.testing.assert_array_equal(_f32_bits(library), _f32_bits(jax_out))
+
+
 def test_codec_validation_on_every_device():
     x = torch.zeros(2, 300)
     with pytest.raises(TypeError, match="uint32"):

@@ -237,3 +237,40 @@ ptxas info    : Used 255 registers, used 0 barriers, 56 bytes cumulative stack s
     assert chip_smoke.ptxas_instances(report) == {
         "_Z15fwd_kernel_bf16ILi64E": {"spill_stores": 0, "spill_loads": 0, "registers": 168},
         "_Z14fwd_kernel_f32ILi64E": {"spill_stores": 88, "spill_loads": 76, "registers": 255}}
+
+
+def test_stream_extras_read_the_ring_instance(chip_smoke):
+    """K2 to K4's row fields: ptxas's report of the ring instance at the
+    training arena's dtypes (not the loop kernel's, not the bf16 arena's),
+    the ring's choice as given, and TB/s from bytes and ms."""
+    ns = "_ZN48_GLOBAL__N__e8e93a3e_15_comm_kernels_cu_4e8035cb"
+    report = "\n".join(
+        f"ptxas info    : Compiling entry function '{ns}{name}' for 'sm_90a'\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers"
+        for name, regs, spill in (
+            ("18stream_loop_kernelINS_8Eq1MergeIfEEEEvNS_6StreamIT_EES4_", 30, 0),
+            ("18stream_ring_kernelINS_8Eq1MergeI13__nv_bfloat16EEEEvNS_6StreamIT_EES5_", 41, 0),
+            ("18stream_ring_kernelINS_8Eq1MergeIfEEEEvNS_6StreamIT_EES4_", 40, 8),
+            ("18stream_ring_kernelINS_4CastIf13__nv_bfloat16EEEEvNS_6StreamIT_EES5_", 32, 0),
+            ("18stream_ring_kernelINS_4CastI13__nv_bfloat16fEEEEvNS_6StreamIT_EES5_", 33, 0)))
+    ring = {"chunk_bytes": 16384, "grid": 132}
+    got = chip_smoke.stream_extras(report, "eq1_merge", ring, 12 * 10 ** 9, 4.0)
+    assert got == {"ptxas": {"instance": ns + "18stream_ring_kernelINS_8Eq1MergeIfEEEEvNS_"
+                             "6StreamIT_EES4_", "spill_stores": 8, "spill_loads": 8,
+                             "registers": 40},
+                   "ring": ring, "tb_per_s": 3.0}
+    assert chip_smoke.stream_extras(report, "bf16_pack", ring, 1, 1)["ptxas"]["registers"] == 32
+    assert chip_smoke.stream_extras(report, "bf16_unpack", ring, 1, 1)["ptxas"]["registers"] == 33
+
+
+def test_ring_edge_sizes_and_shared_offsets(chip_smoke):
+    ring = {"chunk_elements": 4096, "grid": 132, "stages": 4}
+    assert chip_smoke.ring_edge_sizes(ring) == [4095, 4097, 132 * 4 * 4096 + 1]
+    # (x offset, in bytes, out bytes) -> out offset: x + head and out + head
+    # both 16-byte aligned
+    for x_off, i, o in [(1, 4, 4), (3, 4, 2), (1, 2, 4), (5, 2, 2), (0, 4, 2), (2, 4, 2)]:
+        head = -x_off % (16 // i)
+        out_off = chip_smoke.shared_offset(x_off, i, o)
+        assert ((x_off + head) * i) % 16 == 0 and ((out_off + head) * o) % 16 == 0
+        assert 0 <= out_off < 16 // o
