@@ -15,7 +15,7 @@ import ctypes
 import torch
 
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_STATE = 32   # N held in registers per thread
+MAX_STATE = 32   # the kernel's largest instance: 8 states in each of 4 lanes
 MAX_BATCH = 65535  # the kernel's grid.y
 SSM_NO_BACKWARD = ("ssm_scan has no backward: training through the selective "
                    "scan is not ported (ROADMAP item 23)")
@@ -83,3 +83,22 @@ def ssm_scan_fwd(lib: ctypes.CDLL, x, dt, A, Bm, Cm, h0):
 
 
 ssm_scan_fwd.launches = 0
+
+
+_CONFIG_FIELDS = ("lanes", "channels_per_cta", "tile", "stages", "threads", "smem_bytes",
+                  "ctas_per_sm", "registers", "local_bytes")
+
+
+def scan_config(lib: ctypes.CDLL, dtype, N: int) -> dict:
+    """K7's choice for x / Bm / Cm of `dtype` with N states on the current
+    device: lanes per channel, channels per CTA, tile (time steps), stages,
+    threads per CTA, dynamic shared bytes, resident CTAs per SM (the occupancy
+    query's), registers and local (spill) bytes per thread."""
+    out = (ctypes.c_int * len(_CONFIG_FIELDS))()
+    fn = lib.ssm_scan_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(int(dtype == torch.bfloat16), N, out)
+    if err:
+        raise RuntimeError(f"ssm_scan_config: cudaError {err}")
+    return dict(zip(_CONFIG_FIELDS, out))

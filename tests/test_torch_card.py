@@ -21,7 +21,7 @@ from repro_torch.kernels.ref import (attention_ref, attention_row_ratio, bf16_pa
                                      quantize_int8_block_ref, rglru_scan_ref,
                                      ssm_scan_ref)
 from repro_torch.kernels.rglru_scan import rglru_scan_fwd
-from repro_torch.kernels.ssm_scan import ssm_scan_fwd
+from repro_torch.kernels.ssm_scan import scan_config, ssm_scan_fwd
 from repro_torch.models.lm import forward, init_params
 from repro_torch.serve.engine import Engine, make_decode_fn, make_prefill_fn
 from repro_torch.train.loop import TrainLoopConfig, run_training
@@ -399,20 +399,29 @@ def test_int8_overlap_training_goes_through_the_kernels(cuda):
 
 # -- K7 ssm_scan: within the reference's tolerance of its plain version ----------
 
-SCAN_ATOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}  # tests/test_kernels.py:83
-# (B, S, Di, N, random h0, Bm / Cm as column views of one (B, S, R + 2N) tensor)
+# One rule for both dtypes: the kernel and its plain version upcast the same
+# bf16 inputs exactly and compute in f32 (tests/test_kernels.py's 5e-2 for
+# bf16 is the tolerance between two frameworks)
+SCAN_ATOL = 1e-4
+# (B, S, Di, N, random h0, dt_rank: Bm / Cm as column views of one
+# (B, S, dt_rank + 2N) tensor, or 0 for contiguous Bm / Cm)
 SCAN_CASES = [
-    (2, 64, 128, 16, False, False),
-    (1, 128, 64, 8, True, False),
-    (3, 37, 100, 4, True, False),
-    (2, 1, 8200, 16, True, False),     # S = 1; Di past a multiple of the block
-    (2, 300, 8200, 16, False, True),   # ragged edge and strided Bm / Cm
-    (1, 70, 256, 32, True, True),
-    (4, 1024, 8192, 16, False, True),  # the serving prefill's shape
+    (2, 64, 128, 16, False, 0),
+    (1, 128, 64, 8, True, 0),
+    (3, 37, 100, 4, True, 0),       # bf16: 200-byte rows of x, plain loads
+    (2, 1, 8200, 16, True, 0),      # S = 1; Di past a multiple of the block
+    (2, 300, 8200, 16, False, 8),   # ragged edge and strided Bm / Cm
+    (1, 70, 256, 32, True, 8),
+    (2, 300, 512, 12, True, 8),     # N = 12: states that do not fill the lanes
+    (2, 65, 200, 1, True, 0),       # N = 1
+    (2, 1000, 256, 16, True, 8),    # ring wraps and a ragged last tile
+    (3, 77, 1, 16, True, 0),        # Di = 1
+    (2, 129, 1024, 16, True, 7),    # odd dt_rank: Bm / Cm off 16-byte boundaries
+    (4, 1024, 8192, 16, False, 8),  # the serving prefill's shape
 ]
 
 
-def _scan_inputs(cuda, B, S, Di, N, random_h0, strided, dtype, seed):
+def _scan_inputs(cuda, B, S, Di, N, random_h0, dt_rank, dtype, seed):
     rng = np.random.default_rng(seed)
 
     def f32(*shape):
@@ -421,8 +430,8 @@ def _scan_inputs(cuda, B, S, Di, N, random_h0, strided, dtype, seed):
     x = f32(B, S, Di).to(dtype)
     dt = torch.nn.functional.softplus(f32(B, S, Di))
     A = -torch.exp(0.5 * f32(Di, N))
-    if strided:
-        _, Bm, Cm = f32(B, S, 8 + 2 * N).to(dtype).split([8, N, N], dim=-1)
+    if dt_rank:
+        _, Bm, Cm = f32(B, S, dt_rank + 2 * N).to(dtype).split([dt_rank, N, N], dim=-1)
     else:
         Bm, Cm = f32(B, S, N).to(dtype), f32(B, S, N).to(dtype)
     h0 = f32(B, Di, N) if random_h0 else torch.zeros((B, Di, N), device=cuda)
@@ -430,21 +439,33 @@ def _scan_inputs(cuda, B, S, Di, N, random_h0, strided, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,Di,N,random_h0,strided", SCAN_CASES)
-def test_ssm_scan_kernel_matches_plain(cuda, B, S, Di, N, random_h0, strided, dtype):
-    args = _scan_inputs(cuda, B, S, Di, N, random_h0, strided, dtype, seed=S + Di + N)
+@pytest.mark.parametrize("B,S,Di,N,random_h0,dt_rank", SCAN_CASES)
+def test_ssm_scan_kernel_matches_plain(cuda, B, S, Di, N, random_h0, dt_rank, dtype):
+    args = _scan_inputs(cuda, B, S, Di, N, random_h0, dt_rank, dtype, seed=S + Di + N)
     before = ssm_scan_fwd.launches
     y, h = ops.ssm_scan(*args)
     torch.cuda.synchronize()
     assert ssm_scan_fwd.launches == before + 1
     assert y.dtype == h.dtype == torch.float32
     yr, hr = ssm_scan_ref(*args)
-    assert (y - yr).abs().max().item() <= SCAN_ATOL[dtype]
-    assert (h - hr).abs().max().item() <= SCAN_ATOL[dtype]
+    assert (y - yr).abs().max().item() <= SCAN_ATOL
+    assert (h - hr).abs().max().item() <= SCAN_ATOL
+
+
+def test_ssm_scan_fills_the_card_in_one_wave(cuda):
+    """At falcon-mamba-7b's prefill shape (bf16, B 4, Di 8192, N 16) every
+    CTA of K7's grid is resident at once (the occupancy query's CTAs per
+    SM), at four lanes per channel and at least 24 warps per SM."""
+    cfg = scan_config(ops.kernel_library("ssm_scan"), torch.bfloat16, 16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ctas = -(-8192 // cfg["channels_per_cta"]) * 4
+    assert cfg["lanes"] == 4 and cfg["threads"] == 4 * cfg["channels_per_cta"]
+    assert cfg["ctas_per_sm"] * sms >= ctas
+    assert ctas * cfg["threads"] / 32 / sms >= 24
 
 
 def test_ssm_scan_refuses_a_gradient_on_the_card(cuda):
-    x, dt, A, Bm, Cm, h0 = _scan_inputs(cuda, 1, 8, 64, 16, False, False, torch.float32, 0)
+    x, dt, A, Bm, Cm, h0 = _scan_inputs(cuda, 1, 8, 64, 16, False, 0, torch.float32, 0)
     with pytest.raises(NotImplementedError, match="item 23"):
         ops.ssm_scan(x, dt.requires_grad_(), A, Bm, Cm, h0)
 

@@ -225,6 +225,72 @@ def test_card_checks_are_inputs_the_kernel_takes(chip_smoke):
         assert isinstance(causal, bool), name
 
 
+def _meta_scan_inputs(B, S, Di, N, dtype, dt_rank):
+    """K7's inputs as chip_smoke.scan_inputs shapes and strides them, on the
+    meta device (shapes only)."""
+    x = torch.empty(B, S, Di, dtype=dtype, device="meta")
+    dt = torch.empty(B, S, Di, device="meta")
+    if dt_rank:
+        _, Bm, Cm = torch.empty(B, S, dt_rank + 2 * N, dtype=dtype,
+                                device="meta").split([dt_rank, N, N], dim=-1)
+    else:
+        Bm = Cm = torch.empty(B, S, N, dtype=dtype, device="meta")
+    return (x, dt, torch.empty(Di, N, device="meta"), Bm, Cm,
+            torch.empty(B, Di, N, device="meta"))
+
+
+def test_scan_checks_are_inputs_the_kernel_takes(chip_smoke):
+    """Every K7 case that chip_smoke.py runs on the card passes the
+    wrapper's checks, the view cases are views (off 16 bytes at dt_rank 7),
+    and every case is held to the f32 rule."""
+    from repro_torch.kernels import ssm_scan as scan
+    assert chip_smoke.SCAN_TOL == 1e-4
+    names = [case[0] for case in chip_smoke.SCAN_CHECKS]
+    assert len(set(names)) == len(names)
+    for name, B, S, Di, N, dtype, random_h0, dt_rank in chip_smoke.SCAN_CHECKS:
+        x, dt, A, Bm, Cm, h0 = _meta_scan_inputs(B, S, Di, N, dtype, dt_rank)
+        scan.check_inputs(x, dt, A, Bm, Cm, h0)
+        assert Bm.is_contiguous() == (dt_rank == 0), name
+        assert isinstance(random_h0, bool), name
+    shapes = {(case[3], case[4]) for case in chip_smoke.SCAN_CHECKS}
+    assert {1, 12, 16, 32} <= {n for _, n in shapes} and 1 in {d for d, _ in shapes}
+    assert any(case[-1] == 7 and case[5] == torch.bfloat16 for case in chip_smoke.SCAN_CHECKS)
+
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN5ssm_scan_kernelI13__nv_bfloat16Li16ELb1EEEvNS_4ArgsENS_4MapsE
+        /*0000*/                   MUFU.EX2 R2, R3 ;          /* 0x0000000000007308 */
+        /*0010*/               @P0 BRA 0x0 ;                  /* 0x0000000000007947 */
+\t\tFunction : _ZN5ssm_scan_kernelI13__nv_bfloat16Li16ELb0EEEvNS_4ArgsENS_4MapsE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;     /* 0x0000000000017b82 */
+        /*0010*/                   LDS.128 R4, [R13] ;        /* 0x0000000000047984 */
+        /*0020*/                   MUFU.EX2 R2, R3 ;          /* 0x0000000000007308 */
+        /*0030*/                   MUFU.EX2 R5, R6 ;          /* 0x0000000000007308 */
+        /*0040*/                   FFMA R4, R2, R5, R6 ;      /* 0x0000000000007223 */
+        /*0050*/               @P1 BRA 0x10 ;                 /* 0x0000000000007947 */
+        /*0060*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;  /* 0x0000000000007b1d */
+        /*0070*/               @P2 BRA 0x0 ;                  /* 0x0000000000007947 */
+        /*0080*/                   EXIT ;                     /* 0x000000000000794d */
+"""
+
+
+def test_sass_hot_loop_reads_the_innermost_loop_of_the_instance(chip_smoke, monkeypatch):
+    """fp32_issue_ms's count: the instance's innermost backward-branch loop
+    with the most MUFU.EX2, not the enclosing tile loop and not the masked
+    instance; instructions per exp = the loop's instructions / its exps."""
+    class Done:
+        stdout = SASS
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k: Done())
+    got = chip_smoke.sass_hot_loop("lib.so", "ssm_scan_kernelI13__nv_bfloat16Li16ELb0E")
+    assert got["instructions"] == 5 and got["exps"] == 2 and got["per_exp"] == 2.5
+    assert got["opcodes"] == {"MUFU.EX2": 2, "LDS.128": 1, "FFMA": 1, "BRA": 1}
+    assert got["instance"].endswith("Li16ELb0EEEvNS_4ArgsENS_4MapsE")
+    with pytest.raises(AssertionError, match="no SASS"):
+        chip_smoke.sass_hot_loop("lib.so", "rglru_scan_kernel")
+
+
 def test_ptxas_report_is_read_per_instance(chip_smoke):
     report = """ptxas info    : Compiling entry function '_Z15fwd_kernel_bf16ILi64E' for 'sm_90a'
 ptxas info    : Function properties for _Z15fwd_kernel_bf16ILi64E

@@ -74,6 +74,8 @@ def _both(arrays, dtype):
     (2, 64, 128, 16, 64),
     (1, 128, 64, 8, 64),
     (3, 32, 96, 4, 32),   # Di not a multiple of the Pallas block
+    (2, 40, 64, 12, 32),  # N = 12: states that do not fill K7's lanes
+    (2, 24, 48, 1, 16),   # N = 1
 ])
 def test_ssm_scan_matches_pallas_sweep(B, S, Di, N, bd, dtype):
     jx, tx = _both(_scan_inputs(S + Di, B, S, Di, N), dtype)
