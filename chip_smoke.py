@@ -65,15 +65,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                give the same carry as the same step with the exchange
                computed by the plain versions
   train_int8_overlap
-               run_training at the train phase's size with the int8 wire
-               tier and the one-cycle overlap schedule: K5 = K6 launches
-               held to the ov_sync + blocking steps, K2 to the ov_sync
-               steps, step time by mode, peak memory, wire bytes per
-               exchange at each tier
+               run_training on the per-step executor at the train phase's
+               size with the int8 wire tier and the one-cycle overlap
+               schedule: K5 = K6 launches held to the ov_sync + blocking
+               steps, K2 to the ov_sync steps, step time by mode, peak
+               memory, wire bytes per exchange at each tier
+  train_macro_int8_overlap, train_macro_int8_overlap_serial
+               the same cell through the macro-cycle executor, each overlap
+               cycle's exchange on the executor's own CUDA stream while the
+               cycle's local steps run; then again with serial_exchange (the
+               exchange waited for before the local steps). Both runs give
+               the per-step run's final params bit for bit, the same K2, K5
+               and K6 launches; each overlap cycle's K5 runs on a stream
+               other than the main one, each blocking step's on the main
+               one; the timing legs partition the overlap wall. Dispatches
+               per step, programs built, ms per step by cycle shape beside
+               the per-step medians, the legs, the hidden fraction 1 -
+               visible / blocking, peak memory
   train        run_training with DASO on llama3.2-1b at full width, 4 of its
-               16 layers, f32, R = 4 replicas: 40 steps, K2 and K3 launches
-               held to the schedule's receive and blocking steps, step time
-               by mode, peak memory
+               16 layers, f32, R = 4 replicas: 40 steps on the per-step
+               executor, K2 and K3 launches held to the schedule's receive
+               and blocking steps, step time by mode, peak memory
+  train_macro  the train cell through the macro-cycle executor (the
+               launcher's default): the final carry (params and momentum of
+               every replica) bit for bit the train phase's, the same K2 and
+               K3 launches; dispatches per step, programs built, fallback
+               steps, ms per step by cycle shape, peak memory
   arena        K2 to K6 held bit-exact against their plain versions on the
                final carry's parameter and momentum arenas (4 x N f32); a
                wire_roundtrip of the parameters launches K3 and K4
@@ -96,6 +113,7 @@ Exits non-zero without printing a result when no CUDA device is present.
 """
 import collections
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -120,7 +138,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import compression, daso, flatbuf  # noqa: E402
-from repro_torch.core.executor import DasoStrategy  # noqa: E402
+from repro_torch.core.executor import DasoStrategy, shape_sync_counts  # noqa: E402
 from repro_torch.core.schedule import split_ov  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -1253,10 +1271,28 @@ def phase_train_check():
           "replicas": TRAIN_R, "steps": rows})
 
 
+def shape_name(shape):
+    return ",".join(m if s == 1 else f"{m}@{s}" for m, s in shape)
+
+
+def cycle_rows(res):
+    """The macro path's host ms per step of each cycle (its wall over its
+    length), by cycle shape, with the shape's outer syncs."""
+    by_shape = {}
+    for shape, sec in res.cycles:
+        by_shape.setdefault(shape, []).append(1e3 * sec / len(shape))
+    return {shape_name(shape): {"cycles": len(v), "outer_syncs": shape_sync_counts(shape)["_outer"],
+                                "ms_per_step_median": statistics.median(v),
+                                "ms_per_step_all": v}
+            for shape, v in by_shape.items()}
+
+
 def run_train_phase(name, loop_options, why_reduced):
     """run_training with DASO at llama3.2-1b's published widths, 4 layers,
     f32, R = 4; the counts are set to 0 just before and read just after.
-    Returns (result, its row, launch counts, base modes)."""
+    Returns (result, its row, launch counts, base modes). The per-step
+    executor's row has the step ms by mode, the macro executor's its
+    ExecutorStats and the ms per step by cycle shape."""
     cfg = train_config(TRAIN_LAYERS)
     params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(x.numel() for x in leaves(params0))
@@ -1266,17 +1302,20 @@ def run_train_phase(name, loop_options, why_reduced):
                                lr=TRAIN_LR, device="cuda", **loop_options)
     sync()
     torch.cuda.reset_peak_memory_stats()
+    start, retries = torch.cuda.memory_allocated(), torch.cuda.memory_stats()["num_alloc_retries"]
     zero_counts()
     res = run_training(make_lm_loss(cfg), params0, data, loop_cfg,
                        optimizer=sgd(momentum=0.9, weight_decay=1e-4), log=None)
     sync()
     launches = counts()
     peak = torch.cuda.max_memory_allocated()
+    memory = {"allocated_at_start": start, "peak_above_start": peak - start,
+              "max_memory_reserved": torch.cuda.max_memory_reserved(),
+              # the caching allocator's retries after freeing its cache
+              # (each waits for the card)
+              "alloc_retries": torch.cuda.memory_stats()["num_alloc_retries"] - retries}
     modes = [h[1] for h in res.controller.history]
     losses = res.losses
-    by_mode = {}
-    for m, sec in zip(modes, res.step_seconds):
-        by_mode.setdefault(m, []).append(1e3 * sec)
     row = {"phase": name, "arch": ARCH, "strategy": "daso", "entry": "run_training",
            **loop_options,
            "widths": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
@@ -1292,10 +1331,20 @@ def run_train_phase(name, loop_options, why_reduced):
            "mode_counts": {m: modes.count(m) for m in sorted(set(modes))},
            "launches": launches,
            "sync_fraction": res.sync_fraction,
-           "step_ms_median": {m: statistics.median(v) for m, v in by_mode.items()},
-           "step_ms_all": by_mode,
            "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
-           "max_memory_allocated": peak}
+           "max_memory_allocated": peak, "memory": memory}
+    stats = res.executor_stats
+    if stats is None:
+        by_mode = {}
+        for m, sec in zip(modes, res.step_seconds):
+            by_mode.setdefault(m, []).append(1e3 * sec)
+        row.update(step_ms_median={m: statistics.median(v) for m, v in by_mode.items()},
+                   step_ms_all=by_mode)
+    else:
+        row.update(executor_stats=dataclasses.asdict(stats),
+                   dispatches_per_step=stats.dispatches_per_step(),
+                   programs_built=stats.compiles, fallback_steps=stats.fallback_steps,
+                   cycle_ms=cycle_rows(res))
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         emit({**row, "failed": "loss"})
         raise AssertionError(f"{name} losses {losses[0]} -> {losses[-1]}")
@@ -1309,45 +1358,154 @@ def check_launches(row, launches, want):
         raise AssertionError(f"{row['phase']} launches {launches} != {want}")
 
 
+INT8_OVERLAP = {"wire_format": "int8", "overlap": "one_cycle"}
+INT8_OVERLAP_WHY = ("memory: the carry holds params, momentum, the in-flight buffer and "
+                    "the pending snapshot for 4 replicas in f32")
+
+
+def int8_overlap_launches(modes):
+    """One f32 arena: K5 and K6 once per ov_sync and once per blocking
+    step, K2 once per ov_sync step, K3 and K4 never."""
+    n_sync, n_blocking = modes.count("ov_sync"), modes.count("blocking")
+    return {"flash_attention_fwd": 0, "eq1_merge": n_sync, "bf16_pack": 0,
+            "bf16_unpack": 0, "quantize_int8": n_sync + n_blocking,
+            "dequantize_int8": n_sync + n_blocking, "ssm_scan": 0, "rglru_scan": 0}
+
+
 def phase_train_int8_overlap():
     """The int8 wire tier and the one-cycle overlap schedule through
-    run_training: one f32 arena, so K5 and K6 run once per ov_sync and once
-    per blocking step, K2 once per ov_sync step, K3 and K4 never."""
+    run_training on the per-step executor. Returns its launches, step ms
+    medians and final params (copied to the host)."""
     res, row, launches, modes, params0 = run_train_phase(
-        "train_int8_overlap", {"wire_format": "int8", "overlap": "one_cycle"},
-        "memory: the carry holds params, momentum, the in-flight buffer and the "
-        "pending snapshot for 4 replicas in f32")
-    n_sync, n_blocking = modes.count("ov_sync"), modes.count("blocking")
-    check_launches(row, launches, {
-        "flash_attention_fwd": 0, "eq1_merge": n_sync, "bf16_pack": 0,
-        "bf16_unpack": 0, "quantize_int8": n_sync + n_blocking,
-        "dequantize_int8": n_sync + n_blocking, "ssm_scan": 0, "rglru_scan": 0})
+        "train_int8_overlap", {"executor": "per_step", **INT8_OVERLAP}, INT8_OVERLAP_WHY)
+    check_launches(row, launches, int8_overlap_launches(modes))
     row["wire_bytes_per_exchange"] = {
         t: compression.transfer_bytes(params0, wire_format=t) for t in ("f32", "bf16", "int8")}
     emit(row)
+    params = [x.cpu() for x in leaves(res.params)]
     del res, params0
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "step_ms_median": row["step_ms_median"], "params": params}
+
+
+@contextmanager
+def exchange_streams():
+    """Record, for each call of K5's wrapper, whether it ran on a stream
+    other than the current one (the executor's exchange stream); the
+    wrapper itself still launches and counts."""
+    main, calls, quantize = torch.cuda.current_stream(), [], ops.quantize_int8
+
+    def spy(*args, **kw):
+        calls.append(torch.cuda.current_stream() != main)
+        return quantize(*args, **kw)
+
+    ops.quantize_int8 = spy
+    try:
+        yield calls
+    finally:
+        ops.quantize_int8 = quantize
+
+
+OVERLAP_LEGS = ("overlap_compute_s", "overlap_exchange_visible_s",
+                "overlap_exchange_blocking_s", "overlap_merge_s")
+
+
+def phase_train_macro_int8_overlap(per_step):
+    """The train_int8_overlap cell through the macro-cycle executor: with
+    each overlap exchange on the executor's stream while the cycle's local
+    steps run, then with serial_exchange. Both give the per-step run's final
+    params bit for bit (and so each other's) and its launches; each overlap
+    cycle runs K5 once on the exchange stream, each blocking step once on
+    the main one; the legs partition the overlap wall. The hidden fraction
+    of the exchange is 1 - visible / blocking: what the host no longer
+    waits for (the legs sum whole runs, first cycles included; what the
+    card gains in a steady cycle is `profile_train.py`'s ov_cycle rows).
+    Returns the first run's launches."""
+    out, visible = None, None
+    for serial in (False, True):
+        name = "train_macro_int8_overlap" + ("_serial" if serial else "")
+        with exchange_streams() as on_side:
+            res, row, launches, modes, params0 = run_train_phase(
+                name, {"executor": "macro", **INT8_OVERLAP,
+                       "overlap_serial_exchange": serial}, INT8_OVERLAP_WHY)
+        check_launches(row, launches, int8_overlap_launches(modes))
+        st = res.executor_stats
+        n_sync, n_side = modes.count("ov_sync"), sum(on_side)
+        legs = sum(getattr(st, k) for k in OVERLAP_LEGS)
+        overlap_ms = [ms for shape, v in row["cycle_ms"].items()
+                      if shape.split(",")[-1].startswith("ov_sync")
+                      for ms in v["ms_per_step_all"]]
+        row.update(
+            k5_calls={"exchange_stream": n_side, "main_stream": len(on_side) - n_side},
+            legs_sum_s=legs,
+            overlap_ms_per_step_median=statistics.median(overlap_ms),
+            per_step_ms_median=per_step["step_ms_median"],
+            params_identical_to_per_step=all(
+                same_bits(a.cpu(), b) for a, b in zip(leaves(res.params), per_step["params"],
+                                                     strict=True)))
+        if serial:
+            row["hidden_fraction"] = 1.0 - visible / st.overlap_exchange_blocking_s
+        else:
+            visible, out = st.overlap_exchange_visible_s, launches
+        faults = [what for what, bad in (
+            ("overlap cycles", not st.overlap_cycles == n_side == n_sync > 0),
+            ("blocking K5 off the main stream", len(on_side) - n_side != modes.count("blocking")),
+            ("legs", abs(legs - st.overlap_wall_s) > 1e-9 * st.overlap_wall_s),
+            ("params", not row["params_identical_to_per_step"])) if bad]
+        if faults:
+            emit({**row, "failed": faults})
+            raise AssertionError(f"{name}: {faults}")
+        emit(row)
+        del res, params0
+        torch.cuda.empty_cache()
+    return out
+
+
+TRAIN_WHY = ("memory: the carry holds params, momentum and the in-flight buffer for "
+             "4 replicas in f32")
+
+
+def train_launches(modes):
+    """One floating arena (all params f32): one K2 launch per receive step,
+    one K3 launch per blocking step."""
+    return {"flash_attention_fwd": 0,
+            "eq1_merge": sum(m in ("receive", "send_receive") for m in modes),
+            "bf16_pack": modes.count("blocking"), "bf16_unpack": 0, "quantize_int8": 0,
+            "dequantize_int8": 0, "ssm_scan": 0, "rglru_scan": 0}
 
 
 def phase_train():
-    """run_training with DASO at llama3.2-1b's published widths, the paper's
-    exchange: f32 in the cycling phase, bf16 in the blocking one."""
+    """run_training with DASO at llama3.2-1b's published widths on the
+    per-step executor, the paper's exchange: f32 in the cycling phase, bf16
+    in the blocking one."""
     res, row, launches, modes, params0 = run_train_phase(
-        "train", {}, "memory: the carry holds params, momentum and the "
-        "in-flight buffer for 4 replicas in f32")
-    # one floating arena (all params f32): one K2 launch per receive step,
-    # one K3 launch per blocking step
-    check_launches(row, launches, {
-        "flash_attention_fwd": 0,
-        "eq1_merge": sum(m in ("receive", "send_receive") for m in modes),
-        "bf16_pack": modes.count("blocking"), "bf16_unpack": 0, "quantize_int8": 0,
-        "dequantize_int8": 0, "ssm_scan": 0, "rglru_scan": 0})
+        "train", {"executor": "per_step"}, TRAIN_WHY)
+    check_launches(row, launches, train_launches(modes))
     emit(row)
     params_r, opt_r, _ = res.carry
     del res, params0
     torch.cuda.empty_cache()
     return {"carry": (params_r, opt_r), "launches": launches}
+
+
+def phase_train_macro(trained):
+    """The train cell through the macro-cycle executor: its final carry
+    (params and momentum of every replica) bit for bit the per-step carry
+    in `trained`, which stays on the card for the arena phase."""
+    res, row, launches, modes, params0 = run_train_phase(
+        "train_macro", {"executor": "macro"}, TRAIN_WHY)
+    check_launches(row, launches, train_launches(modes))
+    params_r, opt_r, _ = res.carry
+    row["carry_identical_to_per_step"] = all(
+        same_bits(a, b) for a, b in zip(leaves((params_r, opt_r)), leaves(trained["carry"]),
+                                        strict=True))
+    if not row["carry_identical_to_per_step"]:
+        emit({**row, "failed": "carry"})
+        raise AssertionError("train_macro: the carry differs from the per-step carry")
+    emit(row)
+    del res, params0, params_r, opt_r
+    torch.cuda.empty_cache()
+    return launches
 
 
 def max_abs_err(a, b, chunk=1 << 27):
@@ -1583,8 +1741,10 @@ def phase_timing(check_rows, serve_launches, path_launches, arena_parts, model_l
     the llama serving shape, K2 to K6 at the training arena; `model_lines`
     holds the lines of K7, K8 and K1 at head_dim 256 from `scan_timing` and
     `rgemma_timing`), and the kernels line. `path_launches` holds each
-    training path's launch counts: K2 to K4 report the train phase's, K5 and
-    K6 the train_int8_overlap phase's, and every comm kernel lists both."""
+    training path's launch counts: K2 and K3 report the train_macro phase's
+    (the launcher's default executor), K5 and K6 the
+    train_macro_int8_overlap phase's, and every comm kernel lists every
+    path's."""
     q, k, v = qkv(4, 32, 8, PROMPT, PROMPT, 64, torch.bfloat16, seed=7)
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 50)
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v), 10)
@@ -1608,8 +1768,8 @@ def phase_timing(check_rows, serve_launches, path_launches, arena_parts, model_l
     n = arena.numel()
     s2, p = 2.0, float(TRAIN_R * TRAIN_LOCAL_WORLD)
     kw = dict(staleness=1, global_world=TRAIN_R * TRAIN_LOCAL_WORLD)
-    train_launches = path_launches["train"]
-    int8_launches = path_launches["train_int8_overlap"]
+    train_launches = path_launches["train_macro"]
+    int8_launches = path_launches["train_macro_int8_overlap"]
     values, scales = ops.quantize_int8(arena)
     # K5 reads 4 B and writes 1 B per element and 4 B per scale; K6 the reverse
     int8_bytes = n * 5 + scales.numel() * 4
@@ -1619,10 +1779,10 @@ def phase_timing(check_rows, serve_launches, path_launches, arena_parts, model_l
         "eq1_merge": (lambda: ops.eq1_merge(arena, stale, **kw),
                       lambda: ref.eq1_merge_ref(arena, stale, **kw),
                       lambda: torch.lerp(arena, stale, p / (s2 + p)),
-                      n * 12, train_launches["eq1_merge"], "train (receive steps)"),
+                      n * 12, train_launches["eq1_merge"], "train_macro (receive steps)"),
         "bf16_pack": (lambda: ops.bf16_pack(arena), lambda: ref.bf16_pack_ref(arena),
                       lambda: arena.to(torch.bfloat16),
-                      n * 6, train_launches["bf16_pack"], "train (blocking steps)"),
+                      n * 6, train_launches["bf16_pack"], "train_macro (blocking steps)"),
         "bf16_unpack": (lambda: ops.bf16_unpack(wire), lambda: ref.bf16_unpack_ref(wire),
                         lambda: wire.to(torch.float32),
                         n * 6, roundtrip_launches["bf16_unpack"],
@@ -1630,14 +1790,14 @@ def phase_timing(check_rows, serve_launches, path_launches, arena_parts, model_l
         "quantize_int8": (lambda: ops.quantize_int8(arena),
                           lambda: ref.quantize_int8_block_ref(arena), None, int8_bytes,
                           int8_launches["quantize_int8"],
-                          "train_int8_overlap (ov_sync and blocking steps)"),
+                          "train_macro_int8_overlap (ov_sync and blocking steps)"),
         # every block of the arena is full (N = 256 x 1,976,392): one
         # broadcast product through views, exact as K6 (one rounding)
         "dequantize_int8": (lambda: ops.dequantize_int8(values, scales),
                             lambda: ref.dequantize_int8_block_ref(values, scales),
                             lambda: torch.mul(values.view(rows, -1, 256), scales.unsqueeze(-1)),
                             int8_bytes, int8_launches["dequantize_int8"],
-                            "train_int8_overlap (ov_sync and blocking steps)"),
+                            "train_macro_int8_overlap (ov_sync and blocking steps)"),
     }
     lib = ops.kernel_library("comm_kernels")
     for kern in COMM_KERNELS:
@@ -1698,12 +1858,17 @@ def main():
     rgemma_launches = phase_serve_rgemma()
     rgemma_lines = rgemma_timing(rows, rglru_rows, rgemma_launches, reports)
     phase_train_check()
-    int8_launches = phase_train_int8_overlap()
+    int8_per_step = phase_train_int8_overlap()
+    int8_macro_launches = phase_train_macro_int8_overlap(int8_per_step)
+    del int8_per_step["params"]
     trained = phase_train()
+    macro_launches = phase_train_macro(trained)
     arena_parts = phase_arena(trained)
-    phase_timing(rows, serve_launches, {"train": trained["launches"],
-                                        "train_int8_overlap": int8_launches}, arena_parts,
-                 [scan_line] + rgemma_lines, reports)
+    phase_timing(rows, serve_launches, {
+        "train": trained["launches"], "train_macro": macro_launches,
+        "train_int8_overlap": int8_per_step["launches"],
+        "train_macro_int8_overlap": int8_macro_launches}, arena_parts,
+        [scan_line] + rgemma_lines, reports)
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,9 @@ Step variants, selected per step by the controller (core/schedule.py):
 With `DasoConfig.overlap == "one_cycle"` the cycling phase runs the
 double-buffered family of `daso_overlap_step` instead (OV_MODES), whose
 carry holds a fourth slot, the `pending` snapshot awaiting its exchange.
+The macro-cycle executor (core/executor.py) splits an overlap cycle into
+`daso_overlap_compute_step` (the local steps, no exchange) and the
+exchange and merge, which it runs around them.
 
 The exchange math runs through the hand-written kernels: Eq. (1) through
 K2, the bf16 wire cast through K3, the int8 tier through K5 / K6
@@ -34,6 +37,7 @@ arrays do.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
@@ -124,15 +128,17 @@ def _arena_mean(arena, wire_format: str, *, int8_block: int = 256):
     replica's row goes through K5 -> K6 (what a transfer of int8 values and
     scales delivers, rounded to nearest: the step variants take no random
     bits, as in the reference) and the mean runs over the dequantized
-    arena."""
+    arena. The caller hands the arena over: it is freed once the wire
+    payload is encoded, and the payload once it is decoded."""
+    dtype = arena.dtype
     if not arena.is_floating_point():
         # integer leaves: mean in f32, rounded back
-        return torch.round(flatbuf.masked_axis0_mean(arena.float())).to(arena.dtype)
+        return torch.round(flatbuf.masked_axis0_mean(arena.float())).to(dtype)
+    w = flatbuf.encode_wire(arena, wire_format, int8_block=int8_block)
+    del arena
     if wire_format == "int8":
-        w = flatbuf.wire_roundtrip(arena, "int8", int8_block=int8_block)
-    else:
-        w = flatbuf.encode_wire(arena, wire_format)
-    return flatbuf.masked_axis0_mean(w).to(arena.dtype)
+        w = flatbuf.decode_wire(w, "int8", dtype, int8_block=int8_block)
+    return flatbuf.masked_axis0_mean(w).to(dtype)
 
 
 def replica_mean(tree, *, wire_format: str = "f32", int8_block: int = 256):
@@ -141,9 +147,8 @@ def replica_mean(tree, *, wire_format: str = "f32", int8_block: int = 256):
     flatbuf._check_wire_format(wire_format)
     layout = flatbuf.build_layout(tree, batch_dims=1)
     arenas = flatbuf.pack(tree, layout)
-    means = {k: _arena_mean(a, wire_format, int8_block=int8_block)
-             for k, a in arenas.items()}
-    del arenas
+    means = {k: _arena_mean(arenas.pop(k), wire_format, int8_block=int8_block)
+             for k in list(arenas)}
     r = layout.batch_shape[0]
     return tree_map(lambda m: m.expand((r,) + m.shape[1:]),
                     flatbuf.unpack(means, layout))
@@ -184,6 +189,15 @@ def blocking_sync(params, *, wire_format: str = "bf16", int8_block: int = 256):
     return replica_mean(params, wire_format=wire_format, int8_block=int8_block)
 
 
+def replica_divergence(params) -> torch.Tensor:
+    """Max abs deviation of any replica from the replica mean (diagnostic),
+    a 0-dim f32 tensor."""
+    def leaf(x):
+        x = x.float()
+        return torch.max(torch.abs(x - x.mean(dim=0, keepdim=True)))
+    return functools.reduce(torch.maximum, [leaf(x) for x in leaves(params)])
+
+
 # -- assembled train step ------------------------------------------------------
 
 def value_and_grad(loss_fn: Callable):
@@ -206,17 +220,49 @@ def value_and_grad(loss_fn: Callable):
     return fn
 
 
-def local_step(loss_fn: Callable, optimizer: Optimizer):
+def microbatched_value_and_grad(loss_fn: Callable, n_micro: int):
+    """Gradient accumulation (`repro/core/daso.py:516-551`): the batch split
+    along its leading axis into n_micro chunks, one forward / backward per
+    chunk in order, so one chunk's activations are live at a time. As the
+    reference's scan: loss, aux and grads start at zeros, the chunks' values
+    are added in chunk order, and the sums are scaled by 1 / n_micro, cast
+    back to each floating leaf's dtype (integer leaves stay sums)."""
+    vg = value_and_grad(loss_fn)
+    if n_micro <= 1:
+        return vg
+
+    def scale(tree, inv):
+        return tree_map(lambda x: (x * inv).to(x.dtype) if x.is_floating_point() else x,
+                        tree)
+
+    def fn(params, batch):
+        acc = None
+        for i in range(n_micro):
+            def chunk(x):
+                return x.reshape((n_micro, x.shape[0] // n_micro) + x.shape[1:])[i]
+            out = vg(params, tree_map(chunk, batch))
+            if acc is None:
+                acc = tree_map(torch.zeros_like, out)
+            acc = tree_map(torch.add, acc, out)
+            del out
+        ((loss, aux), grads), inv = acc, 1.0 / n_micro
+        return (loss * inv, scale(aux, inv)), scale(grads, inv)
+
+    return fn
+
+
+def local_step(loss_fn: Callable, optimizer: Optimizer, n_micro: int = 1):
     """step(params_R, opt_R, batch_R, lr) -> (params, opt, loss_R, aux_R):
     gradient and optimizer update of every replica (the reference's
     `jax.vmap` over the replica axis, `repro/core/daso.py:554-571`).
-    loss_fn(params, batch) -> (loss, aux).
+    loss_fn(params, batch) -> (loss, aux); `n_micro` splits each replica's
+    batch for gradient accumulation (`microbatched_value_and_grad`).
 
     A loop over the R replica rows: each row's gradient and update are
     computed on its own and written into (R, ...) outputs allocated at the
     first row, so one replica's activations and gradients are live at a
     time."""
-    vg = value_and_grad(loss_fn)
+    vg = microbatched_value_and_grad(loss_fn, n_micro)
 
     def step(params, opt_state, batch, lr):
         n_rep = leaves(params)[0].shape[0]
@@ -252,17 +298,24 @@ MODES = ("local", "send", "receive", "send_receive", "blocking", "hard_avg")
 OV_MODES = ("local", "ov_start", "ov_sync", "blocking")
 
 
-def _cross_replica_loss(cfg: DasoConfig, loss_r: torch.Tensor) -> torch.Tensor:
+def _cross_replica_loss(cfg: DasoConfig, loss_r: torch.Tensor, *,
+                        axis: int = 0) -> torch.Tensor:
     """The scalar loss the plateau controller consumes: the mean of the
     per-replica losses (fixed membership), in the reduction order of the
-    reference's configured tier."""
+    reference's configured tier. `axis` is the replica axis: 0 for one
+    step's (R,) losses, 1 for the (L, R) losses of an overlap cycle's L
+    steps, whose merge defers the reduction out of the compute steps; it
+    reduces row by row, so each step's loss is the one the step itself
+    would give, bit for bit."""
+    if axis == 1:
+        return torch.stack([_cross_replica_loss(cfg, row) for row in loss_r])
     if cfg.deterministic_reduce:
         return flatbuf.chain_axis0_sum(loss_r) / cfg.n_replicas
     return torch.mean(loss_r, dim=0)
 
 
 def daso_train_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
-                    *, mode: str, staleness: int = 1,
+                    *, mode: str, staleness: int = 1, n_micro: int = 1,
                     inner_syncs: Tuple[Tuple[str, int], ...] = ()):
     """One step variant:
     step(params_R, opt_R, inflight, batch_R, lr) -> (params_R, opt_R,
@@ -270,7 +323,7 @@ def daso_train_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     _refuse_inner_syncs(inner_syncs)
-    lstep = local_step(loss_fn, optimizer)
+    lstep = local_step(loss_fn, optimizer, n_micro)
     blk = cfg.int8_block
 
     def step(params, opt_state, inflight, batch, lr):
@@ -293,6 +346,7 @@ def daso_train_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
 
 def daso_overlap_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
                       *, mode: str, staleness: int = 1, extra_staleness: int = 0,
+                      n_micro: int = 1,
                       inner_syncs: Tuple[Tuple[str, int], ...] = ()):
     """One step variant of the double-buffered overlap schedule
     (`repro/core/daso.py::daso_overlap_step`, one process, no membership):
@@ -314,7 +368,7 @@ def daso_overlap_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
     if mode not in OV_MODES:
         raise ValueError(f"unknown overlap mode {mode!r}; expected one of {OV_MODES}")
     _refuse_inner_syncs(inner_syncs)
-    lstep = local_step(loss_fn, optimizer)
+    lstep = local_step(loss_fn, optimizer, n_micro)
     blk = cfg.int8_block
 
     def step(params, opt_state, inflight, pending, batch, lr):
@@ -336,6 +390,27 @@ def daso_overlap_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
     return step
 
 
+def daso_overlap_compute_step(loss_fn: Callable, optimizer: Optimizer,
+                              cfg: DasoConfig, *, n_micro: int = 1,
+                              inner_syncs: Tuple[Tuple[str, int], ...] = ()):
+    """The compute half of an overlap cycle on the macro-cycle executor
+    (`repro/core/daso.py::daso_overlap_compute_step`):
+    step(params_R, opt_R, batch_R, lr) -> (params_R, opt_R, metrics).
+
+    A local step and nothing across replicas, so it can run while the
+    cycle's exchange is in flight: the cross-replica loss is deferred to
+    the merge (`_cross_replica_loss` with axis=1), and the aux metrics,
+    whose means reduce over the replicas, are dropped."""
+    _refuse_inner_syncs(inner_syncs)
+    lstep = local_step(loss_fn, optimizer, n_micro)
+
+    def step(params, opt_state, batch, lr):
+        params, opt_state, loss_r, _aux_r = lstep(params, opt_state, batch, lr)
+        return params, opt_state, {"loss_per_replica": loss_r}
+
+    return step
+
+
 def _refuse_inner_syncs(inner_syncs) -> None:
     if inner_syncs:
         raise NotImplementedError("inner-level syncs are not ported yet "
@@ -352,10 +427,10 @@ def _step_metrics(cfg: DasoConfig, loss_r, aux_r) -> dict:
     return metrics
 
 
-def sync_train_step(loss_fn: Callable, optimizer: Optimizer):
+def sync_train_step(loss_fn: Callable, optimizer: Optimizer, n_micro: int = 1):
     """Horovod-analog baseline: flat data parallelism, no replica axis, one
     gradient over the global batch every step."""
-    vg = value_and_grad(loss_fn)
+    vg = microbatched_value_and_grad(loss_fn, n_micro)
 
     def step(params, opt_state, batch, lr):
         (loss, aux), grads = vg(params, batch)

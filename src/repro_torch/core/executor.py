@@ -1,19 +1,84 @@
-"""Strategy registry (`repro/core/executor.py`): every training strategy
-offers one interface to the training loop: its carry, a factory of step
-variants ``step(carry, batch, lr) -> (carry, metrics)`` cached per
-(mode, staleness), and a per-step mode decision. Registered here: `daso`
-and `sync`. The compiled macro-cycle executor is a later port (ROADMAP
-item 9); the per-step path (core/simulator.py) drives the strategies.
+"""Strategy registry and the macro-cycle executor (`repro/core/executor.py`).
+
+Every training strategy offers one interface to the training loop: its
+carry, a factory of step variants ``step(carry, batch, lr) -> (carry,
+metrics)`` cached per (mode, staleness), a per-step mode decision and a
+cycle planner. Registered here: `daso`, `sync` and `local_sgd`.
+
+The macro-cycle executor runs one controller cycle per host dispatch:
+
+  * the controller plans a cycle, the exact (mode, staleness) sequence the
+    per-step path would run, cut where loss feedback could change the
+    schedule (`DasoController.plan_cycle`), so the loss is fetched to the
+    host once per cycle instead of once per step;
+  * `MacroCycleExecutor` builds one program per distinct cycle shape and
+    caches it by shape. A program is a Python function that runs the
+    cycle's step variants on the device in order, batch i and lrs[i] for
+    step i, and stacks their metrics there: nothing in it waits for the
+    device. (The reference compiles the cycle into one XLA program; a CUDA
+    graph of it is a later speed item.) A shape seen only at the end of
+    a run runs step by step instead (the tail fallback);
+  * an overlap cycle (`DasoStrategy.overlap_cycle`: local steps ending in an
+    ov_sync) runs as three parts: the exchange of the pending snapshot on
+    the executor's own CUDA stream, the cycle's local steps on the current
+    stream meanwhile, then the stale Eq. (1) merge once both are done. On
+    the CPU the three run one after the other, with the same numbers.
+
+Functions that run a cycle take the carry in a one-element list and empty
+it, so no caller's frame keeps the old carry alive while the cycle writes a
+new one (the reference donates the carry's buffers to XLA); the per-step
+path holds two carries at a time, and so does a cycle.
 """
 from __future__ import annotations
 
 import difflib
+import time
+from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
-from repro_torch.core.daso import (DasoConfig, daso_overlap_step, daso_train_step,
-                                   dereplicate_params, replicate_params, sync_train_step)
-from repro_torch.core.schedule import DasoController, split_mode, split_ov
+import torch
+
+from repro_torch.core.daso import (DasoConfig, _cross_replica_loss,
+                                   daso_overlap_compute_step, daso_overlap_step,
+                                   daso_train_step, dereplicate_params, global_receive,
+                                   global_send, replica_divergence, replicate_params,
+                                   sync_train_step)
+from repro_torch.core.schedule import DasoController, Mode, join_mode, split_mode, split_ov
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.tree import leaves, tree_map
+
+# The static fingerprint of a macro-cycle: one (mode, staleness) pair per
+# step. Distinct shapes build distinct programs.
+CycleShape = Tuple[Tuple[str, int], ...]
+
+# Mode-token prefix of the compute half of an overlap cycle ("ovc:local").
+# These tokens exist only in OverlapCycle.compute_shape: the controller
+# never emits them.
+OVERLAP_COMPUTE_PREFIX = "ovc:"
+
+
+@dataclass(frozen=True)
+class OverlapCycle:
+    """How to run one overlap cycle: the exchange of the pending snapshot,
+    the compute steps of `compute_shape` while it is in flight, then the
+    merge of its result by Eq. (1) with S = staleness + extra_staleness."""
+    compute_shape: CycleShape
+    staleness: int
+    extra_staleness: int
+
+
+@dataclass(frozen=True)
+class CyclePlan:
+    """A planned macro-cycle: `shape[i]` is the (mode, staleness) of
+    training step `start_step + i`."""
+    start_step: int
+    shape: CycleShape
+
+    def __len__(self) -> int:
+        return len(self.shape)
+
+
+# -- strategy registry -----------------------------------------------------------
 
 _REGISTRY: Dict[str, type] = {}
 
@@ -47,15 +112,18 @@ def make_strategy(name: str, loss_fn: Callable, optimizer: Optimizer,
 
 
 class Strategy:
-    """Carry lifecycle, cached step variants and the per-step schedule."""
+    """Carry lifecycle, cached step variants, the per-step schedule and the
+    cycle planner. `n_micro` splits each batch for gradient accumulation
+    (core/daso.py::microbatched_value_and_grad)."""
     name = "?"
 
     def __init__(self, loss_fn: Callable, optimizer: Optimizer,
                  cfg: Optional[DasoConfig] = None, *,
-                 controller: Optional[DasoController] = None):
+                 controller: Optional[DasoController] = None, n_micro: int = 1):
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.cfg = cfg
+        self.n_micro = n_micro
         self.controller = controller or (DasoController(cfg) if cfg else None)
         self._steps: Dict[Tuple[str, int], Callable] = {}
 
@@ -74,9 +142,12 @@ class Strategy:
     def build_step(self, mode: str, staleness: int) -> Callable:
         raise NotImplementedError
 
+    def plan_cycle(self, step: int, max_len: int) -> CyclePlan:
+        raise NotImplementedError
+
     def next_mode(self, step: int) -> Tuple[str, int]:
         """The (mode, staleness) of `step`; consumed once per step, in
-        order."""
+        order, giving the sequence `plan_cycle` would plan."""
         raise NotImplementedError
 
     def observe(self, losses: List[float]) -> None:
@@ -89,6 +160,9 @@ class Strategy:
         return (self.controller.global_sync_fraction()
                 if self.controller is not None else 1.0)
 
+    def divergence(self, carry) -> Optional[float]:
+        return None
+
     @classmethod
     def make_controller(cls, cfg: Optional[DasoConfig], *, loss_window: int = 50):
         return (DasoController(cfg, loss_window=loss_window)
@@ -98,9 +172,9 @@ class Strategy:
 @register_strategy("daso")
 class DasoStrategy(Strategy):
     """The paper's strategy: carry (params_R, opt_R, inflight) with the
-    replica axis R leading every leaf, controller-scheduled step variants
-    from core/daso.py. Under the overlap schedule the carry has a fourth
-    slot, the pending snapshot: (params_R, opt_R, inflight, pending)."""
+    replica axis R leading every leaf, controller-planned cycles, step
+    variants from core/daso.py. Under the overlap schedule the carry has a
+    fourth slot, the pending snapshot: (params_R, opt_R, inflight, pending)."""
 
     def __init__(self, loss_fn, optimizer, cfg, **kw):
         if cfg is None:
@@ -127,15 +201,36 @@ class DasoStrategy(Strategy):
     def finalize_params(self, carry):
         return dereplicate_params(carry[0], index=0)
 
-    def build_step(self, mode, staleness):
-        outer, inner = split_mode(mode)
+    def _inner_syncs_of(self, inner: Tuple[str, ...]):
+        """The (name, group_size) pairs of a mode's inner levels: none, as
+        this strategy has no topology."""
         if inner:
             raise ValueError(f"mode carries inner-level syncs {inner!r} but "
                              f"strategy {self.name!r} has no topology")
+        return ()
+
+    def build_step(self, mode, staleness):
+        if mode.startswith(OVERLAP_COMPUTE_PREFIX):
+            # the compute half of an overlap cycle: 2-slot carry, nothing
+            # across replicas (the loss reduction is deferred to the merge)
+            _, inner = split_mode(mode[len(OVERLAP_COMPUTE_PREFIX):])
+            raw_c = daso_overlap_compute_step(self.loss_fn, self.optimizer, self.cfg,
+                                              n_micro=self.n_micro,
+                                              inner_syncs=self._inner_syncs_of(inner))
+
+            def cstep(carry, batch, lr):
+                params, opt_state = carry
+                params, opt_state, m = raw_c(params, opt_state, batch, lr)
+                return (params, opt_state), m
+
+            return cstep
+        outer, inner = split_mode(mode)
+        inner_syncs = self._inner_syncs_of(inner)
         if self.overlap:
             base, extra = split_ov(outer)
             raw_ov = daso_overlap_step(self.loss_fn, self.optimizer, self.cfg, mode=base,
-                                       staleness=staleness, extra_staleness=extra)
+                                       staleness=staleness, extra_staleness=extra,
+                                       n_micro=self.n_micro, inner_syncs=inner_syncs)
 
             def ostep(carry, batch, lr):
                 params, opt_state, inflight, pending = carry
@@ -145,7 +240,8 @@ class DasoStrategy(Strategy):
 
             return ostep
         raw = daso_train_step(self.loss_fn, self.optimizer, self.cfg, mode=outer,
-                              staleness=staleness)
+                              staleness=staleness, n_micro=self.n_micro,
+                              inner_syncs=inner_syncs)
 
         def step(carry, batch, lr):
             params, opt_state, inflight = carry
@@ -155,13 +251,66 @@ class DasoStrategy(Strategy):
 
         return step
 
+    def overlap_cycle(self, shape: CycleShape) -> Optional[OverlapCycle]:
+        """How to run `shape` as an overlap cycle, or None when it runs as
+        an ordinary program: only a run of local steps ending in one ov_sync
+        has an exchange to hide (blocking phases, the lone ov_start and
+        window-cut all-local cycles do not)."""
+        if not self.overlap or not shape:
+            return None
+        base, extra = split_ov(split_mode(shape[-1][0])[0])
+        if base != Mode.OV_SYNC:
+            return None
+        if any(split_mode(mode)[0] != Mode.LOCAL for mode, _ in shape[:-1]):
+            return None
+        compute_shape = tuple(
+            (OVERLAP_COMPUTE_PREFIX + join_mode(Mode.LOCAL, split_mode(mode)[1]), 1)
+            for mode, _ in shape)
+        return OverlapCycle(compute_shape=compute_shape, staleness=shape[-1][1],
+                            extra_staleness=extra)
+
+    def overlap_exchange_fn(self):
+        """pending -> inflight: the one outer exchange of an overlap cycle,
+        at the cycling phase's wire tier."""
+        cfg = self.cfg
+
+        def exchange(pending):
+            return global_send(pending, wire_format=cfg.wire_format_for(blocking=False),
+                               int8_block=cfg.int8_block)
+
+        return exchange
+
+    def overlap_merge_fn(self, staleness: int, extra_staleness: int):
+        """(params, inflight, loss_per_replica (L, R)) -> (merged params,
+        per-step loss (L,)): Eq. (1) through K2 with S = staleness +
+        extra_staleness, and the loss reduction the compute steps deferred,
+        row by row as the per-step path reduces it."""
+        cfg = self.cfg
+
+        def merge(params, inflight, loss_r):
+            params = global_receive(params, inflight, staleness=staleness,
+                                    extra_staleness=extra_staleness,
+                                    global_world=cfg.global_world)
+            return params, _cross_replica_loss(cfg, loss_r, axis=1)
+
+        return merge
+
+    def plan_cycle(self, step, max_len):
+        return CyclePlan(step, self.controller.plan_cycle(step, max_len))
+
     def next_mode(self, step):
         return self.controller.mode_for_step(step)
+
+    def divergence(self, carry):
+        return float(replica_divergence(carry[0]))
 
 
 @register_strategy("sync")
 class SyncStrategy(Strategy):
-    """Horovod-analog baseline: flat data parallelism, no replica axis."""
+    """Horovod-analog baseline: flat data parallelism, no replica axis.
+    Every step is the same variant, so cycles are fixed-length chunks."""
+
+    default_cycle_len = 8
 
     def init_carry(self, params0):
         return (params0, self.optimizer.init(params0))
@@ -170,7 +319,7 @@ class SyncStrategy(Strategy):
         return carry[0]
 
     def build_step(self, mode, staleness):
-        raw = sync_train_step(self.loss_fn, self.optimizer)
+        raw = sync_train_step(self.loss_fn, self.optimizer, self.n_micro)
 
         def step(carry, batch, lr):
             params, opt_state = carry
@@ -178,6 +327,10 @@ class SyncStrategy(Strategy):
             return (params, opt_state), m
 
         return step
+
+    def plan_cycle(self, step, max_len):
+        n = max(1, min(max_len, self.default_cycle_len))
+        return CyclePlan(step, (("sync", 1),) * n)
 
     def next_mode(self, step):
         return ("sync", 1)
@@ -187,3 +340,355 @@ class SyncStrategy(Strategy):
 
     def sync_fraction(self):
         return 1.0
+
+
+@register_strategy("local_sgd")
+class LocalSGDStrategy(DasoStrategy):
+    """Ablation: a plain parameter average (hard_avg) every b_max steps, no
+    Eq. (1) staleness weighting, no plateau schedule."""
+
+    def _mode_at(self, step: int) -> str:
+        return Mode.HARD_AVG if step % max(1, self.cfg.b_max) == 0 else Mode.LOCAL
+
+    def plan_cycle(self, step, max_len):
+        b = max(1, self.cfg.b_max)
+        shape = []
+        while len(shape) < max_len:
+            t = step + len(shape)
+            if shape and t % b == 0:
+                break  # the next hard_avg starts the next cycle
+            shape.append(self.next_mode(t))
+        return CyclePlan(step, tuple(shape))
+
+    def next_mode(self, step):
+        mode = self._mode_at(step)
+        self.controller.history.append((step, mode, self.controller.b,
+                                        self.controller.w))
+        return (mode, 1)
+
+
+# -- the executor ----------------------------------------------------------------
+
+@dataclass
+class ExecutorStats:
+    dispatches: int = 0        # programs run (an overlap cycle runs three)
+    steps: int = 0             # training steps covered by those programs
+    cycles: int = 0            # macro-cycles run as programs
+    compiles: int = 0          # programs built, one per distinct cycle shape
+    fallback_steps: int = 0    # steps run by the tail fallback, one by one
+    invalidations: int = 0     # cache flushes
+    # overlap cycles, host clock; every leg ends where the host has waited
+    # for the stream it times, and consecutive legs share their boundary, so
+    # compute + visible (or blocking) + merge == wall
+    overlap_cycles: int = 0
+    overlap_compute_s: float = 0.0      # until the local steps are done
+    # the wait for the exchange after the local steps are done: the part of
+    # the exchange the local steps did not hide
+    overlap_exchange_visible_s: float = 0.0
+    # the exchange alone, waited for before the local steps start
+    # (serial_exchange=True): the baseline of the hidden fraction
+    overlap_exchange_blocking_s: float = 0.0
+    overlap_merge_s: float = 0.0        # the stale Eq. (1) merge
+    overlap_wall_s: float = 0.0
+
+    def dispatches_per_step(self) -> float:
+        total = self.steps + self.fallback_steps
+        return self.dispatches / total if total else 0.0
+
+
+def _group_runs(shape: CycleShape) -> List[Tuple[str, int, int, int]]:
+    """Consecutive identical (mode, staleness) pairs grouped into
+    (mode, staleness, offset, length) runs."""
+    runs: List[Tuple[str, int, int, int]] = []
+    for i, (mode, stale) in enumerate(shape):
+        if runs and runs[-1][0] == mode and runs[-1][1] == stale:
+            mode_, stale_, off, k = runs[-1]
+            runs[-1] = (mode_, stale_, off, k + 1)
+        else:
+            runs.append((mode, stale, i, 1))
+    return runs
+
+
+def _stack_metrics(chunks: List[dict]) -> dict:
+    """Per-step metric dicts -> one dict of (L, ...) tensors, on the device."""
+    return {k: torch.stack([m[k] for m in chunks]) for k in chunks[0]}
+
+
+def _step_batch(batches, i: int):
+    return tree_map(lambda x: x[i], batches)
+
+
+def _device_of(tree) -> torch.device:
+    """The device of a tree's first leaf."""
+    return leaves(tree)[0].device
+
+
+class MacroCycleExecutor:
+    """Runs planned cycles as programs, one per distinct `CycleShape`,
+    cached in `_programs`; an overlap cycle runs its exchange on
+    `exchange_stream`, a CUDA stream the executor owns (made at the first
+    overlap cycle on the card)."""
+
+    def __init__(self, strategy: Strategy, *, max_cycle_len: int = 32,
+                 tail_fallback: bool = True, serial_exchange: bool = False):
+        self.strategy = strategy
+        self.max_cycle_len = max_cycle_len
+        self.tail_fallback = tail_fallback
+        # wait for the exchange before the local steps start: the same
+        # numbers, and overlap_exchange_blocking_s measures the exchange
+        self.serial_exchange = serial_exchange
+        self.stats = ExecutorStats()
+        self.exchange_stream: Optional[torch.cuda.Stream] = None
+        self._programs: Dict[CycleShape, Callable] = {}
+        # the overlap exchange ("exchange") and merges (("merge", S, E))
+        self._ov_fns: Dict[object, Callable] = {}
+
+    @property
+    def cached_shapes(self) -> List[CycleShape]:
+        return list(self._programs)
+
+    def program_for(self, shape: CycleShape) -> Callable:
+        if shape not in self._programs:
+            self._programs[shape] = self._build_program(shape)
+            self.stats.compiles += 1
+        return self._programs[shape]
+
+    def invalidate(self) -> int:
+        """Drop every cached program and overlap part, so later cycles use
+        the strategy's current step variants. Returns how many were
+        dropped."""
+        n = len(self._programs) + len(self._ov_fns)
+        self._programs.clear()
+        self._ov_fns.clear()
+        self.stats.invalidations += 1
+        return n
+
+    def _build_program(self, shape: CycleShape) -> Callable:
+        runs = _group_runs(shape)
+
+        def program(slot, batches, lrs):
+            """([carry], batches (L, ...), lrs (L,)) -> (carry, metrics
+            (L, ...)), the slot emptied."""
+            carry = slot.pop()
+            chunks = []
+            for mode, stale, off, k in runs:
+                fn = self.strategy.step_fn(mode, stale)
+                for i in range(off, off + k):
+                    carry, m = fn(carry, _step_batch(batches, i), lrs[i])
+                    chunks.append(m)
+            return carry, _stack_metrics(chunks)
+
+        return program
+
+    def run_cycle(self, slot: list, plan: CyclePlan, batches, lrs, *,
+                  is_tail: bool = False):
+        """Run one macro-cycle on the carry in `slot` (emptied). `batches`
+        and `lrs` carry a leading axis of length len(plan). Returns (carry,
+        stacked per-step metrics), still on the device."""
+        shape = plan.shape
+        ov = getattr(self.strategy, "overlap_cycle", lambda s: None)(shape)
+        if ov is not None:
+            return self._run_overlap(slot, ov, batches, lrs)
+        if (self.tail_fallback and is_tail and len(shape) > 1
+                and shape not in self._programs):
+            return self._run_per_step(slot, shape, batches, lrs)
+        carry, metrics = self.program_for(shape)(slot, batches, lrs)
+        self.stats.dispatches += 1
+        self.stats.steps += len(shape)
+        self.stats.cycles += 1
+        return carry, metrics
+
+    def _ov_exchange(self) -> Callable:
+        if "exchange" not in self._ov_fns:
+            self._ov_fns["exchange"] = self.strategy.overlap_exchange_fn()
+        return self._ov_fns["exchange"]
+
+    def _ov_merge(self, staleness: int, extra: int) -> Callable:
+        key = ("merge", staleness, extra)
+        if key not in self._ov_fns:
+            self._ov_fns[key] = self.strategy.overlap_merge_fn(staleness, extra)
+        return self._ov_fns[key]
+
+    def _run_overlap(self, slot: list, ov: OverlapCycle, batches, lrs):
+        """One overlap cycle in three parts: the exchange of the pending
+        snapshot, enqueued first on `exchange_stream` after that stream has
+        waited for the current one (which wrote the snapshot); the local
+        steps on the current stream meanwhile (nothing of theirs reaches
+        across replicas); then, once the current stream has waited for the
+        exchange, the stale merge and the deferred loss reduction. The host
+        waits for the local steps first, then for the exchange, so the
+        second wait is the part of the exchange the local steps did not
+        hide (`overlap_exchange_visible_s`). With `serial_exchange` it waits
+        for the exchange before the local steps are enqueued
+        (`overlap_exchange_blocking_s`): the same numbers, the exchange's
+        own time. On the CPU each part runs when it is called."""
+        params, opt_state, stale_inflight, pending = slot.pop()
+        compute = [(params, opt_state)]
+        del params, opt_state, stale_inflight
+        exchange = self._ov_exchange()
+        merge = self._ov_merge(ov.staleness, ov.extra_staleness)
+        program = self.program_for(ov.compute_shape)
+        main = side = None
+        if _device_of(pending).type == "cuda":
+            main = torch.cuda.current_stream()
+            if self.exchange_stream is None:
+                self.exchange_stream = torch.cuda.Stream()
+            side = self.exchange_stream
+            side.wait_stream(main)
+
+        def run_exchange():
+            if side is None:
+                return exchange(pending)
+            with torch.cuda.stream(side):
+                return exchange(pending)
+
+        def wait(stream):
+            if stream is not None:
+                stream.synchronize()
+            return time.perf_counter()
+
+        t0 = time.perf_counter()
+        if self.serial_exchange:
+            inflight = run_exchange()
+            t1 = wait(side)
+            self.stats.overlap_exchange_blocking_s += t1 - t0
+            (params, opt_state), m = program(compute, batches, lrs)
+            t2 = wait(main)
+            self.stats.overlap_compute_s += t2 - t1
+        else:
+            inflight = run_exchange()                 # in flight, not awaited
+            (params, opt_state), m = program(compute, batches, lrs)
+            t1 = wait(main)
+            self.stats.overlap_compute_s += t1 - t0
+            t2 = wait(side)
+            self.stats.overlap_exchange_visible_s += t2 - t1
+        if side is not None:
+            # the merge reads what the exchange wrote; the snapshot it read
+            # may be freed once this wait is enqueued, and the result,
+            # allocated on the exchange stream, is used on this one from now
+            main.wait_stream(side)
+            for x in leaves(inflight):
+                x.record_stream(main)
+        del pending
+        params, loss = merge(params, inflight, m["loss_per_replica"])
+        t3 = wait(main)
+        self.stats.overlap_merge_s += t3 - t2
+        self.stats.overlap_wall_s += t3 - t0
+        metrics = dict(m)
+        metrics["loss"] = loss
+        # pending <- the merged params (by reference: nothing writes in
+        # place): the next cycle's exchange sends what this merge produced
+        self.stats.dispatches += 3
+        self.stats.steps += len(ov.compute_shape)
+        self.stats.cycles += 1
+        self.stats.overlap_cycles += 1
+        return (params, opt_state, inflight, params), metrics
+
+    def _run_per_step(self, slot: list, shape: CycleShape, batches, lrs):
+        """The tail fallback: one dispatch per step, so a shape used once at
+        the end of a run builds no program."""
+        carry = slot.pop()
+        chunks = []
+        for i, (mode, stale) in enumerate(shape):
+            carry, m = self.strategy.step_fn(mode, stale)(carry, _step_batch(batches, i),
+                                                          lrs[i])
+            chunks.append(m)
+            self.stats.dispatches += 1
+            self.stats.fallback_steps += 1
+        return carry, _stack_metrics(chunks)
+
+
+def shape_sync_counts(shape: CycleShape) -> Dict[str, int]:
+    """Syncs per level in one cycle shape: "_outer" counts the steps whose
+    outer action reaches across replicas, and each inner level its syncs
+    (none until topologies are ported)."""
+    counts: Dict[str, int] = {"_outer": 0}
+    for m, _ in shape:
+        if m.startswith(OVERLAP_COMPUTE_PREFIX):
+            m = m[len(OVERLAP_COMPUTE_PREFIX):]
+        outer, inner = split_mode(m)
+        if split_ov(outer)[0] in (Mode.SEND, Mode.SEND_RECEIVE, Mode.BLOCKING,
+                                  Mode.HARD_AVG, Mode.OV_SYNC):
+            counts["_outer"] += 1
+        for name in inner:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def dispatch_planned_cycle(ex: MacroCycleExecutor, slot: list, plan: CyclePlan,
+                           data_fn: Callable, lr_fn: Callable, n_steps: int):
+    """Stage one planned cycle's batches (`torch.stack`) and lrs (one f32
+    tensor (L,) on the batches' device, as the reference's
+    `jnp.asarray(lr_list, float32)`), run it on the carry in `slot`
+    (emptied), and bring its per-step metrics to the host in one transfer,
+    the cycle's only wait for the device. Returns (carry, cycle_losses,
+    per_step_metrics, seconds): host seconds from the staged batches to the
+    metrics on the host, the span the per-step path's `step_seconds` times
+    for one step."""
+    steps = range(plan.start_step, plan.start_step + len(plan))
+    per_step = [data_fn(t) for t in steps]
+    batches = tree_map(lambda *xs: torch.stack(xs), *per_step)
+    del per_step
+    lrs = torch.tensor([lr_fn(t) for t in steps], dtype=torch.float32,
+                       device=_device_of(batches))
+    t0 = time.perf_counter()
+    carry, metrics = ex.run_cycle(slot, plan, batches, lrs,
+                                  is_tail=plan.start_step + len(plan) >= n_steps)
+    keys = [k for k, v in metrics.items() if v.dim() == 1]
+    host = torch.stack([metrics[k].double() for k in keys]).cpu()
+    seconds = time.perf_counter() - t0
+    per_step_metrics = [{k: float(host[i, j]) for i, k in enumerate(keys)}
+                        for j in range(len(plan))]
+    cycle_losses = [m["loss"] for m in per_step_metrics]
+    return carry, cycle_losses, per_step_metrics, seconds
+
+
+def run_compiled_training(strategy: Strategy, params0, data_fn: Callable,
+                          lr_fn: Callable, n_steps: int, *,
+                          executor: Optional[MacroCycleExecutor] = None,
+                          track_divergence: bool = False, start_step: int = 0,
+                          carry=None):
+    """Macro-cycle counterpart of `simulator.run_per_step_training`: plans
+    cycles with the strategy, stages each cycle's batches and runs one
+    program per cycle, the same numbers as the per-step path bit for bit.
+
+    `track_divergence` samples the replica divergence once per cycle (the
+    per-step path samples every step). `start_step` and a `carry` continue
+    a run whose strategy's controller is already at that step.
+    `SimResult.cycles` lists each cycle's shape and its host seconds
+    (`dispatch_planned_cycle`); `step_seconds` gives each step its cycle's
+    seconds over the cycle's length."""
+    from repro_torch.core.simulator import SimResult
+
+    ex = executor or MacroCycleExecutor(strategy)
+    slot = [strategy.init_carry(params0) if carry is None else carry]
+    del carry
+    losses: List[float] = []
+    metrics_log: List[Dict[str, float]] = []
+    divs: List[float] = []
+    seconds: List[float] = []
+    cycles: List[Tuple[CycleShape, float]] = []
+    step = start_step
+    while step < n_steps:
+        plan = strategy.plan_cycle(step, min(ex.max_cycle_len, n_steps - step))
+        carry, cycle_losses, per_step_metrics, dt = dispatch_planned_cycle(
+            ex, slot, plan, data_fn, lr_fn, n_steps)
+        losses.extend(cycle_losses)
+        metrics_log.extend(per_step_metrics)
+        strategy.observe(cycle_losses)
+        cycles.append((plan.shape, dt))
+        seconds.extend([dt / len(plan)] * len(plan))
+        if track_divergence:
+            d = strategy.divergence(carry)
+            if d is not None:
+                divs.extend([d] * len(plan))
+        slot.append(carry)
+        del carry
+        step += len(plan)
+    carry = slot.pop()
+    return SimResult(losses=losses, metrics=metrics_log,
+                     params=strategy.finalize_params(carry),
+                     sync_fraction=strategy.sync_fraction(),
+                     controller=strategy.controller, divergence=divs,
+                     executor_stats=ex.stats, step_seconds=seconds, carry=carry,
+                     cycles=cycles)

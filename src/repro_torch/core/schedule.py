@@ -68,6 +68,12 @@ def split_mode(mode: str) -> Tuple[str, Tuple[str, ...]]:
     return outer, tuple(inner.split(",")) if inner else ()
 
 
+def join_mode(outer: str, inner: Tuple[str, ...]) -> str:
+    """Inverse of `split_mode`; with no inner syncs the token is the outer
+    action itself."""
+    return f"{outer}+{','.join(inner)}" if inner else outer
+
+
 @dataclass
 class DasoController:
     cfg: DasoConfig

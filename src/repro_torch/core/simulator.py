@@ -1,12 +1,13 @@
 """Per-step training loop (`repro/core/simulator.py`): N virtual nodes
 as the leading replica axis on one device, one step dispatched at a time,
 with the strategy's mode decision and loss feedback interleaved exactly as
-on the reference's host loop."""
+on the reference's host loop. The macro-cycle executor (core/executor.py)
+is held to its numbers bit for bit."""
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -20,6 +21,9 @@ class SimResult:
     params: object
     sync_fraction: float
     controller: Optional[DasoController] = None
+    divergence: List[float] = field(default_factory=list)
+    # the macro-cycle path's ExecutorStats (core/executor.py)
+    executor_stats: Optional[object] = None
     # host seconds per step, batch made before the clock starts; each ends
     # in the loss fetch, which waits for the device, so on a card this is
     # the step's time
@@ -27,6 +31,9 @@ class SimResult:
     # the final carry, e.g. the daso strategy's (params_R, opt_R, inflight)
     # with every replica's row; `params` is the one model it finalizes to
     carry: object = None
+    # the macro-cycle path: each cycle's shape and its host seconds, from
+    # its staged batches to its metrics on the host
+    cycles: List[Tuple[tuple, float]] = field(default_factory=list)
 
     @property
     def final_loss(self) -> float:
@@ -35,11 +42,13 @@ class SimResult:
 
 
 def run_per_step_training(strategy, params0, data_fn: Callable,
-                          lr_fn: Callable, n_steps: int) -> SimResult:
+                          lr_fn: Callable, n_steps: int, *,
+                          track_divergence: bool = False) -> SimResult:
     """One step variant per training step, modes decided step by step
-    (`strategy.next_mode`), each loss fed back (`strategy.observe`)."""
+    (`strategy.next_mode`), each loss fed back (`strategy.observe`).
+    `track_divergence` samples the replica divergence after every step."""
     carry = strategy.init_carry(params0)
-    losses, metrics_log, seconds = [], [], []
+    losses, metrics_log, seconds, divs = [], [], [], []
     for step in range(n_steps):
         batch, lr = data_fn(step), lr_fn(step)
         t0 = time.perf_counter()
@@ -50,8 +59,12 @@ def run_per_step_training(strategy, params0, data_fn: Callable,
         metrics_log.append({k: float(v) for k, v in m.items() if v.dim() == 0})
         strategy.observe([loss])
         seconds.append(time.perf_counter() - t0)
+        if track_divergence:
+            d = strategy.divergence(carry)
+            if d is not None:
+                divs.append(d)
     return SimResult(losses=losses, metrics=metrics_log,
                      params=strategy.finalize_params(carry),
                      sync_fraction=strategy.sync_fraction(),
-                     controller=strategy.controller, step_seconds=seconds,
-                     carry=carry)
+                     controller=strategy.controller, divergence=divs,
+                     step_seconds=seconds, carry=carry)

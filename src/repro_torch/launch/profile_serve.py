@@ -53,15 +53,23 @@ def profile_phase(name, fn, device, top, trace=None):
         prof.export_chrome_trace(trace)
     # device-side events only (kernels, copies): the operators that launch
     # them report the same device time again
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == DeviceType.CUDA]
     busy_ms = sum(_device_us(e) for e in events) / 1e3
     events.sort(key=_device_us, reverse=True)
+    # the host's CUDA runtime calls: launches, and the caching allocator's
+    # cudaMalloc / cudaFree and the waits they bring
+    runtime = sorted((e for e in averages if e.device_type == DeviceType.CPU
+                      and e.key.startswith("cuda")),
+                     key=lambda e: e.cpu_time_total, reverse=True)
     return {"phase": name, "wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_ms,
             "device_busy_ms": busy_ms if device.type == "cuda" else "not measured",
             "device_busy_share": busy_ms / wall_ms if device.type == "cuda"
             else "not measured",
             "top": [{"name": e.key[:120], "calls": e.count,
-                     "device_ms": _device_us(e) / 1e3} for e in events[:top]]}
+                     "device_ms": _device_us(e) / 1e3} for e in events[:top]],
+            "runtime_top": [{"name": e.key, "calls": e.count,
+                             "host_ms": e.cpu_time_total / 1e3} for e in runtime[:5]]}
 
 
 def main(argv=None):

@@ -3,9 +3,13 @@ its published widths (`--layers` of its 16, f32), R = 4 replicas of 2 x 256
 tokens, sgd(0.9, 1e-4) — the train phase of chip_smoke.py. One step of
 each mode (local, send, receive, blocking) from the same carry, then with
 the int8 wire tier and the overlap schedule (the train_int8_overlap phase)
-an ov_sync~3 step (B = 4, W = 1) and an int8 blocking step; each timed
+an ov_sync~3 step (B = 4, W = 1) and an int8 blocking step; then the
+cycle (local, local, local, ov_sync~3) through the macro-cycle executor,
+its exchange on the executor's own CUDA stream, and again with
+serial_exchange, with the executor's timing legs per cycle. Each timed
 once plain and once under torch.profiler: device time by kernel and the
-device-busy share (see `profile_serve.profile_phase`).
+device-busy share (see `profile_serve.profile_phase`; under the overlap
+the two streams' kernels may run at once, so the busy share can pass 1).
 
   python -m repro_torch.launch.profile_train [--layers 4] [--trace out.json]
 
@@ -19,14 +23,15 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.daso import DasoConfig
-from repro_torch.core.executor import DasoStrategy
+from repro_torch.core.executor import OVERLAP_COMPUTE_PREFIX, CyclePlan, DasoStrategy, \
+    MacroCycleExecutor
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.launch.profile_serve import profile_phase
 from repro_torch.models.lm import init_params
 from repro_torch.optim.optimizers import sgd
 from repro_torch.train.step import make_lm_loss
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 
 REPLICAS, LOCAL_WORLD, PER, SEQ, LR = 4, 4, 2, 256, 0.005
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM, CUDA cores / HBM3
@@ -56,7 +61,8 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--trace", default=None,
-                    help="write the receive step's Chrome trace here")
+                    help="write the receive step's Chrome trace here, and the "
+                         "overlap cycle's beside it (name.cycle.json)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -96,6 +102,39 @@ def main(argv=None):
     # warm-up; leaves a snapshot pending that differs from the params
     run(ov, ("blocking", "ov_start", "ov_sync~3", "local"), ("ov_sync~3", "blocking"),
         "int8")
+
+    # the B = 4 overlap cycle through the macro executor, from the same carry
+    shape = (("local", 1),) * 3 + (("ov_sync~3", 1),)
+    plan = CyclePlan(0, shape)
+    batches = tree_map(lambda x: torch.stack([x] * len(shape)), batch)
+    lrs = torch.full((len(shape),), LR, dtype=torch.float32, device=device)
+    # each cycle takes the carry and leaves its own, as in a run (a cycle
+    # that kept its input alive would hold 3 x 8.1 GB more at this size)
+    held = {"carry": ov.init_carry(params0)}
+    for mode in ("blocking", "ov_start", "ov_sync~3", "local"):
+        held["carry"], _ = ov.step_fn(mode, 1)(held["carry"], batch, LR)
+
+    def cycle():
+        held["carry"], _ = ex.run_cycle([held.pop("carry")], plan, batches, lrs)
+
+    for serial in (False, True):
+        ex = MacroCycleExecutor(ov, serial_exchange=serial)
+        cycle()  # the exchange stream's first cycle
+        ex.stats = type(ex.stats)()
+        name = "ov_cycle" + ("_serial_exchange" if serial else "")
+        trace = (args.trace.removesuffix(".json") + ".cycle.json"
+                 if args.trace and not serial else None)
+        row = profile_phase(name, cycle, device, args.top, trace)
+        st = ex.stats
+        row.update(shape=[m for m, _ in shape], layers=args.layers, replicas=REPLICAS,
+                   wire="int8", device=str(device), **counts,
+                   legs_ms_per_cycle={k[:-2]: 1e3 * getattr(st, k) / st.overlap_cycles for k in (
+                       "overlap_compute_s", "overlap_exchange_visible_s",
+                       "overlap_exchange_blocking_s", "overlap_merge_s", "overlap_wall_s")})
+        assert st.overlap_cycles == 2 and all(
+            m.startswith(OVERLAP_COMPUTE_PREFIX) for m, _ in ex.cached_shapes[0])
+        print(json.dumps(row), flush=True)
+        rows.append(row)
     return rows
 
 

@@ -1,20 +1,25 @@
 """Training launcher of the port (`repro/launch/train.py`, its
 single-process flags): DASO (R virtual nodes as the replica axis on one
-device) or the sync baseline, on CUDA unless `--device cpu`.
+device), the local-SGD ablation or the sync baseline, on CUDA unless
+`--device cpu`. It runs the macro-cycle executor (core/executor.py) by
+default, one dispatch per controller cycle; `--executor per_step` runs one
+step per dispatch.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --strategy daso --steps 300 --nodes 4 --b-max 4 [--tiny | --full] \\
-      [--device cpu]
+      [--executor macro|per_step] [--max-cycle-len 32] [--device cpu]
 
-  # the beyond-paper exchange: int8 on the wire, merged one cycle stale
+  # the beyond-paper exchange: int8 on the wire, merged one cycle stale,
+  # each exchange on its own CUDA stream while the cycle's local steps run
   PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \\
-      --wire-format int8 --overlap one_cycle
+      --wire-format int8 --overlap one_cycle [--overlap-serial-exchange]
 
-The reference's other flags (executor, checkpoints, fault plans, topology,
-tracing, the multi-process runtime) are not ported yet: each is refused
-with the ROADMAP item that will port it.
+The reference's other flags (checkpoints, fault plans, topology, tracing,
+the multi-process runtime) are not ported yet: each is refused with the
+ROADMAP item that will port it.
 """
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -34,8 +39,7 @@ from repro_torch.train.step import make_lm_loss
 # flags of the reference launcher that wait for a later part of the port,
 # with the ROADMAP item that ports them
 LATER_FLAGS = {
-    "--max-cycle-len": 9, "--exchange-impl": 7,
-    "--overlap-serial-exchange": 9, "--dispatch": 16, "--topology": 13,
+    "--exchange-impl": 7, "--dispatch": 16, "--topology": 13,
     "--ckpt": 11, "--ckpt-every": 11, "--resume": 11, "--fault-plan": 15,
     "--autotune": 18, "--autotune-every": 18, "--trace-out": 17,
     "--distributed": 16, "--coordinator": 16, "--procs": 16, "--proc-id": 16,
@@ -57,17 +61,23 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--strategy", default="daso", choices=list_strategies())
-    ap.add_argument("--executor", default="per_step", choices=["per_step", "macro"],
-                    help="per_step (the ported path); macro is ROADMAP item 9")
+    ap.add_argument("--executor", default="macro", choices=["macro", "per_step"],
+                    help="macro = one dispatch per controller cycle; per_step = "
+                         "one per step")
+    ap.add_argument("--max-cycle-len", type=int, default=32)
     ap.add_argument("--wire-format", default=None, choices=["f32", "bf16", "int8"],
                     help="wire tier of the global exchange; default derives "
                          "bf16 / f32 per phase, int8 is the block-scaled tier "
                          "(K5 / K6)")
     ap.add_argument("--overlap", default="off", choices=["off", "one_cycle"],
                     help="double-buffered overlap of the global exchange: each "
-                         "exchange merged one cycle stale (daso only; the per-step "
-                         "executor runs it in order, the stream overlap is the "
-                         "macro executor's, ROADMAP item 9)")
+                         "exchange merged one cycle stale (daso only); the macro "
+                         "executor runs it on its own CUDA stream while the "
+                         "cycle's local steps run, the per-step one in order")
+    ap.add_argument("--overlap-serial-exchange", action="store_true",
+                    help="the macro executor waits for each overlap exchange "
+                         "before the cycle's local steps: the same numbers, and "
+                         "the exchange's own time in executor_stats")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--nodes", type=int, default=4, help="DASO replicas (paper nodes)")
     ap.add_argument("--local-world", type=int, default=4)
@@ -122,19 +132,29 @@ def main(argv=None):
     loop_cfg = TrainLoopConfig(
         strategy=args.strategy, n_steps=args.steps, n_replicas=R,
         local_world=args.local_world, b_max=args.b_max, lr=args.lr,
-        executor=args.executor, wire_format=args.wire_format, overlap=args.overlap,
-        device=str(device))
+        executor=args.executor, max_cycle_len=args.max_cycle_len,
+        wire_format=args.wire_format, overlap=args.overlap,
+        overlap_serial_exchange=args.overlap_serial_exchange, device=str(device))
     lr_fn = warmup_linear_scaled(args.lr / (R * args.local_world), R * args.local_world,
                                  max(1, args.steps // 10))
     result = run_training(make_lm_loss(cfg), params0,
                           sync_data if args.strategy == "sync" else daso_data,
                           loop_cfg, lr_fn=lr_fn)
+    stats = result.executor_stats
+    if stats is not None:
+        print(f"[train] executor: {stats.dispatches} host dispatches for "
+              f"{args.steps} steps ({stats.compiles} compiled cycle shapes, "
+              f"{stats.fallback_steps} tail-fallback steps, "
+              f"{stats.invalidations} invalidations)")
     if args.metrics_out:
         os.makedirs(os.path.dirname(args.metrics_out) or ".", exist_ok=True)
+        metrics = {"losses": result.losses, "sync_fraction": result.sync_fraction,
+                   "final_loss": result.final_loss, "seed": args.seed,
+                   "device": str(device)}
+        if stats is not None:
+            metrics["executor_stats"] = dataclasses.asdict(stats)
         with open(args.metrics_out, "w") as f:
-            json.dump({"losses": result.losses, "sync_fraction": result.sync_fraction,
-                       "final_loss": result.final_loss, "seed": args.seed,
-                       "device": str(device)}, f)
+            json.dump(metrics, f)
         print(f"[train] metrics -> {args.metrics_out}")
     return result
 

@@ -1,11 +1,15 @@
 """End-to-end training entry point (`repro/train/loop.py`): strategy selection
-through the registry (daso / sync), LR schedule, loss trace and the
-schedule's sync fraction.
+through the registry (daso / sync / local_sgd), LR schedule, loss trace and
+the schedule's sync fraction, on one of two executors:
 
-Runs on CUDA unless `device="cpu"`, and raises without CUDA. The per-step
-path (`executor="per_step"`, core/simulator.py) is the one ported; the
-reference holds its compiled macro-cycle path to the same numbers, and
-that executor is ROADMAP item 9.
+  * ``executor="macro"`` (default): the macro-cycle executor
+    (core/executor.py), one dispatch and one loss fetch per controller
+    cycle; under the overlap schedule each cycle's exchange runs on its own
+    CUDA stream while the cycle's local steps run;
+  * ``executor="per_step"``: one step per dispatch (core/simulator.py), the
+    path the macro executor is held to bit for bit.
+
+Runs on CUDA unless `device="cpu"`, and raises without CUDA.
 """
 from __future__ import annotations
 
@@ -15,7 +19,8 @@ from typing import Callable, Optional
 
 from repro_torch.core.compression import transfer_bytes
 from repro_torch.core.daso import DasoConfig
-from repro_torch.core.executor import get_strategy, list_strategies, make_strategy
+from repro_torch.core.executor import (MacroCycleExecutor, get_strategy, list_strategies,
+                                       make_strategy, run_compiled_training)
 from repro_torch.core.simulator import SimResult, run_per_step_training
 from repro_torch.device import resolve_device
 from repro_torch.optim.optimizers import Optimizer, sgd
@@ -25,7 +30,7 @@ from repro_torch.tree import leaves
 
 @dataclass
 class TrainLoopConfig:
-    strategy: str = "daso"            # registered name: daso | sync
+    strategy: str = "daso"            # registered name: daso | sync | local_sgd
     n_steps: int = 200
     n_replicas: int = 4               # paper "nodes"
     local_world: int = 4              # paper GPUs per node
@@ -34,7 +39,8 @@ class TrainLoopConfig:
     cooldown_frac: float = 0.1
     lr: float = 0.05
     loss_window: int = 20
-    executor: str = "per_step"        # "macro" is ROADMAP item 9
+    executor: str = "macro"           # macro | per_step
+    max_cycle_len: int = 32           # cap on a macro-cycle's length
     # wire tier of the global exchange: None derives bf16 / f32 per phase,
     # "f32" | "bf16" | "int8" forces one tier for both
     wire_format: Optional[str] = None
@@ -42,6 +48,9 @@ class TrainLoopConfig:
     # "one_cycle": the double-buffered overlap schedule (core/daso.py
     # daso_overlap_step), each exchange merged one cycle stale
     overlap: str = "off"
+    # the macro executor waits for each overlap exchange before the cycle's
+    # local steps: the same numbers, and the exchange's own time
+    overlap_serial_exchange: bool = False
     device: str = "cuda"
 
 
@@ -89,12 +98,9 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
     carries the leading replica axis; for sync it is flat. params0 must
     already be on cfg.device."""
     device = resolve_device(cfg.device)
-    if cfg.executor == "macro":
-        raise NotImplementedError("the macro-cycle executor is not ported yet "
-                                  "(ROADMAP item 9); use executor='per_step'")
-    if cfg.executor != "per_step":
+    if cfg.executor not in ("macro", "per_step"):
         raise ValueError(f"unknown executor {cfg.executor!r}; "
-                         "expected 'per_step' (or 'macro', not ported yet)")
+                         "expected 'macro' or 'per_step'")
     for x in leaves(params0):
         if x.device.type != device.type:
             raise ValueError(f"run_training on {device}, params on {x.device}")
@@ -102,11 +108,20 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
     lr_fn = lr_fn or constant_lr(cfg.lr)
     strategy = build_strategy(loss_fn, cfg, optimizer)
     t0 = time.time()
-    result = run_per_step_training(strategy, params0, data_fn, lr_fn, cfg.n_steps)
+    if cfg.executor == "per_step":
+        result = run_per_step_training(strategy, params0, data_fn, lr_fn, cfg.n_steps)
+    else:
+        executor = MacroCycleExecutor(strategy, max_cycle_len=cfg.max_cycle_len,
+                                      serial_exchange=cfg.overlap_serial_exchange)
+        result = run_compiled_training(strategy, params0, data_fn, lr_fn, cfg.n_steps,
+                                       executor=executor)
     if log is not None:
+        stats = result.executor_stats
+        disp = (f" dispatches={stats.dispatches}/{cfg.n_steps}"
+                if stats is not None else "")
         wire = "" if cfg.strategy == "sync" else " " + wire_summary(strategy.cfg, params0)
         log(f"[train] strategy={cfg.strategy} steps={cfg.n_steps} "
             f"final_loss={result.final_loss:.4f} "
             f"sync_frac={result.sync_fraction:.3f} wall={time.time() - t0:.1f}s"
-            f"{wire} device={device}")
+            f"{disp}{wire} device={device}")
     return result

@@ -26,6 +26,7 @@ from repro_torch.models.lm import forward, init_params
 from repro_torch.serve.engine import Engine, make_decode_fn, make_prefill_fn
 from repro_torch.train.loop import TrainLoopConfig, run_training
 from repro_torch.train.step import make_lm_loss
+from repro_torch.tree import leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -395,6 +396,46 @@ def test_int8_overlap_training_goes_through_the_kernels(cuda):
     assert got[comm_kernels.dequantize_int8_fwd] == n_sync + n_blocking
     assert got[comm_kernels.eq1_merge_fwd] == n_sync > 0
     assert res.losses[-1] < res.losses[0]
+
+
+def test_overlap_macro_runs_the_exchange_on_its_own_stream(cuda, monkeypatch):
+    """A reduced int8 + one_cycle run through both executors: the macro run
+    gives the per-step run's losses and carry bit for bit, and K5 runs on a
+    stream other than the main one exactly once per overlap cycle (the
+    exchange), on the main one for every blocking step."""
+    cfg = get_reduced("llama3.2-1b").replace(n_layers=2, vocab_size=256)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    src = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32, seed=0)
+
+    def data(step):
+        b = src.batch(8, step, device=cuda)
+        return {k: v.reshape((4, 2) + v.shape[1:]) for k, v in b.items()}
+
+    main, streams, quantize = torch.cuda.current_stream(), [], ops.quantize_int8
+
+    def spy(*args, **kw):
+        streams.append(torch.cuda.current_stream())
+        return quantize(*args, **kw)
+
+    monkeypatch.setattr(ops, "quantize_int8", spy)
+
+    def run(executor):
+        streams.clear()
+        res = run_training(make_lm_loss(cfg), params, data, TrainLoopConfig(
+            n_steps=30, n_replicas=4, wire_format="int8", overlap="one_cycle",
+            executor=executor, device="cuda"), log=None)
+        torch.cuda.synchronize()
+        return res, [s != main for s in streams]
+
+    ref, ref_side = run("per_step")
+    macro, side = run("macro")
+    assert not any(ref_side)
+    n_blocking = sum(h[1] == "blocking" for h in macro.controller.history)
+    assert sum(side) == macro.executor_stats.overlap_cycles > 0
+    assert len(side) - sum(side) == n_blocking
+    assert macro.losses == ref.losses
+    for a, b in zip(leaves(macro.carry), leaves(ref.carry), strict=True):
+        assert torch.equal(a, b)
 
 
 # -- K7 ssm_scan: within the reference's tolerance of its plain version ----------

@@ -171,9 +171,9 @@ def test_run_training_loss_trace_matches_jax(quickstart_runs):
 
 def test_run_training_refusals(monkeypatch):
     cfg = get_reduced("llama3.2-1b").replace(**QUICK)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="unknown executor 'compiled'"):
         run_training(make_lm_loss(cfg), {}, None,
-                     TrainLoopConfig(executor="macro", device="cpu"))
+                     TrainLoopConfig(executor="compiled", device="cpu"))
     with pytest.raises(ValueError, match="params on"):
         run_training(make_lm_loss(cfg), {"w": torch.zeros(2, device="meta")}, None,
                      TrainLoopConfig(device="cpu"))
@@ -224,14 +224,47 @@ def test_launcher_trains_on_the_cpu(tmp_path):
 @pytest.mark.parametrize("argv,err,match", [
     (["--ckpt", "d"], SystemExit, "item 11"),
     (["--topology=chip:4 x pod:2"], SystemExit, "item 13"),
-    (["--overlap-serial-exchange"], SystemExit, "item 9"),
     (["--distributed"], SystemExit, "item 16"),
-    (["--executor", "macro"], NotImplementedError, "item 9"),
     (["--exchange-impl", "per_leaf"], SystemExit, "item 7"),
 ])
 def test_launcher_refuses_unported_flags(argv, err, match):
     with pytest.raises(err, match=match):
         launch_train.main(["--tiny", "--device", "cpu", "--steps", "2"] + argv)
+
+
+@pytest.mark.parametrize("argv,dispatches,fallback", [
+    # one warm-up and one cool-down step; B = 4 cycles cut at 3 steps:
+    # (blocking), 2 x ((send, receive, local), (local)), (blocking)
+    (["--executor", "macro", "--max-cycle-len", "3", "--b-max", "4"], 6, 0),
+    # the default executor, B = 2 under one_cycle: (blocking), (ov_start),
+    # 3 overlap cycles (local, ov_sync~1) of three dispatches each (the
+    # exchange, the local steps, the merge), (local) cut by the cool-down,
+    # (blocking)
+    (["--overlap", "one_cycle", "--overlap-serial-exchange", "--b-max", "2"], 13, 0),
+    (["--executor", "per_step"], None, None),
+])
+def test_launcher_runs_the_executors(tmp_path, capsys, argv, dispatches, fallback):
+    """The executor line and `executor_stats` in --metrics-out; the macro
+    executor is the default, as the reference launcher's."""
+    out = tmp_path / "m.json"
+    res = launch_train.main(["--tiny", "--device", "cpu", "--steps", "10", "--nodes", "2",
+                             "--per-node-batch", "2", "--seq-len", "16",
+                             "--metrics-out", str(out)] + argv)
+    text = capsys.readouterr().out
+    m = json.loads(out.read_text())
+    assert len(m["losses"]) == 10
+    if dispatches is None:
+        assert "[train] executor:" not in text and "executor_stats" not in m
+        assert res.executor_stats is None
+        return
+    st = m["executor_stats"]
+    assert (st["dispatches"], st["fallback_steps"]) == (dispatches, fallback)
+    assert st["steps"] + st["fallback_steps"] == 10
+    assert f"[train] executor: {dispatches} host dispatches for 10 steps" in text
+    assert f"dispatches={dispatches}/10" in text
+    if "one_cycle" in argv:
+        assert st["overlap_cycles"] == 3 and st["overlap_exchange_blocking_s"] > 0.0
+        assert st["overlap_exchange_visible_s"] == 0.0
 
 
 def test_launcher_refuses_to_train_the_ssm_family():
