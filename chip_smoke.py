@@ -1382,10 +1382,11 @@ def phase_train_int8_overlap():
     row["wire_bytes_per_exchange"] = {
         t: compression.transfer_bytes(params0, wire_format=t) for t in ("f32", "bf16", "int8")}
     emit(row)
-    params = [x.cpu() for x in leaves(res.params)]
-    del res, params0
+    params_r, opt_r = res.carry[:2]
+    carry = [x.cpu() for x in leaves((params_r, opt_r))]
+    del res, params0, params_r, opt_r
     torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms_median": row["step_ms_median"], "params": params}
+    return {"launches": launches, "step_ms_median": row["step_ms_median"], "carry": carry}
 
 
 @contextmanager
@@ -1410,18 +1411,43 @@ OVERLAP_LEGS = ("overlap_compute_s", "overlap_exchange_visible_s",
                 "overlap_exchange_blocking_s", "overlap_merge_s")
 
 
+def steady_overlap_cycles(res):
+    """Walls (ms, staged batches to metrics on the host, so the card has
+    finished) of the run's (local x 3, ov_sync) cycles, the first left out
+    (it carries the exchange stream's and the allocator's warm-up)."""
+    walls = [1e3 * sec for shape, sec in res.cycles
+             if len(shape) > 1 and shape[-1][0].startswith("ov_sync")]
+    return walls[1:]
+
+
+def carry_matches(carry, host_leaves):
+    """Params and momentum of every replica bit for bit the host copies,
+    one leaf at a time on the card."""
+    params_r, opt_r = carry[:2]
+    return all(same_bits(a, b.to(a.device))
+               for a, b in zip(leaves((params_r, opt_r)), host_leaves, strict=True))
+
+
 def phase_train_macro_int8_overlap(per_step):
     """The train_int8_overlap cell through the macro-cycle executor: with
     each overlap exchange on the executor's stream while the cycle's local
     steps run, then with serial_exchange. Both give the per-step run's final
-    params bit for bit (and so each other's) and its launches; each overlap
-    cycle runs K5 once on the exchange stream, each blocking step once on
-    the main one; the legs partition the overlap wall. The hidden fraction
-    of the exchange is 1 - visible / blocking: what the host no longer
-    waits for (the legs sum whole runs, first cycles included; what the
-    card gains in a steady cycle is `profile_train.py`'s ov_cycle rows).
-    Returns the first run's launches."""
-    out, visible = None, None
+    carry (params and momentum of every replica) bit for bit, and so each
+    other's, and its launches; each overlap cycle runs K5 once on the
+    exchange stream, each blocking step once on the main one; the legs
+    partition the overlap wall.
+
+    What the stream hides on the card is the serial run's steady cycle
+    wall less the overlap run's, cycle by cycle (`saved_ms_per_cycle`):
+    the walls end on the cycle's metrics reaching the host, so each is the
+    card's time for the cycle. `host_wait_hidden_fraction`, 1 - visible /
+    blocking over the two runs, is a host number: the host waits for the
+    exchange only after it has waited for the local steps, so it reads
+    near 1 whether or not the card ran the two streams at once.
+    `profile_train.py` gives the device trace of one cycle (the exchange
+    stream's kernel time, and how much of it ran beside the local steps'
+    kernels). Returns the first run's launches."""
+    out, visible, walls = None, None, None
     for serial in (False, True):
         name = "train_macro_int8_overlap" + ("_serial" if serial else "")
         with exchange_streams() as on_side:
@@ -1432,26 +1458,28 @@ def phase_train_macro_int8_overlap(per_step):
         st = res.executor_stats
         n_sync, n_side = modes.count("ov_sync"), sum(on_side)
         legs = sum(getattr(st, k) for k in OVERLAP_LEGS)
-        overlap_ms = [ms for shape, v in row["cycle_ms"].items()
-                      if shape.split(",")[-1].startswith("ov_sync")
-                      for ms in v["ms_per_step_all"]]
+        steady = steady_overlap_cycles(res)
         row.update(
             k5_calls={"exchange_stream": n_side, "main_stream": len(on_side) - n_side},
             legs_sum_s=legs,
-            overlap_ms_per_step_median=statistics.median(overlap_ms),
+            steady_cycle_ms=steady, steady_cycle_ms_median=statistics.median(steady),
             per_step_ms_median=per_step["step_ms_median"],
-            params_identical_to_per_step=all(
-                same_bits(a.cpu(), b) for a, b in zip(leaves(res.params), per_step["params"],
-                                                     strict=True)))
+            carry_identical_to_per_step=carry_matches(res.carry, per_step["carry"]))
         if serial:
-            row["hidden_fraction"] = 1.0 - visible / st.overlap_exchange_blocking_s
+            saved = [b - a for a, b in zip(walls, steady, strict=True)]
+            row.update(saved_ms_per_cycle=saved,
+                       saved_ms_per_cycle_median=statistics.median(saved),
+                       exchange_blocking_ms_per_cycle_host=(
+                           1e3 * st.overlap_exchange_blocking_s / st.overlap_cycles),
+                       host_wait_hidden_fraction=(
+                           1.0 - visible / st.overlap_exchange_blocking_s))
         else:
-            visible, out = st.overlap_exchange_visible_s, launches
+            visible, walls, out = st.overlap_exchange_visible_s, steady, launches
         faults = [what for what, bad in (
             ("overlap cycles", not st.overlap_cycles == n_side == n_sync > 0),
             ("blocking K5 off the main stream", len(on_side) - n_side != modes.count("blocking")),
             ("legs", abs(legs - st.overlap_wall_s) > 1e-9 * st.overlap_wall_s),
-            ("params", not row["params_identical_to_per_step"])) if bad]
+            ("carry", not row["carry_identical_to_per_step"])) if bad]
         if faults:
             emit({**row, "failed": faults})
             raise AssertionError(f"{name}: {faults}")
@@ -1860,7 +1888,7 @@ def main():
     phase_train_check()
     int8_per_step = phase_train_int8_overlap()
     int8_macro_launches = phase_train_macro_int8_overlap(int8_per_step)
-    del int8_per_step["params"]
+    del int8_per_step["carry"]
     trained = phase_train()
     macro_launches = phase_train_macro(trained)
     arena_parts = phase_arena(trained)

@@ -114,7 +114,9 @@ def make_strategy(name: str, loss_fn: Callable, optimizer: Optimizer,
 class Strategy:
     """Carry lifecycle, cached step variants, the per-step schedule and the
     cycle planner. `n_micro` splits each batch for gradient accumulation
-    (core/daso.py::microbatched_value_and_grad)."""
+    (core/daso.py::microbatched_value_and_grad); the topology lowering and
+    the dry run set it (the reference's `topo/lower.py` and
+    `launch/dryrun.py`; ROADMAP item 13)."""
     name = "?"
 
     def __init__(self, loss_fn: Callable, optimizer: Optimizer,
@@ -430,10 +432,9 @@ class MacroCycleExecutor:
     overlap cycle on the card)."""
 
     def __init__(self, strategy: Strategy, *, max_cycle_len: int = 32,
-                 tail_fallback: bool = True, serial_exchange: bool = False):
+                 serial_exchange: bool = False):
         self.strategy = strategy
         self.max_cycle_len = max_cycle_len
-        self.tail_fallback = tail_fallback
         # wait for the exchange before the local steps start: the same
         # numbers, and overlap_exchange_blocking_s measures the exchange
         self.serial_exchange = serial_exchange
@@ -456,7 +457,9 @@ class MacroCycleExecutor:
     def invalidate(self) -> int:
         """Drop every cached program and overlap part, so later cycles use
         the strategy's current step variants. Returns how many were
-        dropped."""
+        dropped. Its caller is the resilience supervisor, which swaps the
+        step variants when the membership changes (the reference's
+        `resilience/supervisor.py`; ROADMAP item 15)."""
         n = len(self._programs) + len(self._ov_fns)
         self._programs.clear()
         self._ov_fns.clear()
@@ -489,8 +492,7 @@ class MacroCycleExecutor:
         ov = getattr(self.strategy, "overlap_cycle", lambda s: None)(shape)
         if ov is not None:
             return self._run_overlap(slot, ov, batches, lrs)
-        if (self.tail_fallback and is_tail and len(shape) > 1
-                and shape not in self._programs):
+        if is_tail and len(shape) > 1 and shape not in self._programs:
             return self._run_per_step(slot, shape, batches, lrs)
         carry, metrics = self.program_for(shape)(slot, batches, lrs)
         self.stats.dispatches += 1
@@ -653,8 +655,12 @@ def run_compiled_training(strategy: Strategy, params0, data_fn: Callable,
     program per cycle, the same numbers as the per-step path bit for bit.
 
     `track_divergence` samples the replica divergence once per cycle (the
-    per-step path samples every step). `start_step` and a `carry` continue
-    a run whose strategy's controller is already at that step.
+    per-step path samples every step); it is the library surface of
+    `SimResult.divergence`, which the reference's own API offers and no
+    launcher sets. `start_step` and a `carry` continue a run whose
+    strategy's controller is already at that step: `run_training`'s
+    resume from a checkpoint sets them (the reference's `train/loop.py`;
+    ROADMAP item 11).
     `SimResult.cycles` lists each cycle's shape and its host seconds
     (`dispatch_planned_cycle`); `step_seconds` gives each step its cycle's
     seconds over the cycle's length."""

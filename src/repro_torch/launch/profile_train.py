@@ -10,6 +10,10 @@ serial_exchange, with the executor's timing legs per cycle. Each timed
 once plain and once under torch.profiler: device time by kernel and the
 device-busy share (see `profile_serve.profile_phase`; under the overlap
 the two streams' kernels may run at once, so the busy share can pass 1).
+The cycle rows also read the profiled cycle's trace by CUDA stream
+(`stream_overlap`): each stream's kernel time, and the time the exchange
+stream's kernels ran while the main stream's ran, which is the most the
+stream can have hidden on the card.
 
   python -m repro_torch.launch.profile_train [--layers 4] [--trace out.json]
 
@@ -18,6 +22,8 @@ the device numbers read "not measured").
 """
 import argparse
 import json
+import os
+import tempfile
 
 import torch
 
@@ -53,6 +59,46 @@ def step_counts(cfg, n_params: int) -> dict:
     return {"gemm_flops": flops, "gemm_bound_ms": 1e3 * flops / PEAK_F32_FLOPS,
             "sgd_fused_bytes": sgd_bytes,
             "sgd_fused_bound_ms": 1e3 * sgd_bytes / PEAK_BYTES}
+
+
+def _union(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def stream_overlap(trace_path: str) -> dict:
+    """Kernel time by CUDA stream in a Chrome trace of one cycle: the main
+    stream (the one with the most kernels) and the others (the exchange
+    stream), each as the union of its kernels' spans, and the time both
+    had a kernel running. Device time, ms; "not measured" without kernels."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    by_stream = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_stream.setdefault(e["args"].get("stream"), []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    if not by_stream:
+        return {"main_busy_ms": "not measured", "exchange_busy_ms": "not measured",
+                "concurrent_ms": "not measured"}
+    main = max(by_stream, key=lambda s: len(by_stream[s]))
+    busy = _union(by_stream.pop(main))
+    side = _union([iv for ivs in by_stream.values() for iv in ivs])
+    both, i, j = 0.0, 0, 0
+    while i < len(busy) and j < len(side):
+        both += max(0.0, min(busy[i][1], side[j][1]) - max(busy[i][0], side[j][0]))
+        if busy[i][1] < side[j][1]:
+            i += 1
+        else:
+            j += 1
+    return {"main_busy_ms": sum(b - a for a, b in busy) / 1e3,
+            "exchange_busy_ms": sum(b - a for a, b in side) / 1e3,
+            "concurrent_ms": both / 1e3}
 
 
 def main(argv=None):
@@ -122,12 +168,14 @@ def main(argv=None):
         cycle()  # the exchange stream's first cycle
         ex.stats = type(ex.stats)()
         name = "ov_cycle" + ("_serial_exchange" if serial else "")
-        trace = (args.trace.removesuffix(".json") + ".cycle.json"
-                 if args.trace and not serial else None)
-        row = profile_phase(name, cycle, device, args.top, trace)
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = (args.trace.removesuffix(".json") + ".cycle.json"
+                     if args.trace and not serial else os.path.join(tmp, "cycle.json"))
+            row = profile_phase(name, cycle, device, args.top, trace)
+            streams = stream_overlap(trace)
         st = ex.stats
         row.update(shape=[m for m, _ in shape], layers=args.layers, replicas=REPLICAS,
-                   wire="int8", device=str(device), **counts,
+                   wire="int8", device=str(device), **counts, streams=streams,
                    legs_ms_per_cycle={k[:-2]: 1e3 * getattr(st, k) / st.overlap_cycles for k in (
                        "overlap_compute_s", "overlap_exchange_visible_s",
                        "overlap_exchange_blocking_s", "overlap_merge_s", "overlap_wall_s")})

@@ -219,11 +219,11 @@ def test_compile_cache_one_program_per_shape():
     """tests/test_executor.py:188: one program per distinct shape, reused."""
     params0, batch = _problem(2)
     jstrat, strat = _strategies("daso", 80)
-    ex = executor.MacroCycleExecutor(strat, tail_fallback=False)
+    ex = executor.MacroCycleExecutor(strat)
     executor.run_compiled_training(strat, {k: torch.from_numpy(v) for k, v in params0.items()},
                                    _data(batch, False, "torch"), constant_lr(0.1), 80,
                                    executor=ex)
-    jex = jexecutor.MacroCycleExecutor(jstrat, tail_fallback=False)
+    jex = jexecutor.MacroCycleExecutor(jstrat)
     jexecutor.run_compiled_training(jstrat, jax.tree.map(jnp.asarray, params0),
                                     _data(batch, False, "jax"), jax_constant_lr(0.1), 80,
                                     executor=jex)
@@ -498,3 +498,28 @@ def test_track_divergence_lengths(executor_kind):
         per_step = _run("daso", 30, "per_step", track_divergence=True)
         ends = np.cumsum([len(s) for s, _ in res.cycles]) - 1
         assert [res.divergence[i] for i in ends] == [per_step.divergence[i] for i in ends]
+
+
+@pytest.mark.parametrize("kernels, want", [
+    # main stream 7: [0, 10) and [20, 30) us; exchange stream 14: [5, 25) us
+    ([(7, 0, 10), (7, 20, 5), (7, 25, 5), (14, 5, 12), (14, 15, 10)],
+     {"main_busy_ms": 0.02, "exchange_busy_ms": 0.02, "concurrent_ms": 0.01}),
+    ([], {"main_busy_ms": "not measured", "exchange_busy_ms": "not measured",
+          "concurrent_ms": "not measured"}),
+])
+def test_stream_overlap_reads_concurrent_kernel_time(tmp_path, kernels, want):
+    """profile_train's reading of a cycle's trace: each stream's kernel
+    spans as a union, and the time both streams ran a kernel; a trace
+    without kernels (the CPU) measures nothing."""
+    import json
+
+    from repro_torch.launch.profile_train import stream_overlap
+    events = [{"cat": "cpu_op", "name": "aten::add", "ts": 0, "dur": 40}]
+    events += [{"cat": "kernel", "name": "k", "ts": ts, "dur": dur, "args": {"stream": s}}
+               for s, ts, dur in kernels]
+    path = tmp_path / "cycle.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    got = stream_overlap(str(path))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k] == (pytest.approx(v) if isinstance(v, float) else v)
