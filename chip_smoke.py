@@ -64,6 +64,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                step with extra staleness 1 (int8), each through the kernels,
                give the same carry as the same step with the exchange
                computed by the plain versions
+  train_resume run_training at full width (1 layer, f32, R = 4) with the
+               int8 wire and the one_cycle overlap on the macro executor (a
+               4-slot carry, the exchange on its own stream): 16 steps with
+               one TrainState written mid-run into a temporary directory
+               (after checking the disk's free space against the carry's
+               bytes), then run_training resumed from it: the final carry
+               (params, momentum, in-flight and pending of every replica)
+               and the loss trace bit for bit the uninterrupted run's (the
+               carry's tree too, empty lists included), the
+               resumed run's K2 / K5 / K6 launches what its modes imply, its
+               peak no higher; the checkpoint's bytes, save and load
+               seconds (and GB/s), both runs' peaks
   train_int8_overlap
                run_training on the per-step executor at the train phase's
                size with the int8 wire tier and the one-cycle overlap
@@ -122,6 +134,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -1489,6 +1502,160 @@ def phase_train_macro_int8_overlap(per_step):
     return out
 
 
+# train_resume: one TrainState lands at the first cycle boundary at or past
+# step RESUME_EVERY of RESUME_STEPS (none at the end: 2 x 9 > 16)
+RESUME_STEPS, RESUME_EVERY = 16, 9
+
+
+@contextmanager
+def timed_calls(module, name):
+    """Host seconds of each call of `module.name` (the train loop's
+    save_train_state / load_train_state), appended to the yielded list."""
+    fn, seconds = getattr(module, name), []
+
+    def spy(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield seconds
+    finally:
+        setattr(module, name, fn)
+
+
+def host_carry(carry):
+    """Every leaf of an f32 carry on the host, in `leaves` order: a leaf
+    that appears twice copied once, an expanded one as its first row."""
+    copies = {}
+    for x in leaves(carry):
+        if id(x) not in copies:
+            copies[id(x)] = (x[:1].cpu().expand(x.shape) if x.dim() and x.stride(0) == 0
+                             else x.cpu())
+    return [copies[id(x)] for x in leaves(carry)]
+
+
+def tree_structure(tree):
+    """The containers of a tree, its leaves as None (empty lists kept)."""
+    if isinstance(tree, dict):
+        return {k: tree_structure(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_structure(v) for v in tree)
+    return None
+
+
+def carry_identical(carry, host):
+    """Bit for bit, leaf by leaf on the card."""
+    for a, b in zip(leaves(carry), host, strict=True):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        b = (b[:1].to(a.device).expand(b.shape) if b.dim() and b.stride(0) == 0
+             else b.to(a.device))
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            return False
+    return True
+
+
+def phase_train_resume():
+    """Checkpoints and resume on the card: llama3.2-1b at full width, 1
+    layer, f32, R = 4, the int8 wire and the one_cycle overlap on the macro
+    executor (4-slot carry, each exchange on the executor's stream).
+    run_training uninterrupted with one TrainState mid-run, then
+    run_training resumed from it for the remaining steps: the final carry
+    (params, momentum, in-flight and pending of every replica) and the loss
+    trace bit for bit the uninterrupted run's, the resumed run's K2 / K5 /
+    K6 launches what its modes imply, and its peak no higher. The
+    TrainState is written into a fresh temporary directory, removed after;
+    a disk too small for the carry fails the phase."""
+    from repro_torch.checkpoint.io import list_train_state_dirs
+    from repro_torch.train import loop
+
+    cfg = train_config(1)
+    params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(3), "cuda")
+    n_params = sum(x.numel() for x in leaves(params0))
+    data = replica_data(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, seed=3))
+    carry_bytes = 4 * TRAIN_R * n_params * 4  # four slots of R f32 rows
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_resume_")
+    row = {"phase": "train_resume", "arch": ARCH, "layers": 1, "dtype": "float32",
+           "replicas": TRAIN_R, "executor": "macro", **INT8_OVERLAP,
+           "steps": RESUME_STEPS, "ckpt_every": RESUME_EVERY,
+           "params_per_replica": n_params, "carry_bytes": carry_bytes}
+    try:
+        free = shutil.disk_usage(tmp).free
+        row["disk_free_bytes"] = free
+        if free < carry_bytes:
+            emit({**row, "failed": "disk"})
+            raise RuntimeError(f"train_resume: {free} bytes free in {tmp}, the "
+                               f"checkpoint takes {carry_bytes}")
+
+        def run(**options):
+            loop_cfg = TrainLoopConfig(
+                strategy="daso", n_steps=RESUME_STEPS, n_replicas=TRAIN_R,
+                local_world=TRAIN_LOCAL_WORLD, b_max=TRAIN_B_MAX, lr=TRAIN_LR,
+                device="cuda", executor="macro", **INT8_OVERLAP, **options)
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = run_training(make_lm_loss(cfg), params0, data, loop_cfg,
+                               optimizer=sgd(momentum=0.9, weight_decay=1e-4), log=None)
+            sync()
+            return res, counts(), torch.cuda.max_memory_allocated(), time.perf_counter() - t0
+
+        with timed_calls(loop, "save_train_state") as save_s:
+            full, full_launches, full_peak, full_s = run(ckpt_every=RESUME_EVERY,
+                                                         ckpt_dir=tmp)
+        dirs = list_train_state_dirs(tmp)
+        if len(dirs) != 1 or len(save_s) != 1:
+            emit({**row, "failed": "one TrainState", "dirs": dirs})
+            raise AssertionError(f"train_resume: TrainStates {dirs}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(dirs[0], f))
+                         for f in os.listdir(dirs[0]))
+        want_carry, want_losses = host_carry(full.carry), full.losses
+        want_tree = tree_structure(full.carry)
+        modes = [split_ov(h[1])[0] for h in full.controller.history]
+        del full
+        torch.cuda.empty_cache()
+        with timed_calls(loop, "load_train_state") as load_s:
+            resumed, launches, peak, resumed_s = run(resume_from=dirs[0])
+        k = int(os.path.basename(dirs[0]).removeprefix("step_"))
+        resumed_modes = [split_ov(h[1])[0] for h in resumed.controller.history if h[0] >= k]
+        row.update(
+            resumed_from_step=k, checkpoint_dir_name=os.path.basename(dirs[0]),
+            checkpoint_bytes=ckpt_bytes, save_s=save_s[0], load_s=load_s[0],
+            save_gb_per_s=ckpt_bytes / save_s[0] / 1e9,
+            load_gb_per_s=ckpt_bytes / load_s[0] / 1e9,
+            uninterrupted_s=full_s, resumed_s=resumed_s,
+            uninterrupted_peak=full_peak, resumed_peak=peak,
+            uninterrupted_launches=full_launches, launches=launches,
+            launches_expected=int8_overlap_launches(resumed_modes),
+            mode_counts_resumed={m: resumed_modes.count(m) for m in sorted(set(resumed_modes))},
+            losses_identical=resumed.losses == want_losses,
+            carry_identical=carry_identical(resumed.carry, want_carry),
+            carry_tree_identical=tree_structure(resumed.carry) == want_tree,
+            first_loss=want_losses[0], last_loss=want_losses[-1])
+        faults = [what for what, bad in (
+            ("uninterrupted launches", full_launches != int8_overlap_launches(modes)),
+            ("launches", launches != row["launches_expected"]),
+            ("losses", not row["losses_identical"]),
+            ("carry", not row["carry_identical"]),
+            ("carry tree", not row["carry_tree_identical"]),
+            ("resume step", not 0 < k < RESUME_STEPS or len(resumed_modes) != RESUME_STEPS - k),
+            ("peak", peak > full_peak)) if bad]
+        del resumed, want_carry
+        if faults:
+            emit({**row, "failed": faults})
+            raise AssertionError(f"train_resume: {faults}")
+        emit(row)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del params0
+        torch.cuda.empty_cache()
+
+
 TRAIN_WHY = ("memory: the carry holds params, momentum and the in-flight buffer for "
              "4 replicas in f32")
 
@@ -1886,6 +2053,7 @@ def main():
     rgemma_launches = phase_serve_rgemma()
     rgemma_lines = rgemma_timing(rows, rglru_rows, rgemma_launches, reports)
     phase_train_check()
+    resume_launches = phase_train_resume()
     int8_per_step = phase_train_int8_overlap()
     int8_macro_launches = phase_train_macro_int8_overlap(int8_per_step)
     del int8_per_step["carry"]
@@ -1895,7 +2063,8 @@ def main():
     phase_timing(rows, serve_launches, {
         "train": trained["launches"], "train_macro": macro_launches,
         "train_int8_overlap": int8_per_step["launches"],
-        "train_macro_int8_overlap": int8_macro_launches}, arena_parts,
+        "train_macro_int8_overlap": int8_macro_launches,
+        "train_resume": resume_launches}, arena_parts,
         [scan_line] + rgemma_lines, reports)
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

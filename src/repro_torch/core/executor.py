@@ -649,7 +649,8 @@ def run_compiled_training(strategy: Strategy, params0, data_fn: Callable,
                           lr_fn: Callable, n_steps: int, *,
                           executor: Optional[MacroCycleExecutor] = None,
                           track_divergence: bool = False, start_step: int = 0,
-                          carry=None):
+                          carry=None, ckpt_every: int = 0,
+                          ckpt_cb: Optional[Callable] = None):
     """Macro-cycle counterpart of `simulator.run_per_step_training`: plans
     cycles with the strategy, stages each cycle's batches and runs one
     program per cycle, the same numbers as the per-step path bit for bit.
@@ -657,10 +658,19 @@ def run_compiled_training(strategy: Strategy, params0, data_fn: Callable,
     `track_divergence` samples the replica divergence once per cycle (the
     per-step path samples every step); it is the library surface of
     `SimResult.divergence`, which the reference's own API offers and no
-    launcher sets. `start_step` and a `carry` continue a run whose
-    strategy's controller is already at that step: `run_training`'s
-    resume from a checkpoint sets them (the reference's `train/loop.py`;
-    ROADMAP item 11).
+    launcher sets.
+
+    Checkpoints and resume (`train/loop.py` sets these from
+    `TrainLoopConfig.ckpt_every` / `resume_from`): `start_step` and a
+    restored `carry` continue a run whose strategy's controller is already
+    at that step; `ckpt_cb(completed_steps, carry, losses)` fires at the
+    first cycle boundary at or past each multiple of `ckpt_every`, where an
+    uninterrupted run also plans a new cycle, so a run resumed there gives
+    the same numbers. The carry stays in the executor's one-element slot
+    while the callback reads it (the callback keeps no reference to it);
+    the current stream first waits for the exchange stream, so no leaf is
+    copied while an overlap exchange could still write it.
+
     `SimResult.cycles` lists each cycle's shape and its host seconds
     (`dispatch_planned_cycle`); `step_seconds` gives each step its cycle's
     seconds over the cycle's length."""
@@ -675,6 +685,7 @@ def run_compiled_training(strategy: Strategy, params0, data_fn: Callable,
     seconds: List[float] = []
     cycles: List[Tuple[CycleShape, float]] = []
     step = start_step
+    next_ckpt = (start_step // ckpt_every + 1) * ckpt_every if ckpt_every else None
     while step < n_steps:
         plan = strategy.plan_cycle(step, min(ex.max_cycle_len, n_steps - step))
         carry, cycle_losses, per_step_metrics, dt = dispatch_planned_cycle(
@@ -691,6 +702,11 @@ def run_compiled_training(strategy: Strategy, params0, data_fn: Callable,
         slot.append(carry)
         del carry
         step += len(plan)
+        if next_ckpt is not None and ckpt_cb is not None and step >= next_ckpt:
+            if ex.exchange_stream is not None:
+                torch.cuda.current_stream().wait_stream(ex.exchange_stream)
+            ckpt_cb(step, slot[0], losses)
+            next_ckpt = (step // ckpt_every + 1) * ckpt_every
     carry = slot.pop()
     return SimResult(losses=losses, metrics=metrics_log,
                      params=strategy.finalize_params(carry),

@@ -43,13 +43,20 @@ class SimResult:
 
 def run_per_step_training(strategy, params0, data_fn: Callable,
                           lr_fn: Callable, n_steps: int, *,
-                          track_divergence: bool = False) -> SimResult:
+                          track_divergence: bool = False, start_step: int = 0,
+                          carry=None, ckpt_every: int = 0,
+                          ckpt_cb: Optional[Callable] = None) -> SimResult:
     """One step variant per training step, modes decided step by step
     (`strategy.next_mode`), each loss fed back (`strategy.observe`).
-    `track_divergence` samples the replica divergence after every step."""
-    carry = strategy.init_carry(params0)
+    `track_divergence` samples the replica divergence after every step.
+
+    `start_step` and a restored `carry` continue a run whose strategy's
+    controller is already at that step; `ckpt_cb(completed_steps, carry,
+    losses)` fires after every `ckpt_every`-th step (`train/loop.py` sets
+    them for checkpoints and resume, as the reference's does)."""
+    carry = strategy.init_carry(params0) if carry is None else carry
     losses, metrics_log, seconds, divs = [], [], [], []
-    for step in range(n_steps):
+    for step in range(start_step, n_steps):
         batch, lr = data_fn(step), lr_fn(step)
         t0 = time.perf_counter()
         mode, stale = strategy.next_mode(step)
@@ -63,6 +70,8 @@ def run_per_step_training(strategy, params0, data_fn: Callable,
             d = strategy.divergence(carry)
             if d is not None:
                 divs.append(d)
+        if ckpt_every and ckpt_cb is not None and (step + 1) % ckpt_every == 0:
+            ckpt_cb(step + 1, carry, losses)
     return SimResult(losses=losses, metrics=metrics_log,
                      params=strategy.finalize_params(carry),
                      sync_fraction=strategy.sync_fraction(),

@@ -7,14 +7,20 @@
   python -m repro_torch.launch.serve --arch recurrentgemma-9b --full --batch 4 \
       --prompt-len 1024 --max-new 32
 
+  # trained parameters, from either package's checkpoint (a launcher's
+  # --ckpt DIR); they must fit the --arch / --full config
+  python -m repro_torch.launch.serve --ckpt DIR --device cpu
+
 Runs on CUDA unless --device cpu is given. Without --full it serves the
-reduced config. Weights are random, drawn from --seed.
+reduced config. Without --ckpt the weights are random, drawn from --seed;
+the prompts are drawn from --seed either way.
 """
 import argparse
 import time
 
 import torch
 
+from repro_torch.checkpoint.io import fit_tree, load_checkpoint
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.models.lm import init_params
 from repro_torch.serve.engine import Engine, resolve_device
@@ -27,6 +33,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=64)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--ckpt", default=None,
+                    help="a params checkpoint directory (either package's)")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -35,7 +43,13 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_params(cfg, gen, device)
+    if args.ckpt:
+        loaded, manifest = load_checkpoint(args.ckpt, device=device)
+        params = fit_tree(init_params(cfg, torch.Generator(), "meta"), loaded,
+                          what="the config")
+        print(f"[serve] restored checkpoint step={manifest['step']}")
+    else:
+        params = init_params(cfg, gen, device)
     eng = Engine(cfg, params, max_len=args.prompt_len + args.max_new,
                  device=device)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),

@@ -14,9 +14,18 @@ step per dispatch.
   PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \\
       --wire-format int8 --overlap one_cycle [--overlap-serial-exchange]
 
-The reference's other flags (checkpoints, fault plans, topology, tracing,
-the multi-process runtime) are not ported yet: each is refused with the
-ROADMAP item that will port it.
+  # checkpoints: a TrainState every 20 steps in DIR/step_XXXXXXXX/, the
+  # final params in DIR; then resume one of them (the same numbers as the
+  # uninterrupted run, bit for bit)
+  PYTHONPATH=src python -m repro_torch.launch.train --tiny --steps 60 \\
+      --ckpt DIR --ckpt-every 20
+  PYTHONPATH=src python -m repro_torch.launch.train --tiny --steps 60 \\
+      --ckpt DIR --resume DIR/step_00000020
+
+Either package loads the other's checkpoints (`checkpoint/io.py`).
+The reference's other flags (the per-leaf exchange, fault plans, topology,
+tracing, autotune, the multi-process runtime) are not ported yet: each is
+refused with the ROADMAP item that will port it.
 """
 import argparse
 import dataclasses
@@ -26,6 +35,7 @@ import sys
 
 import torch
 
+from repro_torch.checkpoint.io import save_checkpoint
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import MAMBA, RGLRU
 from repro_torch.core.executor import list_strategies
@@ -39,8 +49,7 @@ from repro_torch.train.step import make_lm_loss
 # flags of the reference launcher that wait for a later part of the port,
 # with the ROADMAP item that ports them
 LATER_FLAGS = {
-    "--exchange-impl": 7, "--dispatch": 16, "--topology": 13,
-    "--ckpt": 11, "--ckpt-every": 11, "--resume": 11, "--fault-plan": 15,
+    "--exchange-impl": 7, "--dispatch": 16, "--topology": 13, "--fault-plan": 15,
     "--autotune": 18, "--autotune-every": 18, "--trace-out": 17,
     "--distributed": 16, "--coordinator": 16, "--procs": 16, "--proc-id": 16,
 }
@@ -92,9 +101,21 @@ def parse_args(argv=None):
     ap.add_argument("--tiny", action="store_true",
                     help="shrink the reduced config to quickstart scale (2 "
                          "layers, d_model 128, vocab 256)")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory: the final params always land "
+                         "here; with --ckpt-every, TrainStates in step_XXXXXXXX/")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save a resumable TrainState every N steps (requires "
+                         "--ckpt)")
+    ap.add_argument("--resume", default=None, metavar="STATE_DIR",
+                    help="resume from a TrainState directory written by "
+                         "--ckpt-every (by either package)")
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.ckpt_every and not args.ckpt:
+        ap.error("--ckpt-every requires --ckpt")
+    return args
 
 
 def build_config(args):
@@ -134,7 +155,9 @@ def main(argv=None):
         local_world=args.local_world, b_max=args.b_max, lr=args.lr,
         executor=args.executor, max_cycle_len=args.max_cycle_len,
         wire_format=args.wire_format, overlap=args.overlap,
-        overlap_serial_exchange=args.overlap_serial_exchange, device=str(device))
+        overlap_serial_exchange=args.overlap_serial_exchange,
+        ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt, resume_from=args.resume,
+        device=str(device))
     lr_fn = warmup_linear_scaled(args.lr / (R * args.local_world), R * args.local_world,
                                  max(1, args.steps // 10))
     result = run_training(make_lm_loss(cfg), params0,
@@ -146,6 +169,9 @@ def main(argv=None):
               f"{args.steps} steps ({stats.compiles} compiled cycle shapes, "
               f"{stats.fallback_steps} tail-fallback steps, "
               f"{stats.invalidations} invalidations)")
+    if args.ckpt:
+        save_checkpoint(args.ckpt, result.params, step=args.steps)
+        print(f"[train] checkpoint -> {args.ckpt}")
     if args.metrics_out:
         os.makedirs(os.path.dirname(args.metrics_out) or ".", exist_ok=True)
         metrics = {"losses": result.losses, "sync_fraction": result.sync_fraction,

@@ -9,14 +9,24 @@ the schedule's sync fraction, on one of two executors:
   * ``executor="per_step"``: one step per dispatch (core/simulator.py), the
     path the macro executor is held to bit for bit.
 
+Checkpoints (`checkpoint/io.py`): with `ckpt_every` and `ckpt_dir` a
+resumable `TrainState` (carry, controller state, loss trace) lands in
+`ckpt_dir/step_XXXXXXXX/`, on a cycle boundary on the macro executor and
+every `ckpt_every` steps on the per-step one; `resume_from` continues from
+one with the uninterrupted run's numbers bit for bit, and the returned loss
+trace is the whole run's.
+
 Runs on CUDA unless `device="cpu"`, and raises without CUDA.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+from repro_torch.checkpoint.io import (TrainState, fit_tree, load_train_state,
+                                       save_train_state)
 from repro_torch.core.compression import transfer_bytes
 from repro_torch.core.daso import DasoConfig
 from repro_torch.core.executor import (MacroCycleExecutor, get_strategy, list_strategies,
@@ -25,7 +35,7 @@ from repro_torch.core.simulator import SimResult, run_per_step_training
 from repro_torch.device import resolve_device
 from repro_torch.optim.optimizers import Optimizer, sgd
 from repro_torch.optim.schedules import constant_lr
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 
 
 @dataclass
@@ -51,6 +61,11 @@ class TrainLoopConfig:
     # the macro executor waits for each overlap exchange before the cycle's
     # local steps: the same numbers, and the exchange's own time
     overlap_serial_exchange: bool = False
+    # checkpoints: every `ckpt_every` steps (0 = off) a TrainState lands in
+    # `ckpt_dir/step_XXXXXXXX/`; `resume_from` names one such directory
+    ckpt_every: int = 0
+    ckpt_dir: Optional[str] = None
+    resume_from: Optional[str] = None
     device: str = "cuda"
 
 
@@ -80,6 +95,10 @@ def build_strategy(loss_fn: Callable, cfg: TrainLoopConfig, optimizer: Optimizer
     return cls(loss_fn, optimizer, dcfg, controller=controller)
 
 
+def ckpt_step_dir(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
+
+
 def wire_summary(dcfg: DasoConfig, params) -> str:
     """The wire tier of the cycling and blocking exchanges, and the bytes one
     exchange of one replica's params puts on the wire at each."""
@@ -96,7 +115,9 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
                  log: Optional[Callable] = print) -> SimResult:
     """data_fn(step) -> batch on cfg.device. For the daso strategy the batch
     carries the leading replica axis; for sync it is flat. params0 must
-    already be on cfg.device."""
+    already be on cfg.device. On resume (`cfg.resume_from`) the returned
+    loss trace is the whole run's: the checkpoint's losses, then this
+    run's."""
     device = resolve_device(cfg.device)
     if cfg.executor not in ("macro", "per_step"):
         raise ValueError(f"unknown executor {cfg.executor!r}; "
@@ -107,14 +128,58 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
     optimizer = optimizer or sgd(momentum=0.9, weight_decay=1e-4)
     lr_fn = lr_fn or constant_lr(cfg.lr)
     strategy = build_strategy(loss_fn, cfg, optimizer)
+    overlap = cfg.overlap if cfg.strategy != "sync" else "off"
+
+    # the loaded carry, handed over by `loaded.pop()` in the call, so that no
+    # frame here keeps it alive once the executor has stepped past it
+    start_step, loaded, prior_losses = 0, [], []
+    if cfg.resume_from:
+        # fallback: a crash mid-save leaves the newest snapshot torn; resume
+        # from the newest intact sibling instead
+        ts = load_train_state(cfg.resume_from, device=device, expect_overlap=overlap,
+                              fallback=True)
+        if ts.strategy != cfg.strategy:
+            raise ValueError(f"checkpoint was written by strategy {ts.strategy!r}, "
+                             f"run requests {cfg.strategy!r}")
+        if ts.membership is not None:
+            raise NotImplementedError("the checkpoint carries an elastic membership "
+                                      "mask, which is not ported yet (ROADMAP item 15)")
+        start_step, prior_losses = ts.step, list(ts.losses)
+        # held to this run's carry, built on the meta device (no memory), so
+        # a shape that differs raises and empty containers come back
+        like = strategy.init_carry(tree_map(lambda x: x.to("meta"), params0))
+        loaded.append(fit_tree(like, ts.carry, "carry/", what="this run's carry"))
+        if ts.controller is not None and strategy.controller is not None:
+            strategy.controller.load_state_dict(ts.controller)
+        del ts
+        if log is not None:
+            log(f"[train] resumed from {cfg.resume_from} at step {start_step}")
+
+    ckpt_cb = None
+    if cfg.ckpt_every and cfg.ckpt_dir:
+        def ckpt_cb(step, cur_carry, seg_losses):
+            save_train_state(ckpt_step_dir(cfg.ckpt_dir, step), TrainState(
+                step=step, carry=cur_carry,
+                controller=(strategy.controller.state_dict()
+                            if strategy.controller is not None else None),
+                strategy=cfg.strategy, overlap=overlap,
+                losses=prior_losses + seg_losses))
+
     t0 = time.time()
     if cfg.executor == "per_step":
-        result = run_per_step_training(strategy, params0, data_fn, lr_fn, cfg.n_steps)
+        result = run_per_step_training(
+            strategy, params0, data_fn, lr_fn, cfg.n_steps, start_step=start_step,
+            carry=loaded.pop() if loaded else None, ckpt_every=cfg.ckpt_every,
+            ckpt_cb=ckpt_cb)
     else:
         executor = MacroCycleExecutor(strategy, max_cycle_len=cfg.max_cycle_len,
                                       serial_exchange=cfg.overlap_serial_exchange)
-        result = run_compiled_training(strategy, params0, data_fn, lr_fn, cfg.n_steps,
-                                       executor=executor)
+        result = run_compiled_training(
+            strategy, params0, data_fn, lr_fn, cfg.n_steps, executor=executor,
+            start_step=start_step, carry=loaded.pop() if loaded else None,
+            ckpt_every=cfg.ckpt_every, ckpt_cb=ckpt_cb)
+    if prior_losses:
+        result.losses = prior_losses + result.losses
     if log is not None:
         stats = result.executor_stats
         disp = (f" dispatches={stats.dispatches}/{cfg.n_steps}"

@@ -231,3 +231,38 @@ def test_replica_mean_keeps_subnormals_where_jax_cpu_flushes(wire):
     np.testing.assert_array_equal(_bits(want), np.broadcast_to(_bits(mean(True)), (4, 5)))
     split = _bits(got[0]) != _bits(want[0])
     np.testing.assert_array_equal(split, [True, False, True, False, True])
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+def test_fused_mean_splits_from_the_reference_per_leaf_mean_on_subnormals(wire):
+    """The reference's per-leaf mean (impl="per_leaf") flushes subnormals as
+    its fused mean does; the port's fused mean keeps them, so it splits
+    from the per-leaf one where it splits from the fused one."""
+    rows = np.float32([[1e-39, 1.0, 3e-39, 1.2e-38, 2e-38],
+                       [1e-39, 1.0, 1e-39, 1.2e-38, -1.5e-38],
+                       [1e-39, 1.0, -1e-39, 1.2e-38, 0.0],
+                       [1e-39, 1.0, 2e-39, 1.2e-38, 0.0]])
+    jw = {"w": jnp.asarray(rows)}
+    got = daso.replica_mean({"w": torch.from_numpy(rows)}, wire_format=wire)["w"]
+    want = jdaso.replica_mean(jw, wire_format=wire, impl="per_leaf")["w"]
+    np.testing.assert_array_equal(_bits(want),
+                                  _bits(jdaso.replica_mean(jw, wire_format=wire)["w"]))
+    split = _bits(got[0]) != _bits(want[0])
+    np.testing.assert_array_equal(split, [True, False, True, False, True])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_merge_keeps_subnormals_where_the_reference_per_leaf_merge_flushes(dtype):
+    x, y = _as_f32(SUB_X, dtype), _as_f32(SUB_Y, dtype)
+    s2, p, d = np.float32(2), np.float32(16), np.float32(18)
+    ieee = _to((s2 * x + p * y) / d, dtype)
+    flushed = _to(_ftz(_ftz(_ftz(s2 * _ftz(x)) + _ftz(p * _ftz(y))) / d), dtype)
+    tx, ty = (torch.from_numpy(x).to(getattr(torch, dtype)),
+              torch.from_numpy(y).to(getattr(torch, dtype)))
+    got = daso.global_receive({"w": tx}, {"w": ty}, staleness=1, global_world=16)["w"]
+    np.testing.assert_array_equal(_bits(got), _bits(ieee))
+    want = jdaso.global_receive_per_leaf(
+        {"w": jnp.asarray(_to(x, dtype))}, {"w": jnp.asarray(_to(y, dtype))}, staleness=1,
+        global_world=16)["w"]
+    np.testing.assert_array_equal(_bits(want), _bits(flushed))
+    np.testing.assert_array_equal(_bits(want) != _bits(ieee), SUBNORMAL_AT)

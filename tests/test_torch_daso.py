@@ -4,7 +4,10 @@ llama3.2-1b-family model with R = 4 replicas:
 
   * the exchange functions (`replica_mean`, `global_send`,
     `global_receive`, `blocking_sync`) bit-exact on the same carry against
-    the reference's default (plain) tier;
+    the reference's default (plain) tier, and against the reference's
+    per-leaf forms (`impl="per_leaf"`) and a per-leaf oracle built here
+    from the port's plain pieces; the reference's per-leaf mean of integer
+    leaves (zeros) kept visible beside the port's;
   * one step of each of the six modes, and `sync_train_step`: params,
     optimizer state and loss within 1e-5 (f32; the two frameworks sum in
     different orders inside the model);
@@ -29,11 +32,12 @@ from repro.optim.optimizers import sgd as jax_sgd
 from repro.train.step import make_lm_loss as jax_make_lm_loss
 from repro_torch.configs import get_reduced
 from repro_torch.convert import params_from_jax, state_from_jax
-from repro_torch.core import daso, schedule
+from repro_torch.core import daso, flatbuf, schedule
 from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.kernels.ref import eq1_merge_ref
 from repro_torch.optim.optimizers import sgd
 from repro_torch.train.step import make_lm_loss
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 
 R, PER, SEQ = 4, 2, 16
 STEP_ATOL = 1e-5
@@ -147,6 +151,94 @@ def test_unported_options_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 13"):
         daso.daso_train_step(None, sgd(), cfg, mode="local", inner_syncs=(("host", 2),))
     assert cfg.exchange_kernels and cfg.wire_format_for(blocking=True) == "bf16"
+
+
+# -- the fused exchange against the per-leaf one: bit-exact ------------------------
+
+def _tree_of(problem, tree):
+    """The carry's params or in-flight buffer, in f32 or cast to bf16."""
+    params, _, inflight = problem["jax"]
+    t = params if tree.startswith("params") else inflight
+    if tree.endswith("bf16"):
+        t = jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)), t)
+    return t
+
+
+def _bits(t):
+    t = t.contiguous().reshape(-1)
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def _assert_same_bits(a_tree, b_tree):
+    a, b = leaves(a_tree), leaves(b_tree)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        assert torch.equal(_bits(x), _bits(y))
+
+
+def _per_leaf_mean(tree, wire_dtype):
+    """The reference's per-leaf mean (`repro/core/daso.py:219-229`) from the
+    port's plain pieces: each leaf cast to the wire dtype, reduced by the
+    fused path's chain of adds in replica order, cast back."""
+    return tree_map(lambda x: flatbuf.masked_axis0_mean(x.to(wire_dtype or x.dtype))
+                    .to(x.dtype).expand(x.shape), tree)
+
+
+@pytest.mark.parametrize("tree", ["params", "inflight", "params_bf16"])
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+def test_fused_mean_send_and_blocking_equal_the_per_leaf_exchange(problem, wire, tree):
+    """The fused `replica_mean`, `global_send` and `blocking_sync` (one
+    arena, the wire cast through K3's plain version) against the
+    reference's impl="per_leaf" forms and the per-leaf oracle above, bit
+    for bit on normal f32 and bf16 leaves."""
+    t = _tree_of(problem, tree)
+    jp, tp = jax.tree.map(jnp.asarray, t), _port(t)
+    oracle = _per_leaf_mean(tp, torch.bfloat16 if wire == "bf16" else None)
+    for name in ("replica_mean", "global_send", "blocking_sync"):
+        got = getattr(daso, name)(tp, wire_format=wire)
+        _assert_same_bits(got, _port(_np_tree(getattr(jdaso, name)(
+            jp, wire_format=wire, impl="per_leaf"))))
+        _assert_same_bits(got, oracle)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("global_world", [16, 5])
+@pytest.mark.parametrize("staleness,extra", [(1, 0), (3, 1)])
+def test_fused_receive_equals_the_per_leaf_merge(problem, staleness, extra, global_world,
+                                                 dtype):
+    """The fused Eq. (1) merge (one K2 plain-version call per arena) against
+    the reference's `global_receive_per_leaf` and `eq1_merge_ref` leaf by
+    leaf, bit for bit."""
+    params, _, inflight = problem["jax"]
+    if dtype == "bfloat16":
+        params, inflight = (jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)), t)
+                            for t in (params, inflight))
+    kw = dict(staleness=staleness, global_world=global_world, extra_staleness=extra)
+    want = jdaso.global_receive_per_leaf(jax.tree.map(jnp.asarray, params),
+                                         jax.tree.map(jnp.asarray, inflight), **kw)
+    got = daso.global_receive(_port(params), _port(inflight), **kw)
+    _assert_same_bits(got, _port(_np_tree(want)))
+    _assert_same_bits(got, tree_map(lambda a, b: eq1_merge_ref(a, b, **kw),
+                                    _port(params), _port(inflight)))
+
+
+def test_per_leaf_mean_of_integer_leaves_zeroes_in_the_reference():
+    """A reference hazard (ROADMAP §3): on the f32 wire the reference's
+    per-leaf mean reduces an integer leaf in its own dtype, where 1 / R
+    rounds to 0, so every mean is 0; its fused mean takes it in f32 and
+    rounds, as the port's does."""
+    i = np.arange(8, dtype=np.int32).reshape(4, 2)
+    want_fused = np.broadcast_to(np.int32([3, 4]), (4, 2))
+    ref_leaf = np.asarray(jdaso.replica_mean_per_leaf({"i": jnp.asarray(i)})["i"])
+    ref_fused = np.asarray(jdaso.replica_mean({"i": jnp.asarray(i)})["i"])
+    np.testing.assert_array_equal(ref_leaf, np.zeros((4, 2), np.int32))
+    np.testing.assert_array_equal(ref_fused, want_fused)
+    got = daso.replica_mean({"i": torch.from_numpy(i)})["i"]
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want_fused)
 
 
 # -- one step of each mode ------------------------------------------------------

@@ -18,7 +18,11 @@ tests/test_overlap.py), and against the port's own per-step path:
     and `serial_exchange` changing no number;
   * `microbatched_value_and_grad` at n_micro 1, 2 and 4 and
     `replica_divergence` against JAX's within 1e-6, `track_divergence` on
-    both executors.
+    both executors;
+  * the port's fused exchange on a 5-leaf model against JAX's per-leaf
+    exchange (`exchange_impl="per_leaf"`, the reference's oracle) on both
+    executors, overlap off and one_cycle: losses within rtol 1e-4, the
+    same mode history.
 
 The problem is tests/conftest.py's MLP made with numpy: params {"w1",
 "w2"}, batches drawn per step from a seeded generator, the same arrays
@@ -196,6 +200,81 @@ def test_n_micro_daso_run_matches_jax():
     tres = _run("daso", 40, n_micro=2)
     _assert_close_to_jax(tres, jres)
     assert _stats(tres.executor_stats) == _stats(jres.executor_stats)
+
+
+# -- the fused exchange against JAX's per-leaf exchange ---------------------------------
+
+def _multi_leaf_problem(seed, R=2, per=8, d=6):
+    """tests/test_executor.py::_multi_leaf_problem made with numpy: 5 leaves
+    in 2 nested dicts, so the fused arena coalesces leaves."""
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, s=0.3):
+        return (s * rng.standard_normal(shape)).astype(np.float32)
+
+    params0 = {"emb": w(d, 12), "mlp": {"w1": w(12, 8), "b1": w(8, s=0.1), "w2": w(8, 1)},
+               "scale": w(1, s=0.1)}
+    wtrue = w(d, 1, s=1.0)
+
+    def batch(step):
+        x = np.random.default_rng((seed, step)).standard_normal((R, per, d)).astype(np.float32)
+        return {"x": x, "y": (np.tanh(x @ wtrue) * 0.5).astype(np.float32)}
+
+    def jloss(params, b):
+        h = jnp.tanh(b["x"] @ params["emb"])
+        h = jnp.tanh(h @ params["mlp"]["w1"] + params["mlp"]["b1"])
+        return jnp.mean((h @ params["mlp"]["w2"] * (1.0 + params["scale"]) - b["y"]) ** 2), {}
+
+    def tloss(params, b):
+        h = torch.tanh(b["x"] @ params["emb"])
+        h = torch.tanh(h @ params["mlp"]["w1"] + params["mlp"]["b1"])
+        return torch.mean((h @ params["mlp"]["w2"] * (1.0 + params["scale"]) - b["y"]) ** 2), {}
+
+    return params0, batch, jloss, tloss
+
+
+def _run_multi_leaf(framework, executor_kind, overlap, n_steps=40):
+    """JAX with its per-leaf exchange, the port with its fused one."""
+    params0, batch, jloss, tloss = _multi_leaf_problem(7)
+    kw = dict(n_replicas=2, global_world=8, b_max=4, warmup_steps=4, cooldown_steps=4,
+              total_steps=n_steps, overlap=overlap)
+    if framework == "jax":
+        cfg = jdaso.DasoConfig(exchange_impl="per_leaf", **kw)
+        strat = jexecutor.make_strategy("daso", jloss, jopt.sgd(momentum=0.9, weight_decay=1e-4),
+                                        cfg, controller=jschedule.DasoController(
+                                            cfg, loss_window=10))
+        args = (strat, jax.tree.map(jnp.asarray, params0), _data(lambda t, f: batch(t), False,
+                                                                 "jax"),
+                jax_constant_lr(0.1), n_steps)
+        return (jax_run_per_step(*args) if executor_kind == "per_step"
+                else jexecutor.run_compiled_training(*args))
+    cfg = daso.DasoConfig(**kw)
+    strat = executor.make_strategy("daso", tloss, sgd(momentum=0.9, weight_decay=1e-4), cfg,
+                                   controller=schedule.DasoController(cfg, loss_window=10))
+    args = (strat, {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else
+                        {kk: torch.from_numpy(vv) for kk, vv in v.items()})
+                    for k, v in params0.items()},
+            _data(lambda t, f: batch(t), False, "torch"), constant_lr(0.1), n_steps)
+    return (run_per_step_training(*args) if executor_kind == "per_step"
+            else executor.run_compiled_training(*args))
+
+
+@pytest.mark.parametrize("overlap", ["off", "one_cycle"])
+@pytest.mark.parametrize("executor_kind", ["macro", "per_step"])
+def test_fused_training_matches_jax_per_leaf_training(executor_kind, overlap):
+    """tests/test_executor.py:91's twin across the packages: on a 5-leaf
+    model, with the default wire tiers (f32 cycling, bf16 blocking), the
+    port's fused training gives JAX's per-leaf run within rtol 1e-4 (the
+    loss trace) and the reference's parameter tolerances, with the same
+    mode history."""
+    fused = _run_multi_leaf("torch", executor_kind, overlap)
+    jres = _run_multi_leaf("jax", executor_kind, overlap)
+    np.testing.assert_allclose(np.asarray(fused.losses, np.float32),
+                               np.asarray(jres.losses, np.float32), rtol=1e-4)
+    for a, b in zip(leaves(fused.params), jax.tree.leaves(jres.params), strict=True):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=PARAM_RTOL, atol=PARAM_ATOL)
+    assert [h[1:] for h in fused.controller.history] == \
+        [h[1:] for h in jres.controller.history]
 
 
 # -- dispatch reduction -----------------------------------------------------------------

@@ -222,10 +222,11 @@ def test_launcher_trains_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--ckpt", "d"], SystemExit, "item 11"),
+    (["--fault-plan", "plan.json"], SystemExit, "item 15"),
     (["--topology=chip:4 x pod:2"], SystemExit, "item 13"),
     (["--distributed"], SystemExit, "item 16"),
     (["--exchange-impl", "per_leaf"], SystemExit, "item 7"),
+    (["--trace-out", "t.jsonl"], SystemExit, "item 17"),
 ])
 def test_launcher_refuses_unported_flags(argv, err, match):
     with pytest.raises(err, match=match):
