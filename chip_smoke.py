@@ -94,6 +94,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                per step, programs built, ms per step by cycle shape beside
                the per-step medians, the legs, the hidden fraction 1 -
                visible / blocking, peak memory
+  train_topo, train_macro_topo
+               the train cell on the 3-level topology chip:4 x host:2@50e9 x
+               pod:2@25e9 (R = 4, P = 16; the host pairs {0, 1} and {2, 3}
+               average their params every B_host = 2 steps between the pod
+               level's exchanges), per-step and through the macro-cycle
+               executor: K2 / K3 launches held to the pod level's receive
+               and blocking steps (the inner syncs launch neither), the host
+               syncs counted once per token that carries the host level,
+               the host pairs' rows bit for bit after every host step (per
+               step, checked outside the timed steps), the two executors'
+               history and final carry (params and momentum of every
+               replica) bit for bit; step ms by mode token and the inner
+               sync's cost (local+host less local), ms per cycle shape,
+               dispatches per step, peak memory
+  train_topo_int8_overlap, train_macro_topo_int8_overlap
+               the same topology with the int8 wire and the one_cycle
+               overlap, per-step and macro (each overlap cycle's inner
+               syncs run in its local steps on the current stream while
+               its exchange runs on the executor's stream): the whole carry
+               (params, momentum, in-flight and pending of every replica)
+               and the history bit for bit between the two, K2 / K5 / K6
+               launches as the pod level's modes imply
   train        run_training with DASO on llama3.2-1b at full width, 4 of its
                16 layers, f32, R = 4 replicas: 40 steps on the per-step
                executor, K2 and K3 launches held to the schedule's receive
@@ -103,6 +125,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                every replica) bit for bit the train phase's, the same K2 and
                K3 launches; dispatches per step, programs built, fallback
                steps, ms per step by cycle shape, peak memory
+  train_topo_2level
+               the train cell on the 2-level spec chip:4 x pod:4 through the
+               macro-cycle executor: the stock strategy and controller, and
+               train_macro's final carry and losses bit for bit
   arena        K2 to K6 held bit-exact against their plain versions on the
                final carry's parameter and momentum arenas (4 x N f32); a
                wire_roundtrip of the parameters launches K3 and K4
@@ -152,7 +178,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import compression, daso, flatbuf  # noqa: E402
 from repro_torch.core.executor import DasoStrategy, shape_sync_counts  # noqa: E402
-from repro_torch.core.schedule import split_ov  # noqa: E402
+from repro_torch.core.schedule import split_mode, split_ov  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.comm_kernels import (bf16_pack_fwd, bf16_unpack_fwd,  # noqa: E402
@@ -1288,28 +1314,45 @@ def shape_name(shape):
     return ",".join(m if s == 1 else f"{m}@{s}" for m, s in shape)
 
 
+def outer_mode(token):
+    """The outermost level's base action of a mode token: "receive+host" ->
+    "receive", "ov_sync~3+host" -> "ov_sync"."""
+    return split_ov(split_mode(token)[0])[0]
+
+
 def cycle_rows(res):
     """The macro path's host ms per step of each cycle (its wall over its
     length), by cycle shape, with the shape's outer syncs."""
     by_shape = {}
     for shape, sec in res.cycles:
         by_shape.setdefault(shape, []).append(1e3 * sec / len(shape))
-    return {shape_name(shape): {"cycles": len(v), "outer_syncs": shape_sync_counts(shape)["_outer"],
-                                "ms_per_step_median": statistics.median(v),
-                                "ms_per_step_all": v}
-            for shape, v in by_shape.items()}
+    rows = {}
+    for shape, v in by_shape.items():
+        syncs = shape_sync_counts(shape)
+        rows[shape_name(shape)] = {
+            "cycles": len(v), "outer_syncs": syncs.pop("_outer"), "inner_syncs": syncs,
+            "ms_per_step_median": statistics.median(v), "ms_per_step_all": v}
+    return rows
 
 
-def run_train_phase(name, loop_options, why_reduced):
+def run_train_phase(name, loop_options, why_reduced, on_batch=None):
     """run_training with DASO at llama3.2-1b's published widths, 4 layers,
     f32, R = 4; the counts are set to 0 just before and read just after.
-    Returns (result, its row, launch counts, base modes). The per-step
-    executor's row has the step ms by mode, the macro executor's its
-    ExecutorStats and the ms per step by cycle shape."""
+    Returns (result, its row, launch counts, the outermost level's base
+    modes). The per-step executor's row has the step ms by mode token, the
+    macro executor's its ExecutorStats and the ms per step by cycle shape.
+    `on_batch(step)` runs as each step's batch is made, before the step's
+    clock starts."""
     cfg = train_config(TRAIN_LAYERS)
     params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(x.numel() for x in leaves(params0))
     data = replica_data(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, seed=0))
+    if on_batch is not None:
+        make_batch = data
+
+        def data(step):
+            on_batch(step)
+            return make_batch(step)
     loop_cfg = TrainLoopConfig(strategy="daso", n_steps=TRAIN_STEPS, n_replicas=TRAIN_R,
                                local_world=TRAIN_LOCAL_WORLD, b_max=TRAIN_B_MAX,
                                lr=TRAIN_LR, device="cuda", **loop_options)
@@ -1342,6 +1385,8 @@ def run_train_phase(name, loop_options, why_reduced):
            "lr": TRAIN_LR, "optimizer": "sgd(0.9, 1e-4)", "seq_len": TRAIN_SEQ,
            "seqs_per_replica": TRAIN_PER, "steps": TRAIN_STEPS,
            "mode_counts": {m: modes.count(m) for m in sorted(set(modes))},
+           "controller": type(res.controller).__name__,
+           "level_sync_counts": res.controller.level_sync_counts(),
            "launches": launches,
            "sync_fraction": res.sync_fraction,
            "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
@@ -1361,7 +1406,7 @@ def run_train_phase(name, loop_options, why_reduced):
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         emit({**row, "failed": "loss"})
         raise AssertionError(f"{name} losses {losses[0]} -> {losses[-1]}")
-    return res, row, launches, [split_ov(m)[0] for m in modes], params0
+    return res, row, launches, [outer_mode(m) for m in modes], params0
 
 
 def check_launches(row, launches, want):
@@ -1686,7 +1731,8 @@ def phase_train():
 def phase_train_macro(trained):
     """The train cell through the macro-cycle executor: its final carry
     (params and momentum of every replica) bit for bit the per-step carry
-    in `trained`, which stays on the card for the arena phase."""
+    in `trained`, which stays on the card for the arena phase. Returns its
+    launches and losses."""
     res, row, launches, modes, params0 = run_train_phase(
         "train_macro", {"executor": "macro"}, TRAIN_WHY)
     check_launches(row, launches, train_launches(modes))
@@ -1698,9 +1744,200 @@ def phase_train_macro(trained):
         emit({**row, "failed": "carry"})
         raise AssertionError("train_macro: the carry differs from the per-step carry")
     emit(row)
+    losses = res.losses
+    del res, params0, params_r, opt_r
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses}
+
+
+# The topology cells: 4 replicas in 2 pods of 2 hosts (R = 4, P = 16, the
+# train cell's sizes). The host links run at twice the pod links' rate, so
+# the lowering gives the host level B_host = round(4 * 25 / 50) = 2: the
+# pairs {0, 1} and {2, 3} average their params every second step, between
+# the pod level's DASO exchanges.
+TOPO_SPEC = "chip:4 x host:2@50e9 x pod:2@25e9"
+TOPO_2LEVEL = "chip:4 x pod:4"
+HOST_GROUPS = ((0, 1), (2, 3))
+
+
+def host_rows_identical(params_r):
+    """Replicas {0, 1} and {2, 3} hold bit-identical rows in every leaf."""
+    return all(same_bits(x[a], x[b]) for x in leaves(params_r) for a, b in HOST_GROUPS)
+
+
+@contextmanager
+def host_sync_checks():
+    """Hold, after every step whose token carries the host level, the host
+    groups' rows bit for bit (`host_rows_identical`). Each step variant's
+    output params are kept (no copy) and checked when the next step's batch
+    is made, before that step's clock starts, so no check lands in a timed
+    step; call it once more after the last step. Yields (check, results),
+    results one (step, identical) pair per host step."""
+    step_fn, last, results = DasoStrategy.step_fn, [], []
+
+    def spy(self, mode, staleness):
+        fn = step_fn(self, mode, staleness)
+
+        def run(carry, batch, lr):
+            out = fn(carry, batch, lr)
+            last[:] = [(mode, out[0][0])]
+            return out
+        return run
+
+    def check(step):
+        if last and "host" in split_mode(last[0][0])[1]:
+            results.append((step, host_rows_identical(last[0][1])))
+        last.clear()
+
+    DasoStrategy.step_fn = spy
+    try:
+        yield check, results
+    finally:
+        DasoStrategy.step_fn = step_fn
+        last.clear()
+
+
+def topo_holds(res, row, launches, want_launches):
+    """What every topology cell holds: the launches its outer modes imply
+    (inner syncs launch no kernel), and host syncs counted once per token
+    that carries the host level, at least one."""
+    tokens = [h[1] for h in res.controller.history]
+    n_host = sum("host" in split_mode(m)[1] for m in tokens)
+    row.update(host_tokens=n_host, launches_expected=want_launches)
+    return [what for what, bad in (
+        ("launches", launches != want_launches),
+        ("level_sync_counts", res.controller.level_sync_counts().get("host") != n_host
+         or n_host == 0)) if bad]
+
+
+def inner_sync_ms(row):
+    """Per-step medians: each token carrying the host level less the same
+    outer action without it (the inner sync's cost per step)."""
+    med = row["step_ms_median"]
+    return {m: med[m] - med[split_mode(m)[0]] for m in med
+            if split_mode(m)[1] and split_mode(m)[0] in med}
+
+
+def phase_train_topo():
+    """The 3-level topology through run_training on the per-step executor:
+    K2 / K3 launches as the pod level's modes imply, host syncs counted per
+    token, and after every host step the host groups' rows bit for bit.
+    Returns its history, launches and final carry (params and momentum of
+    every replica, copied to the host)."""
+    with host_sync_checks() as (check, checked):
+        res, row, launches, modes, params0 = run_train_phase(
+            "train_topo", {"executor": "per_step", "topology": TOPO_SPEC}, TRAIN_WHY,
+            on_batch=check)
+        check(TRAIN_STEPS)
+    faults = topo_holds(res, row, launches, train_launches(modes))
+    row.update(inner_sync_ms=inner_sync_ms(row), host_steps_checked=len(checked),
+               host_rows_identical=all(ok for _, ok in checked))
+    if len(checked) != row["host_tokens"] or not row["host_rows_identical"]:
+        faults.append(f"host rows after steps {[t for t, ok in checked if not ok]}")
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"train_topo: {faults}")
+    emit(row)
+    params_r, opt_r, _ = res.carry
+    carry = [x.cpu() for x in leaves((params_r, opt_r))]
+    history = [h[1] for h in res.controller.history]
+    del res, params0, params_r, opt_r
+    torch.cuda.empty_cache()
+    return {"launches": launches, "carry": carry, "history": history,
+            "step_ms_median": row["step_ms_median"]}
+
+
+def phase_train_macro_topo(per_step):
+    """The 3-level topology through the macro-cycle executor: the per-step
+    run's history tokens, its final carry (params and momentum of every
+    replica) bit for bit, the same launches."""
+    res, row, launches, modes, params0 = run_train_phase(
+        "train_macro_topo", {"executor": "macro", "topology": TOPO_SPEC}, TRAIN_WHY)
+    faults = topo_holds(res, row, launches, train_launches(modes))
+    row.update(per_step_ms_median=per_step["step_ms_median"],
+               history_identical_to_per_step=[h[1] for h in res.controller.history]
+               == per_step["history"],
+               carry_identical_to_per_step=carry_matches(res.carry, per_step["carry"]))
+    faults += [what for what in ("history", "carry")
+               if not row[f"{what}_identical_to_per_step"]]
+    if launches != per_step["launches"]:
+        faults.append("launches differ from the per-step run's")
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"train_macro_topo: {faults}")
+    emit(row)
+    del res, params0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_topo_2level(trained, macro):
+    """The 2-level spec chip:4 x pod:4 through the macro-cycle executor: it
+    lowers to the stock strategy and controller, so its final carry and
+    losses are train_macro's bit for bit (the carry held against the
+    per-step carry in `trained`, which train_macro matched)."""
+    res, row, launches, modes, params0 = run_train_phase(
+        "train_topo_2level", {"executor": "macro", "topology": TOPO_2LEVEL}, TRAIN_WHY)
+    check_launches(row, launches, train_launches(modes))
+    params_r, opt_r, _ = res.carry
+    row.update(
+        losses_identical_to_train_macro=res.losses == macro["losses"],
+        carry_identical_to_train_macro=all(
+            same_bits(a, b) for a, b in zip(leaves((params_r, opt_r)),
+                                            leaves(trained["carry"]), strict=True)))
+    faults = [what for what in ("losses", "carry")
+              if not row[f"{what}_identical_to_train_macro"]]
+    if row["controller"] != "DasoController" or launches != macro["launches"]:
+        faults.append("not the legacy path")
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"train_topo_2level: {faults}")
+    emit(row)
     del res, params0, params_r, opt_r
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_train_topo_int8_overlap():
+    """The 3-level topology with the int8 wire and the one_cycle overlap,
+    per-step and then through the macro-cycle executor, where each overlap
+    cycle's inner syncs run in its local steps on the current stream while
+    the exchange runs on the executor's stream: the whole carry (params,
+    momentum, in-flight and pending of every replica) bit for bit between
+    the two, the same history, K2 / K5 / K6 launches as the pod level's
+    modes imply. Returns both runs' launches."""
+    out, want = {}, None
+    for name, executor in (("train_topo_int8_overlap", "per_step"),
+                           ("train_macro_topo_int8_overlap", "macro")):
+        res, row, launches, modes, params0 = run_train_phase(
+            name, {"executor": executor, "topology": TOPO_SPEC, **INT8_OVERLAP},
+            INT8_OVERLAP_WHY)
+        faults = topo_holds(res, row, launches, int8_overlap_launches(modes))
+        history = [h[1] for h in res.controller.history]
+        if want is None:
+            row["inner_sync_ms"] = inner_sync_ms(row)
+            want = (history, host_carry(res.carry), row["step_ms_median"])
+        else:
+            st = res.executor_stats
+            row.update(per_step_ms_median=want[2],
+                       history_identical_to_per_step=history == want[0],
+                       carry_identical_to_per_step=carry_identical(res.carry, want[1]),
+                       steady_cycle_ms=steady_overlap_cycles(res),
+                       legs_ms={k: 1e3 * getattr(st, k) for k in OVERLAP_LEGS})
+            faults += [what for what in ("history", "carry")
+                       if not row[f"{what}_identical_to_per_step"]]
+            if st.overlap_cycles == 0:
+                faults.append("no overlap cycle")
+            if launches != out["train_topo_int8_overlap"]:
+                faults.append("launches differ from the per-step run's")
+        if faults:
+            emit({**row, "failed": faults})
+            raise AssertionError(f"{name}: {faults}")
+        emit(row)
+        out[name] = launches
+        del res, params0
+        torch.cuda.empty_cache()
+    return out
 
 
 def max_abs_err(a, b, chunk=1 << 27):
@@ -2057,14 +2294,21 @@ def main():
     int8_per_step = phase_train_int8_overlap()
     int8_macro_launches = phase_train_macro_int8_overlap(int8_per_step)
     del int8_per_step["carry"]
+    topo = phase_train_topo()
+    topo_macro_launches = phase_train_macro_topo(topo)
+    del topo["carry"]
+    topo_int8_launches = phase_train_topo_int8_overlap()
     trained = phase_train()
-    macro_launches = phase_train_macro(trained)
+    macro = phase_train_macro(trained)
+    topo_2level_launches = phase_train_topo_2level(trained, macro)
     arena_parts = phase_arena(trained)
     phase_timing(rows, serve_launches, {
-        "train": trained["launches"], "train_macro": macro_launches,
+        "train": trained["launches"], "train_macro": macro["launches"],
         "train_int8_overlap": int8_per_step["launches"],
         "train_macro_int8_overlap": int8_macro_launches,
-        "train_resume": resume_launches}, arena_parts,
+        "train_resume": resume_launches, "train_topo": topo["launches"],
+        "train_macro_topo": topo_macro_launches, "train_topo_2level": topo_2level_launches,
+        **topo_int8_launches}, arena_parts,
         [scan_line] + rgemma_lines, reports)
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

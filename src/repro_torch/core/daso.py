@@ -17,6 +17,11 @@ Step variants, selected per step by the controller (core/schedule.py):
                 cool-down)
   hard_avg      local + plain parameter average (local-SGD ablation)
 
+A mode token may carry inner-level syncs (``"send+host"``, an N-level
+topology, repro_torch/topo): the step functions take them as `inner_syncs`,
+(level name, group size) pairs, and run one `level_group_mean` per level
+after the local step and before the outer send.
+
 With `DasoConfig.overlap == "one_cycle"` the cycling phase runs the
 double-buffered family of `daso_overlap_step` instead (OV_MODES), whose
 carry holds a fourth slot, the `pending` snapshot awaiting its exchange.
@@ -26,10 +31,12 @@ exchange and merge, which it runs around them.
 
 The exchange math runs through the hand-written kernels: Eq. (1) through
 K2, the bf16 wire cast through K3, the int8 tier through K5 / K6
-(`kernels/ops.py`, which takes their plain versions for CPU tensors). Not
-ported yet, and raising NotImplementedError: the per-leaf exchange
-(`exchange_impl="per_leaf"`, ROADMAP item 7), inner-level syncs (item 13)
-and elastic membership (item 15).
+(`kernels/ops.py`, which takes their plain versions for CPU tensors). The
+inner-level group mean is plain torch, as the reference's is jnp: on the
+f32 wire it launches no kernel, on the bf16 wire its cast is K3. Not ported
+yet, and raising NotImplementedError: the per-leaf exchange
+(`exchange_impl="per_leaf"`, ROADMAP item 7) and elastic membership (item
+15).
 
 No step writes in place into a tensor it was given (only into outputs it
 allocated), so carries may share tensors, as the reference's immutable
@@ -152,6 +159,102 @@ def replica_mean(tree, *, wire_format: str = "f32", int8_block: int = 256):
     r = layout.batch_shape[0]
     return tree_map(lambda m: m.expand((r,) + m.shape[1:]),
                     flatbuf.unpack(means, layout))
+
+
+def normalize_group_perm(perm, n_replicas: int):
+    """Validate and canonicalize a replica regrouping permutation: a tuple
+    permutation of ``range(n_replicas)`` mapping group slot -> replica
+    index (slot i holds replica perm[i], so consecutive slots share an
+    inner group). The identity normalizes to None, the unpermuted path."""
+    if perm is None:
+        return None
+    perm = tuple(int(i) for i in perm)
+    if sorted(perm) != list(range(n_replicas)):
+        raise ValueError(f"group permutation {perm!r} is not a permutation "
+                         f"of range({n_replicas})")
+    return None if perm == tuple(range(n_replicas)) else perm
+
+
+def _index(rows, device) -> torch.Tensor:
+    return torch.tensor(rows, dtype=torch.long, device=device)
+
+
+def _arena_group_mean(slot: list, group_size: int, perm=None):
+    """Mean over replica groups of `group_size` consecutive slots of the
+    arena in `slot` (a one-element list, emptied: the arena is freed once
+    the group sums exist), back in replica order as an (R, N) tensor of the
+    arena's dtype. Slot i holds replica i, or perm[i] under a regrouping:
+    the reference's `_arena_group_mean` and `_permuted_group_mean`
+    (`repro/core/daso.py:269`, `:329`) in one. Each group's rows are added
+    as a chain in slot order in the arena's dtype, then multiplied by 1/g
+    rounded to that dtype: `flatbuf.masked_axis0_mean` per group.
+    `group_size == R` is that whole-axis mean, broadcast as a view (a
+    whole-world group ignores the permutation)."""
+    arena = slot.pop()
+    r = arena.shape[0]
+    if group_size == r:
+        return flatbuf.masked_axis0_mean(arena).expand(arena.shape)
+    if r % group_size:
+        raise ValueError(f"replica axis {r} not divisible by group size "
+                         f"{group_size}")
+    g = group_size
+    slots = perm or tuple(range(r))
+    # member i of every group: rows i, g + i, ... (a strided view), or the
+    # rows the permutation puts in those slots
+    members = [arena[i::g] if perm is None else
+               arena.index_select(0, _index(slots[i::g], arena.device))
+               for i in range(g)]
+    del arena
+    s = flatbuf.chain_axis0_sum(members)
+    del members
+    m = s * float(torch.tensor(1.0 / g, dtype=s.dtype))
+    del s
+    # replica rep sits in slot slots.index(rep), of group slot // g
+    group_of = [slots.index(rep) // g for rep in range(r)]
+    return m.index_select(0, _index(group_of, m.device))
+
+
+def level_group_mean(tree, group_size: int, *, wire_format: str = "f32",
+                     mask=None, perm=None):
+    """Synchronous parameter average over replica groups of `group_size`:
+    the sync of one intermediate topology level
+    (`repro/core/daso.py::level_group_mean`). group_size is the product of
+    the replica-level fanouts up to the syncing level, so each group is the
+    replicas inside one unit of that level (inner levels vary fastest in
+    the replica index).
+
+    One group reduction per arena, whatever the leaf count. `wire_format`
+    is the level's transfer dtype: "f32" (intermediate links are fast) or
+    "bf16" (the arena cast through K3, reduced in bf16); int8 is for the
+    outermost exchange only. Integer arenas take the mean in f32, rounded
+    back. `group_size == R` is the full replica mean. `perm`
+    (`normalize_group_perm`) regroups the replicas first; each group mean
+    keeps its group's sum, so the global mean is the same under any
+    permutation. The reference's `deterministic` tier is the chain of adds
+    that this reduction always is (both of its tiers give these numbers on
+    the CPU). `mask` (elastic membership) is ROADMAP item 15."""
+    if wire_format not in ("f32", "bf16"):
+        raise ValueError("level_group_mean supports wire_format 'f32' | "
+                         f"'bf16', got {wire_format!r} (the int8 tier is "
+                         "for the outermost exchange)")
+    if mask is not None:
+        raise NotImplementedError("a membership mask on the group mean is not "
+                                  "ported yet (ROADMAP item 15)")
+    layout = flatbuf.build_layout(tree, batch_dims=1)
+    arenas = flatbuf.pack(tree, layout)
+    perm = normalize_group_perm(perm, layout.batch_shape[0])
+    out = {}
+    for k in list(arenas):
+        w = [arenas.pop(k)]
+        dtype = w[0].dtype
+        if not dtype.is_floating_point:
+            w.append(w.pop().float())
+            out[k] = torch.round(_arena_group_mean(w, group_size, perm)).to(dtype)
+            continue
+        if wire_format == "bf16":
+            w.append(flatbuf.encode_wire(w.pop(), "bf16"))
+        out[k] = _arena_group_mean(w, group_size, perm).to(dtype)
+    return flatbuf.unpack(out, layout)
 
 
 # -- DASO primitive operations -------------------------------------------------
@@ -316,13 +419,21 @@ def _cross_replica_loss(cfg: DasoConfig, loss_r: torch.Tensor, *,
 
 def daso_train_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
                     *, mode: str, staleness: int = 1, n_micro: int = 1,
-                    inner_syncs: Tuple[Tuple[str, int], ...] = ()):
+                    inner_syncs: Tuple[Tuple[str, int], ...] = (),
+                    group_perm=None):
     """One step variant:
     step(params_R, opt_R, inflight, batch_R, lr) -> (params_R, opt_R,
-    inflight, metrics). `mode` is the outermost level's action (MODES)."""
+    inflight, metrics). `mode` is the outermost level's action (MODES).
+
+    `inner_syncs` is the step's intermediate-level phase vector: a (level
+    name, group size) pair, innermost first, for every topology level whose
+    period elapses this step. Each adds one `level_group_mean` over that
+    level's replica groups after the local step and before the outer send,
+    so an outer exchange ships tier-synced values. `group_perm`
+    (`normalize_group_perm`) regroups the replicas for every inner sync."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
-    _refuse_inner_syncs(inner_syncs)
+    inner = _inner_sync_fn(cfg, inner_syncs, group_perm)
     lstep = local_step(loss_fn, optimizer, n_micro)
     blk = cfg.int8_block
 
@@ -331,6 +442,7 @@ def daso_train_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
             params = global_receive(params, inflight, staleness=staleness,
                                     global_world=cfg.global_world)
         params, opt_state, loss_r, aux_r = lstep(params, opt_state, batch, lr)
+        params = inner(params)
         if mode in ("send", "send_receive"):
             inflight = global_send(params, wire_format=cfg.wire_format_for(blocking=False),
                                    int8_block=blk)
@@ -347,7 +459,8 @@ def daso_train_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
 def daso_overlap_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
                       *, mode: str, staleness: int = 1, extra_staleness: int = 0,
                       n_micro: int = 1,
-                      inner_syncs: Tuple[Tuple[str, int], ...] = ()):
+                      inner_syncs: Tuple[Tuple[str, int], ...] = (),
+                      group_perm=None):
     """One step variant of the double-buffered overlap schedule
     (`repro/core/daso.py::daso_overlap_step`, one process, no membership):
     step(params_R, opt_R, inflight, pending, batch_R, lr) -> (params_R,
@@ -364,15 +477,17 @@ def daso_overlap_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
 
     The merge lands after the step's local update, where off-mode
     `receive` merges before it: the exchange result arrives at the cycle's
-    end."""
+    end. Inner syncs run between the local update and the buffers' update,
+    as in `daso_train_step`."""
     if mode not in OV_MODES:
         raise ValueError(f"unknown overlap mode {mode!r}; expected one of {OV_MODES}")
-    _refuse_inner_syncs(inner_syncs)
+    inner = _inner_sync_fn(cfg, inner_syncs, group_perm)
     lstep = local_step(loss_fn, optimizer, n_micro)
     blk = cfg.int8_block
 
     def step(params, opt_state, inflight, pending, batch, lr):
         params, opt_state, loss_r, aux_r = lstep(params, opt_state, batch, lr)
+        params = inner(params)
         if mode == "ov_start":
             pending = params
         elif mode == "ov_sync":
@@ -392,29 +507,45 @@ def daso_overlap_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
 
 def daso_overlap_compute_step(loss_fn: Callable, optimizer: Optimizer,
                               cfg: DasoConfig, *, n_micro: int = 1,
-                              inner_syncs: Tuple[Tuple[str, int], ...] = ()):
+                              inner_syncs: Tuple[Tuple[str, int], ...] = (),
+                              group_perm=None):
     """The compute half of an overlap cycle on the macro-cycle executor
     (`repro/core/daso.py::daso_overlap_compute_step`):
     step(params_R, opt_R, batch_R, lr) -> (params_R, opt_R, metrics).
 
-    A local step and nothing across replicas, so it can run while the
-    cycle's exchange is in flight: the cross-replica loss is deferred to
-    the merge (`_cross_replica_loss` with axis=1), and the aux metrics,
-    whose means reduce over the replicas, are dropped."""
-    _refuse_inner_syncs(inner_syncs)
+    A local step and no outer exchange, so it can run while the cycle's
+    exchange is in flight: the cross-replica loss is deferred to the merge
+    (`_cross_replica_loss` with axis=1), and the aux metrics, whose means
+    reduce over the replicas, are dropped. Inner-level syncs stay: they run
+    on the current stream beside the exchange, and read only the params
+    this step made (the exchange reads the pending snapshot, which no step
+    writes)."""
+    inner = _inner_sync_fn(cfg, inner_syncs, group_perm)
     lstep = local_step(loss_fn, optimizer, n_micro)
 
     def step(params, opt_state, batch, lr):
         params, opt_state, loss_r, _aux_r = lstep(params, opt_state, batch, lr)
-        return params, opt_state, {"loss_per_replica": loss_r}
+        return inner(params), opt_state, {"loss_per_replica": loss_r}
 
     return step
 
 
-def _refuse_inner_syncs(inner_syncs) -> None:
-    if inner_syncs:
-        raise NotImplementedError("inner-level syncs are not ported yet "
-                                  "(ROADMAP item 13)")
+def _inner_sync_fn(cfg: DasoConfig, inner_syncs, group_perm) -> Callable:
+    """params -> params after one `level_group_mean` per inner sync, in
+    order (the identity without inner syncs). Each group size must lie in
+    2..R."""
+    for name, g in inner_syncs:
+        if not 1 < g <= cfg.n_replicas:
+            raise ValueError(f"inner sync {name!r}: group size {g} outside "
+                             f"2..{cfg.n_replicas}")
+    perm = normalize_group_perm(group_perm, cfg.n_replicas)
+
+    def sync(params):
+        for _name, g in inner_syncs:
+            params = level_group_mean(params, g, perm=perm)
+        return params
+
+    return sync
 
 
 def _step_metrics(cfg: DasoConfig, loss_r, aux_r) -> dict:

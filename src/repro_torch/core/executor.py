@@ -3,7 +3,8 @@
 Every training strategy offers one interface to the training loop: its
 carry, a factory of step variants ``step(carry, batch, lr) -> (carry,
 metrics)`` cached per (mode, staleness), a per-step mode decision and a
-cycle planner. Registered here: `daso`, `sync` and `local_sgd`.
+cycle planner. Registered here: `daso`, `sync` and `local_sgd`;
+repro_torch/topo/strategy.py registers `hier_daso`.
 
 The macro-cycle executor runs one controller cycle per host dispatch:
 
@@ -41,8 +42,8 @@ import torch
 from repro_torch.core.daso import (DasoConfig, _cross_replica_loss,
                                    daso_overlap_compute_step, daso_overlap_step,
                                    daso_train_step, dereplicate_params, global_receive,
-                                   global_send, replica_divergence, replicate_params,
-                                   sync_train_step)
+                                   global_send, normalize_group_perm, replica_divergence,
+                                   replicate_params, sync_train_step)
 from repro_torch.core.schedule import DasoController, Mode, join_mode, split_mode, split_ov
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.tree import leaves, tree_map
@@ -114,9 +115,8 @@ def make_strategy(name: str, loss_fn: Callable, optimizer: Optimizer,
 class Strategy:
     """Carry lifecycle, cached step variants, the per-step schedule and the
     cycle planner. `n_micro` splits each batch for gradient accumulation
-    (core/daso.py::microbatched_value_and_grad); the topology lowering and
-    the dry run set it (the reference's `topo/lower.py` and
-    `launch/dryrun.py`; ROADMAP item 13)."""
+    (core/daso.py::microbatched_value_and_grad); the topology lowering
+    passes it (topo/lower.py::build_topology_strategy)."""
     name = "?"
 
     def __init__(self, loss_fn: Callable, optimizer: Optimizer,
@@ -182,6 +182,22 @@ class DasoStrategy(Strategy):
         if cfg is None:
             raise ValueError("the daso strategy needs a DasoConfig")
         super().__init__(loss_fn, optimizer, cfg, **kw)
+        self._group_perm = None
+
+    @property
+    def group_perm(self):
+        """The replica regrouping of the inner-level syncs (None: the
+        contiguous groups)."""
+        return self._group_perm
+
+    def set_group_permutation(self, perm) -> None:
+        """Regroup the replicas of every inner sync: slot i of the new
+        grouping holds replica perm[i] (core/daso.py::
+        normalize_group_perm). The permutation is part of every step
+        variant, so this drops the cached variants; the caller must
+        `invalidate()` an executor whose programs run the old ones."""
+        self._group_perm = normalize_group_perm(perm, self.cfg.n_replicas)
+        self._steps.clear()
 
     @property
     def overlap(self) -> bool:
@@ -205,7 +221,7 @@ class DasoStrategy(Strategy):
 
     def _inner_syncs_of(self, inner: Tuple[str, ...]):
         """The (name, group_size) pairs of a mode's inner levels: none, as
-        this strategy has no topology."""
+        this strategy has no topology (`hier_daso` maps them)."""
         if inner:
             raise ValueError(f"mode carries inner-level syncs {inner!r} but "
                              f"strategy {self.name!r} has no topology")
@@ -218,7 +234,8 @@ class DasoStrategy(Strategy):
             _, inner = split_mode(mode[len(OVERLAP_COMPUTE_PREFIX):])
             raw_c = daso_overlap_compute_step(self.loss_fn, self.optimizer, self.cfg,
                                               n_micro=self.n_micro,
-                                              inner_syncs=self._inner_syncs_of(inner))
+                                              inner_syncs=self._inner_syncs_of(inner),
+                                              group_perm=self._group_perm)
 
             def cstep(carry, batch, lr):
                 params, opt_state = carry
@@ -232,7 +249,8 @@ class DasoStrategy(Strategy):
             base, extra = split_ov(outer)
             raw_ov = daso_overlap_step(self.loss_fn, self.optimizer, self.cfg, mode=base,
                                        staleness=staleness, extra_staleness=extra,
-                                       n_micro=self.n_micro, inner_syncs=inner_syncs)
+                                       n_micro=self.n_micro, inner_syncs=inner_syncs,
+                                       group_perm=self._group_perm)
 
             def ostep(carry, batch, lr):
                 params, opt_state, inflight, pending = carry
@@ -243,7 +261,7 @@ class DasoStrategy(Strategy):
             return ostep
         raw = daso_train_step(self.loss_fn, self.optimizer, self.cfg, mode=outer,
                               staleness=staleness, n_micro=self.n_micro,
-                              inner_syncs=inner_syncs)
+                              inner_syncs=inner_syncs, group_perm=self._group_perm)
 
         def step(carry, batch, lr):
             params, opt_state, inflight = carry
@@ -457,8 +475,9 @@ class MacroCycleExecutor:
     def invalidate(self) -> int:
         """Drop every cached program and overlap part, so later cycles use
         the strategy's current step variants. Returns how many were
-        dropped. Its caller is the resilience supervisor, which swaps the
-        step variants when the membership changes (the reference's
+        dropped. Its callers swap the strategy's step variants: after
+        `DasoStrategy.set_group_permutation`, and the resilience supervisor
+        when the membership changes (the reference's
         `resilience/supervisor.py`; ROADMAP item 15)."""
         n = len(self._programs) + len(self._ov_fns)
         self._programs.clear()
@@ -601,9 +620,9 @@ class MacroCycleExecutor:
 
 
 def shape_sync_counts(shape: CycleShape) -> Dict[str, int]:
-    """Syncs per level in one cycle shape: "_outer" counts the steps whose
-    outer action reaches across replicas, and each inner level its syncs
-    (none until topologies are ported)."""
+    """Syncs per level in one cycle shape, the plan-side counterpart of
+    `DasoController.level_sync_counts`: "_outer" counts the steps whose
+    outer action reaches across replicas, and each inner level its syncs."""
     counts: Dict[str, int] = {"_outer": 0}
     for m, _ in shape:
         if m.startswith(OVERLAP_COMPUTE_PREFIX):

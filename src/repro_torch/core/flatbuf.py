@@ -112,11 +112,12 @@ def unpack(arenas: Dict[str, torch.Tensor], layout: ArenaLayout):
     return unflatten(layout.treedef, leaves)
 
 
-def chain_axis0_sum(w: torch.Tensor) -> torch.Tensor:
+def chain_axis0_sum(w) -> torch.Tensor:
     """Order-fixed sum over the leading axis, ``w[0] + w[1] + ...`` in w's
-    dtype, a rounding after every add."""
+    dtype, a rounding after every add. `w` is a tensor or a sequence of
+    tensors of one shape."""
     acc = w[0]
-    for i in range(1, w.shape[0]):
+    for i in range(1, len(w)):
         acc = acc + w[i]
     return acc
 

@@ -13,16 +13,21 @@ double-buffered schedule instead: ov_start, then every B steps an ov_sync
 that merges the exchange of the snapshot taken B steps earlier, one cycle
 stale (`_overlap_mode`).
 
+`HierDasoController` extends it to an N-level topology (repro_torch/topo):
+each intermediate replica level l carries a fixed period B_l and gets a
+synchronous group sync every B_l steps, appended to the step's mode as
+``outer+lvl1,lvl2`` (`join_mode`); the plateau schedule keeps driving only
+the outermost level.
+
 Pure host logic: given the step index it returns which step variant to run
 and consumes windowed loss means for plateau detection. Its state_dict has
-the reference's keys, so the two packages' schedules compare directly. The
-N-level controller, `retune` and the `notify_*` hooks are later ports
-(ROADMAP items 13, 15, 18).
+the reference's keys, so the two packages' schedules compare directly.
+`retune` and the `notify_*` hooks are later ports (ROADMAP items 18, 15).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.daso import DasoConfig
 
@@ -43,6 +48,9 @@ class Mode:
 
 # outermost-level actions that touch the global (cross-node) network
 _GLOBAL_SYNCS = (Mode.SEND, Mode.SEND_RECEIVE, Mode.BLOCKING, Mode.OV_SYNC)
+# the same, with the local-SGD average: what `level_sync_counts` tallies as
+# the outermost level's syncs
+_OUTER_SYNCS = _GLOBAL_SYNCS + (Mode.HARD_AVG,)
 
 
 def split_ov(outer: str) -> Tuple[str, int]:
@@ -266,3 +274,84 @@ class DasoController:
         touched = sum(1 for (_, m, _, _) in self.history
                       if split_ov(split_mode(m)[0])[0] in _GLOBAL_SYNCS)
         return touched / len(self.history)
+
+    def level_sync_counts(self) -> Dict[str, int]:
+        """Syncs per level over the history: each inner level's count, and
+        the outermost level's (hard_avg included) under "_outer"."""
+        counts: Dict[str, int] = {"_outer": 0}
+        for (_, m, _, _) in self.history:
+            outer, inner = split_mode(m)
+            if split_ov(outer)[0] in _OUTER_SYNCS:
+                counts["_outer"] += 1
+            for name in inner:
+                counts[name] = counts.get(name, 0) + 1
+        return counts
+
+
+@dataclass
+class HierDasoController(DasoController):
+    """The N-level schedule (`repro/core/schedule.py::HierDasoController`).
+
+    `inner_periods` maps each intermediate replica level's name to its fixed
+    sync period B_l, innermost first (`repro_torch.topo.lower.
+    derive_inner_periods`, unless the spec pins it with ``%period``). Level
+    l gets a synchronous group average on every step where ``(step + 1) %
+    B_l == 0``; warm-up / cool-down `blocking` steps and `hard_avg` already
+    average the full world, so inner syncs are left out there.
+
+    The outermost level keeps the inherited plateau-driven schedule. With
+    no intermediate levels this class behaves as its base: the same mode
+    strings, history and cycle shapes. `pinned_periods` names the levels
+    whose period the spec pinned, which a retune would leave alone."""
+    inner_periods: Dict[str, int] = field(default_factory=dict)
+    pinned_periods: Tuple[str, ...] = ()
+
+    def __post_init__(self):
+        super().__post_init__()
+        for name, period in self.inner_periods.items():
+            if period < 1:
+                raise ValueError(f"inner level {name!r}: period must be "
+                                 f">= 1, got {period}")
+
+    def inner_syncs_at(self, step: int) -> Tuple[str, ...]:
+        """Names of the intermediate levels whose period elapses at `step`:
+        a pure function of the step index, so a planned cycle's shape
+        carries the per-level phases."""
+        return tuple(name for name, period in self.inner_periods.items()
+                     if (step + 1) % period == 0)
+
+    def mode_for_step(self, step: int) -> Tuple[str, int]:
+        outer, stale = super().mode_for_step(step)
+        if outer in (Mode.BLOCKING, Mode.HARD_AVG):
+            return outer, stale
+        inner = self.inner_syncs_at(step)
+        if not inner:
+            return outer, stale
+        mode = join_mode(outer, inner)
+        # the history entry the base class just appended names the whole
+        # per-level phase vector
+        s, _, b, w = self.history[-1]
+        self.history[-1] = (s, mode, b, w)
+        return mode, stale
+
+    def retune(self, level_costs, *, annotated=None, step: int = -1,
+               rel_tol: float = 0.05) -> bool:
+        """Re-derive the periods from measured per-level sync costs: the
+        reference's online autotune, not ported yet."""
+        raise NotImplementedError("retune (online autotune of the per-level "
+                                  "periods) is not ported yet (ROADMAP item 18)")
+
+    def state_dict(self) -> dict:
+        """The base state plus the effective per-level periods (the
+        reference's key, TrainState version 3)."""
+        sd = super().state_dict()
+        sd["inner_periods"] = dict(self.inner_periods)
+        return sd
+
+    def load_state_dict(self, sd: dict) -> None:
+        super().load_state_dict(sd)
+        # a state dict from before the periods were saved keeps the
+        # statically lowered periods this controller was built with
+        if "inner_periods" in sd:
+            self.inner_periods = {str(k): int(v)
+                                  for k, v in sd["inner_periods"].items()}

@@ -22,10 +22,16 @@ step per dispatch.
   PYTHONPATH=src python -m repro_torch.launch.train --tiny --steps 60 \\
       --ckpt DIR --resume DIR/step_00000020
 
+  # an N-level topology: 4 replicas in 2 hosts of 2 pods, P = 16; the
+  # host level averages its pairs every B_host = 2 steps (50 / 25 GB/s),
+  # the pod level runs the paper's schedule; prints the topology line
+  PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
+      --topology "chip:4 x host:2@50e9 x pod:2@25e9" --steps 40
+
 Either package loads the other's checkpoints (`checkpoint/io.py`).
-The reference's other flags (the per-leaf exchange, fault plans, topology,
-tracing, autotune, the multi-process runtime) are not ported yet: each is
-refused with the ROADMAP item that will port it.
+The reference's other flags (the per-leaf exchange, fault plans, tracing,
+autotune, the multi-process runtime) are not ported yet: each is refused
+with the ROADMAP item that will port it.
 """
 import argparse
 import dataclasses
@@ -43,13 +49,14 @@ from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import init_params
 from repro_torch.optim.schedules import warmup_linear_scaled
+from repro_torch.topo import TopologySpec, derive_inner_periods
 from repro_torch.train.loop import TrainLoopConfig, run_training
 from repro_torch.train.step import make_lm_loss
 
 # flags of the reference launcher that wait for a later part of the port,
 # with the ROADMAP item that ports them
 LATER_FLAGS = {
-    "--exchange-impl": 7, "--dispatch": 16, "--topology": 13, "--fault-plan": 15,
+    "--exchange-impl": 7, "--dispatch": 16, "--fault-plan": 15,
     "--autotune": 18, "--autotune-every": 18, "--trace-out": 17,
     "--distributed": 16, "--coordinator": 16, "--procs": 16, "--proc-id": 16,
 }
@@ -88,9 +95,16 @@ def parse_args(argv=None):
                          "before the cycle's local steps: the same numbers, and "
                          "the exchange's own time in executor_stats")
     ap.add_argument("--steps", type=int, default=300)
-    ap.add_argument("--nodes", type=int, default=4, help="DASO replicas (paper nodes)")
+    ap.add_argument("--nodes", type=int, default=4,
+                    help="DASO replicas (paper nodes); superseded by --topology")
     ap.add_argument("--local-world", type=int, default=4)
     ap.add_argument("--b-max", type=int, default=4)
+    ap.add_argument("--topology", default=None, metavar="SPEC",
+                    help="N-level cluster topology (repro_torch/topo): a spec "
+                         "string like 'chip:4 x host:2 x pod:2', inline JSON or "
+                         "a JSON file path. Replica count and world size come "
+                         "from the level fanouts; specs of more than 2 levels run "
+                         "the hier_daso per-level sync schedule")
     ap.add_argument("--per-node-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--lr", type=float, default=0.05)
@@ -141,6 +155,19 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params0 = init_params(cfg, gen, device)
     src = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq_len, seed=args.seed)
+    spec = None
+    if args.topology:
+        if args.strategy not in ("daso", "hier_daso"):
+            raise SystemExit("train: --topology drives the replica-axis strategies "
+                             "(daso / hier_daso)")
+        spec = TopologySpec.load(args.topology)
+        args.nodes, args.local_world = spec.n_replicas, spec.local_world
+        # a %period on the outermost level overrides --b-max, as the
+        # lowering does, so the line names the schedule that runs
+        b_eff = spec.outer.period if spec.outer.period is not None else args.b_max
+        print(f"[train] topology: {spec.to_str()} -> R={spec.n_replicas} "
+              f"world={spec.world} inner_periods="
+              f"{derive_inner_periods(spec, b_max=b_eff)}")
     R, per = args.nodes, args.per_node_batch
 
     def daso_data(step):
@@ -153,6 +180,9 @@ def main(argv=None):
     loop_cfg = TrainLoopConfig(
         strategy=args.strategy, n_steps=args.steps, n_replicas=R,
         local_world=args.local_world, b_max=args.b_max, lr=args.lr,
+        # the canonical string of the spec parsed above, so the run trains
+        # on the topology R and the data were sized from
+        topology=spec.to_str() if spec is not None else None,
         executor=args.executor, max_cycle_len=args.max_cycle_len,
         wire_format=args.wire_format, overlap=args.overlap,
         overlap_serial_exchange=args.overlap_serial_exchange,

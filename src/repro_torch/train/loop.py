@@ -1,6 +1,7 @@
 """End-to-end training entry point (`repro/train/loop.py`): strategy selection
-through the registry (daso / sync / local_sgd), LR schedule, loss trace and
-the schedule's sync fraction, on one of two executors:
+through the registry (daso / hier_daso / sync / local_sgd), an optional
+N-level topology (`topology`, repro_torch/topo), LR schedule, loss trace
+and the schedule's sync fraction, on one of two executors:
 
   * ``executor="macro"`` (default): the macro-cycle executor
     (core/executor.py), one dispatch and one loss fetch per controller
@@ -35,16 +36,24 @@ from repro_torch.core.simulator import SimResult, run_per_step_training
 from repro_torch.device import resolve_device
 from repro_torch.optim.optimizers import Optimizer, sgd
 from repro_torch.optim.schedules import constant_lr
+from repro_torch.topo import TopologySpec, build_topology_strategy
 from repro_torch.tree import leaves, tree_map
 
 
 @dataclass
 class TrainLoopConfig:
-    strategy: str = "daso"            # registered name: daso | sync | local_sgd
+    strategy: str = "daso"            # registered name: daso | hier_daso | sync | local_sgd
     n_steps: int = 200
     n_replicas: int = 4               # paper "nodes"
     local_world: int = 4              # paper GPUs per node
     b_max: int = 4
+    # N-level cluster topology (repro_torch/topo): a spec string ("chip:4 x
+    # host:2 x pod:2"), inline JSON or a JSON file path. When set it
+    # supersedes n_replicas / local_world (from the level fanouts) and, for
+    # daso / hier_daso, selects the per-level sync schedule: a 2-level spec
+    # lowers to the stock daso strategy (the legacy run bit for bit), a
+    # deeper one to hier_daso
+    topology: Optional[str] = None
     warmup_frac: float = 0.1          # warm-up epochs as a step fraction
     cooldown_frac: float = 0.1
     lr: float = 0.05
@@ -69,27 +78,53 @@ class TrainLoopConfig:
     device: str = "cuda"
 
 
+def resolve_topology(cfg: TrainLoopConfig) -> Optional[TopologySpec]:
+    """The run's `TopologySpec`, or None when cfg.topology is unset. Only
+    the daso family takes one (gossip, easgd and downpour, which the
+    reference also sizes from a spec, are ROADMAP item 14)."""
+    if cfg.topology is None:
+        return None
+    if cfg.strategy not in ("daso", "hier_daso"):
+        raise ValueError(f"topology specs drive the replica-axis strategies "
+                         f"(daso / hier_daso); strategy {cfg.strategy!r} does "
+                         f"not take one")
+    return TopologySpec.load(cfg.topology)
+
+
 def build_strategy(loss_fn: Callable, cfg: TrainLoopConfig, optimizer: Optimizer):
     """cfg.strategy through the registry, with its DasoConfig and
-    controller for the replica-axis strategies."""
+    controller for the replica-axis strategies. With cfg.topology set the
+    strategy is lowered from the spec (`topo.build_topology_strategy`): R,
+    the Eq. (1) world P and a pinned outer ``%period`` (b_max) come from
+    the spec, intermediate levels get their periods, and the plateau
+    controller drives the outermost level."""
     if cfg.strategy not in list_strategies():
         raise KeyError(f"unknown strategy {cfg.strategy!r}; "
                        f"registered: {list_strategies()}")
     if cfg.strategy == "sync":
+        if cfg.topology is not None:
+            resolve_topology(cfg)  # raises with the explanation
         if cfg.overlap != "off":
             raise ValueError("overlap is a daso-family schedule; the sync "
                              "baseline has no non-blocking exchange to overlap")
         return make_strategy("sync", loss_fn, optimizer)
+    spec = resolve_topology(cfg)
+    if spec is None and cfg.strategy == "hier_daso":
+        raise ValueError("strategy 'hier_daso' needs a topology spec "
+                         "(TrainLoopConfig.topology / --topology)")
     dcfg = DasoConfig(
-        n_replicas=cfg.n_replicas,
-        global_world=cfg.n_replicas * cfg.local_world,
-        b_max=cfg.b_max,
+        n_replicas=cfg.n_replicas if spec is None else spec.n_replicas,
+        global_world=cfg.n_replicas * cfg.local_world if spec is None else spec.world,
+        b_max=cfg.b_max if spec is None or spec.outer.period is None else spec.outer.period,
         warmup_steps=int(cfg.warmup_frac * cfg.n_steps),
         cooldown_steps=int(cfg.cooldown_frac * cfg.n_steps),
         total_steps=cfg.n_steps,
         wire_format=cfg.wire_format,
         exchange_impl=cfg.exchange_impl,
         overlap=cfg.overlap)
+    if spec is not None:
+        return build_topology_strategy(loss_fn, optimizer, spec, dcfg,
+                                       loss_window=cfg.loss_window)
     cls = get_strategy(cfg.strategy)
     controller = cls.make_controller(dcfg, loss_window=cfg.loss_window)
     return cls(loss_fn, optimizer, dcfg, controller=controller)

@@ -13,6 +13,8 @@
     the other's TrainState and params checkpoints bit for bit, and a JAX run
     checkpointed at step k and resumed by the port's `run_training` gives
     JAX's uninterrupted run within RTOL;
+  * a hier_daso TrainState (a 3-level topology) written by either package
+    resumes in both with its per-level periods and the same schedule;
   * the port's resume equals its uninterrupted run bit for bit (losses and
     the whole final carry) on both executors, overlap off and one_cycle,
     the loaded carry keeps exactly the aliasing the running one had (shared
@@ -561,6 +563,66 @@ def test_jax_checkpoint_resumed_by_the_port(tmp_path, overlap):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL, atol=1e-6)
     assert [h[1] for h in resumed.controller.history] == \
         [h[1] for h in fresh.controller.history]
+
+
+HIER_SPEC = "chip:2 x host:2@50e9 x pod:2@25e9"  # R = 4, P = 8, B_host = 2
+
+
+def _hier_run(package, n_steps, **kw):
+    """A hier_daso run of the MLP at R = 4 from the spec, in either
+    package, on the macro executor."""
+    rng = np.random.default_rng(5)
+    params0 = {"w1": (0.3 * rng.standard_normal((D, H))).astype(np.float32),
+               "w2": (0.3 * rng.standard_normal((H, 1))).astype(np.float32)}
+
+    def batch(step):
+        x = np.random.default_rng((5, step)).standard_normal((4, PER, D)).astype(np.float32)
+        return {"x": x, "y": np.tanh(x).sum(-1, keepdims=True).astype(np.float32)}
+
+    loop_kw = dict(strategy="daso", n_steps=n_steps, topology=HIER_SPEC, loss_window=50,
+                   executor="macro", **kw)
+    if package == "jax":
+        return jax_run_training(_jax_loss, jax.tree.map(jnp.asarray, params0),
+                                lambda t: jax.tree.map(jnp.asarray, batch(t)),
+                                JaxTrainLoopConfig(**loop_kw), optimizer=jax_sgd(momentum=0.9),
+                                lr_fn=jax_constant_lr(0.05), log=None)
+    return run_training(_loss, {k: torch.from_numpy(v) for k, v in params0.items()},
+                        lambda t: {k: torch.from_numpy(v) for k, v in batch(t).items()},
+                        TrainLoopConfig(device="cpu", **loop_kw),
+                        optimizer=sgd(momentum=0.9), lr_fn=constant_lr(0.05), log=None)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_hier_daso_train_state_resumes_in_the_other_package(tmp_path, writer):
+    """A hier_daso TrainState written by one package, with its periods set
+    to B_host = 3 (as a retune would leave them; the key is TrainState
+    v3's), resumed by both: the periods survive, both resumed schedules are
+    the writer's schedule continued with B_host = 3, identical between the
+    packages, and the losses agree within RTOL."""
+    ckpt = str(tmp_path / "ck")
+    written = _hier_run(writer, 24, ckpt_every=9, ckpt_dir=ckpt)
+    path = (jio if writer == "jax" else io).list_train_state_dirs(ckpt)[-1]
+    mf = os.path.join(path, "manifest.json")
+    with open(mf) as f:
+        manifest = json.load(f)
+    controller = manifest["extra"]["train_state"]["controller"]
+    assert controller["inner_periods"] == {"host": 2}
+    controller["inner_periods"] = {"host": 3}
+    with open(mf, "w") as f:
+        json.dump(manifest, f)
+    k = io.load_train_state(path, device="cpu").step
+    assert 0 < k < 24 and io.load_train_state(path, device="cpu").controller == controller
+    port = _hier_run("port", 24, resume_from=path)
+    jax_ = _hier_run("jax", 24, resume_from=path)
+    assert port.controller.inner_periods == jax_.controller.inner_periods == {"host": 3}
+    modes = [h[1] for h in port.controller.history]
+    assert modes == [h[1] for h in jax_.controller.history]
+    assert modes[:k] == [h[1] for h in written.controller.history][:k]
+    assert [t for t in range(k, 24) if modes[t].endswith("+host")] == \
+        [t for t in range(k, 24) if (t + 1) % 3 == 0 and modes[t] != "blocking"]
+    assert port.controller.level_sync_counts() == jax_.controller.level_sync_counts()
+    np.testing.assert_allclose(port.losses, jax_.losses, rtol=RTOL)
+    np.testing.assert_allclose(port.losses[:k], written.losses[:k], rtol=RTOL)
 
 
 def test_resume_refuses_a_strategy_or_membership_it_cannot_take(tmp_path):

@@ -148,8 +148,8 @@ def test_unported_options_raise_naming_their_roadmap_item():
         daso.DasoConfig(n_replicas=4, global_world=16, exchange_impl="per_leaf",
                         wire_format="int8")
     cfg = daso.DasoConfig(n_replicas=4, global_world=16)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        daso.daso_train_step(None, sgd(), cfg, mode="local", inner_syncs=(("host", 2),))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        daso.level_group_mean({"w": torch.zeros(4, 3)}, 2, mask=(1.0, 1.0, 0.0, 1.0))
     assert cfg.exchange_kernels and cfg.wire_format_for(blocking=True) == "bf16"
 
 

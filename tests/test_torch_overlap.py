@@ -381,8 +381,8 @@ def test_overlap_step_refusals():
     cfg = daso.DasoConfig(n_replicas=4, global_world=16, overlap="one_cycle")
     with pytest.raises(ValueError, match="overlap mode"):
         daso.daso_overlap_step(None, sgd(), cfg, mode="send")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        daso.daso_overlap_step(None, sgd(), cfg, mode="local", inner_syncs=(("host", 2),))
+    with pytest.raises(ValueError, match="outside 2..4"):
+        daso.daso_overlap_step(None, sgd(), cfg, mode="local", inner_syncs=(("host", 8),))
 
 
 # -- the slice end to end --------------------------------------------------------------

@@ -223,7 +223,7 @@ def test_launcher_trains_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv,err,match", [
     (["--fault-plan", "plan.json"], SystemExit, "item 15"),
-    (["--topology=chip:4 x pod:2"], SystemExit, "item 13"),
+    (["--autotune"], SystemExit, "item 18"),
     (["--distributed"], SystemExit, "item 16"),
     (["--exchange-impl", "per_leaf"], SystemExit, "item 7"),
     (["--trace-out", "t.jsonl"], SystemExit, "item 17"),
@@ -266,6 +266,34 @@ def test_launcher_runs_the_executors(tmp_path, capsys, argv, dispatches, fallbac
     if "one_cycle" in argv:
         assert st["overlap_cycles"] == 3 and st["overlap_exchange_blocking_s"] > 0.0
         assert st["overlap_exchange_visible_s"] == 0.0
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread for a tiny model's run (its ops are too small to
+    split; beside the suite's other workers the pool only contends), then
+    the worker's setting back."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_launcher_trains_a_topology_on_the_cpu(tmp_path, capsys, one_torch_thread):
+    """--topology sizes the run from the spec and prints the reference's
+    topology line; the 3-level spec runs hier_daso's host syncs."""
+    out = tmp_path / "m.json"
+    res = launch_train.main(["--tiny", "--device", "cpu", "--steps", "8", "--nodes", "9",
+                             "--per-node-batch", "2", "--seq-len", "16",
+                             "--topology", "chip:4 x host:2@50e9 x pod:2@25e9",
+                             "--metrics-out", str(out)])
+    text = capsys.readouterr().out
+    assert ("[train] topology: chip:4@6e+11/1e-06 x host:2@5e+10/1e-05 x "
+            "pod:2@2.5e+10/3e-05 -> R=4 world=16 inner_periods={'host': 2}") in text
+    assert type(res.controller).__name__ == "HierDasoController"
+    assert res.controller.level_sync_counts()["host"] > 0
+    assert res.carry[0]["final_norm"]["scale"].shape[0] == 4
+    assert len(json.loads(out.read_text())["losses"]) == 8
 
 
 def test_launcher_refuses_to_train_the_ssm_family():
