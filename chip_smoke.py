@@ -75,7 +75,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                carry's tree too, empty lists included), the
                resumed run's K2 / K5 / K6 launches what its modes imply, its
                peak no higher; the checkpoint's bytes, save and load
-               seconds (and GB/s), both runs' peaks
+               seconds (and GB/s), both runs' peaks. The first run is
+               traced (obs/trace.py): one checkpoint_save span, at least the
+               save's seconds and at most 0.5 s more
   train_int8_overlap
                run_training on the per-step executor at the train phase's
                size with the int8 wire tier and the one-cycle overlap
@@ -94,6 +96,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                per step, programs built, ms per step by cycle shape beside
                the per-step medians, the legs, the hidden fraction 1 -
                visible / blocking, peak memory
+  train_trace  the train_macro_int8_overlap cell with a tracer
+               (run_training(..., tracer=...), one stream in a temporary
+               directory, merged at the end): the carry bit for bit the
+               per-step run's and the losses bit for bit the untraced
+               macro run's, the same launches; every event valid and the
+               merged file sorted; the cycle spans' steps add to 40 and
+               their per-level syncs to level_sync_counts; one compile
+               instant per program built; one span of each overlap leg per
+               overlap cycle; each cycle span at least its cycle's seconds;
+               the tracer's own cost below 1 % of the run's wall. Prints the
+               span count, total and median ms by name, the events, the
+               overhead and the steady overlap cycle walls beside the
+               untraced run's
+  launch_trace repro_torch.launch.train.main --tiny --steps 12 --trace-out
+               T --metrics-out M on the card: T is the merged trace, with
+               one run_metadata event and one comm_meters counter, and holds
+               what train_trace's trace holds; M's comm_meters rows equal
+               level_bytes_report computed here; K2 / K3 launch as the
+               modes imply
   train_topo, train_macro_topo
                the train cell on the 3-level topology chip:4 x host:2@50e9 x
                pod:2@25e9 (R = 4, P = 16; the host pairs {0, 1} and {2, 3}
@@ -105,7 +126,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                the host pairs' rows bit for bit after every host step (per
                step, checked outside the timed steps), the two executors'
                history and final carry (params and momentum of every
-               replica) bit for bit; step ms by mode token and the inner
+               replica) bit for bit; the macro run is traced, and its cycle
+               spans' host syncs add to the host level's count (with what
+               train_trace's trace holds); step ms by mode token and the inner
                sync's cost (local+host less local), ms per cycle shape,
                dispatches per step, peak memory
   train_topo_int8_overlap, train_macro_topo_int8_overlap
@@ -190,6 +213,9 @@ from repro_torch.kernels.ref import attention_ref, attention_row_ratio  # noqa: 
 from repro_torch.kernels.rglru_scan import rglru_scan_fwd  # noqa: E402
 from repro_torch.kernels.ssm_scan import scan_config, ssm_scan_fwd  # noqa: E402
 from repro_torch.models.lm import forward, init_params  # noqa: E402
+from repro_torch.obs import meters  # noqa: E402
+from repro_torch.obs.trace import (Tracer, load_events, merge_streams,  # noqa: E402
+                                   stream_path, validate_event)
 from repro_torch.optim.optimizers import sgd  # noqa: E402
 from repro_torch.serve.engine import Engine, make_decode_fn, make_prefill_fn  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
@@ -1335,14 +1361,14 @@ def cycle_rows(res):
     return rows
 
 
-def run_train_phase(name, loop_options, why_reduced, on_batch=None):
+def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None):
     """run_training with DASO at llama3.2-1b's published widths, 4 layers,
     f32, R = 4; the counts are set to 0 just before and read just after.
     Returns (result, its row, launch counts, the outermost level's base
     modes). The per-step executor's row has the step ms by mode token, the
     macro executor's its ExecutorStats and the ms per step by cycle shape.
     `on_batch(step)` runs as each step's batch is made, before the step's
-    clock starts."""
+    clock starts; `tracer` goes to run_training."""
     cfg = train_config(TRAIN_LAYERS)
     params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(x.numel() for x in leaves(params0))
@@ -1360,9 +1386,12 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None):
     torch.cuda.reset_peak_memory_stats()
     start, retries = torch.cuda.memory_allocated(), torch.cuda.memory_stats()["num_alloc_retries"]
     zero_counts()
+    t0 = time.perf_counter()
     res = run_training(make_lm_loss(cfg), params0, data, loop_cfg,
-                       optimizer=sgd(momentum=0.9, weight_decay=1e-4), log=None)
+                       optimizer=sgd(momentum=0.9, weight_decay=1e-4), log=None,
+                       tracer=tracer)
     sync()
+    wall = time.perf_counter() - t0
     launches = counts()
     peak = torch.cuda.max_memory_allocated()
     memory = {"allocated_at_start": start, "peak_above_start": peak - start,
@@ -1390,7 +1419,7 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None):
            "launches": launches,
            "sync_fraction": res.sync_fraction,
            "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
-           "max_memory_allocated": peak, "memory": memory}
+           "wall_s": wall, "max_memory_allocated": peak, "memory": memory}
     stats = res.executor_stats
     if stats is None:
         by_mode = {}
@@ -1504,7 +1533,8 @@ def phase_train_macro_int8_overlap(per_step):
     near 1 whether or not the card ran the two streams at once.
     `profile_train.py` gives the device trace of one cycle (the exchange
     stream's kernel time, and how much of it ran beside the local steps'
-    kernels). Returns the first run's launches."""
+    kernels). Returns the first run's launches, losses and steady cycle
+    walls."""
     out, visible, walls = None, None, None
     for serial in (False, True):
         name = "train_macro_int8_overlap" + ("_serial" if serial else "")
@@ -1532,7 +1562,8 @@ def phase_train_macro_int8_overlap(per_step):
                        host_wait_hidden_fraction=(
                            1.0 - visible / st.overlap_exchange_blocking_s))
         else:
-            visible, walls, out = st.overlap_exchange_visible_s, steady, launches
+            visible, walls = st.overlap_exchange_visible_s, steady
+            out = {"launches": launches, "losses": res.losses, "steady_cycle_ms": steady}
         faults = [what for what, bad in (
             ("overlap cycles", not st.overlap_cycles == n_side == n_sync > 0),
             ("blocking K5 off the main stream", len(on_side) - n_side != modes.count("blocking")),
@@ -1545,6 +1576,170 @@ def phase_train_macro_int8_overlap(per_step):
         del res, params0
         torch.cuda.empty_cache()
     return out
+
+
+@contextmanager
+def run_trace(name):
+    """A Tracer writing one stream into a fresh temporary directory, for one
+    run_training. Yields (tracer, events); after the block the tracer is
+    closed, its stream merged into one file (`merge_streams`) and that
+    file's events put in `events`. The directory is removed."""
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    base = os.path.join(tmp, "trace.jsonl")
+    tracer, events = Tracer(stream_path(base, 0), proc_id=0), []
+    try:
+        yield tracer, events
+        tracer.close()
+        if merge_streams(base) != base:
+            raise AssertionError(f"{name}: no trace stream to merge")
+        events.extend(load_events(base))
+    finally:
+        tracer.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def span_summary(events):
+    """Count, total ms and median ms of each span name."""
+    durs = {}
+    for ev in events:
+        if ev["ph"] == "X":
+            durs.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+    return {n: {"count": len(v), "total_ms": sum(v), "median_ms": statistics.median(v)}
+            for n, v in sorted(durs.items())}
+
+
+def trace_faults(events, res):
+    """What every traced macro run's trace holds: each event valid and the
+    file sorted by time; the cycle spans' steps covering the run and their
+    per-level syncs adding to `level_sync_counts`; one compile instant per
+    program built and one fresh_compile cycle per compile; one span of
+    each overlap leg per overlap cycle; each cycle span at least its
+    SimResult.cycles seconds (to the microsecond)."""
+    st = res.executor_stats
+    cycles = [ev for ev in events if ev["name"] == "cycle"]
+    names = [ev["name"] for ev in events]
+    counts_ = res.controller.level_sync_counts()
+    legs = ("ov_compute", "ov_merge") + (("ov_exchange_visible",)
+                                         if st.overlap_exchange_blocking_s == 0 else
+                                         ("ov_exchange_blocking",))
+    return [what for what, bad in (
+        ("invalid events", any(validate_event(ev) is not None for ev in events)),
+        ("not sorted", [ev["ts"] for ev in events] != sorted(ev["ts"] for ev in events)),
+        ("cycle steps", sum(ev["args"]["steps"] for ev in cycles) != len(res.losses)),
+        ("cycle syncs", any(sum(ev["args"]["syncs"].get(k, 0) for ev in cycles) != n
+                            for k, n in counts_.items())),
+        ("compiles", names.count("compile") != st.compiles
+         or sum(ev["args"]["fresh_compile"] for ev in cycles) != st.compiles),
+        ("overlap legs", any(names.count(n) != st.overlap_cycles for n in legs)),
+        ("cycle walls", len(cycles) != len(res.cycles) or any(
+            ev["dur"] < int(sec * 1e6) for ev, (_, sec) in zip(cycles, res.cycles))))
+        if bad]
+
+
+def phase_train_trace(per_step, untraced):
+    """The train_macro_int8_overlap cell (macro, int8 wire, one_cycle) with
+    a tracer: the carry (params and momentum of every replica) bit for bit
+    the per-step run's in `per_step`, the losses bit for bit the untraced
+    macro run's in `untraced`, the same launches; the trace holds what
+    `trace_faults` lists, and the tracer's own cost is below 1 % of the
+    run's wall. Prints the span totals by name, the event count, the
+    overhead, and the steady overlap cycle walls beside the untraced
+    run's, and what the phase cost the script (`phase_wall_s`). Returns
+    its launches."""
+    t0 = time.perf_counter()
+    with run_trace("train_trace") as (tracer, events):
+        res, row, launches, modes, params0 = run_train_phase(
+            "train_trace", {"executor": "macro", **INT8_OVERLAP}, INT8_OVERLAP_WHY,
+            tracer=tracer)
+    check_launches(row, launches, int8_overlap_launches(modes))
+    steady = steady_overlap_cycles(res)
+    row.update(
+        events=len(events), event_names=dict(collections.Counter(ev["name"] for ev in events)),
+        tracer_overhead_ms=1e3 * tracer.overhead_s,
+        tracer_overhead_fraction=tracer.overhead_s / row["wall_s"],
+        spans=span_summary(events),
+        steady_cycle_ms=steady, steady_cycle_ms_median=statistics.median(steady),
+        untraced_steady_cycle_ms=untraced["steady_cycle_ms"],
+        untraced_steady_cycle_ms_median=statistics.median(untraced["steady_cycle_ms"]),
+        # what a cycle span holds beyond the cycle's seconds: its batches'
+        # staging (data generation, torch.stack, the lrs)
+        cycle_span_less_seconds_ms=[
+            ev["dur"] / 1e3 - 1e3 * sec for ev, (_, sec) in
+            zip((ev for ev in events if ev["name"] == "cycle"), res.cycles)],
+        losses_identical_to_untraced=res.losses == untraced["losses"],
+        carry_identical_to_per_step=carry_matches(res.carry, per_step["carry"]))
+    faults = trace_faults(events, res) + [what for what, bad in (
+        ("losses", not row["losses_identical_to_untraced"]),
+        ("carry", not row["carry_identical_to_per_step"]),
+        ("overhead", row["tracer_overhead_fraction"] >= 0.01),
+        ("no overlap cycle", res.executor_stats.overlap_cycles == 0)) if bad]
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"train_trace: {faults}")
+    del res, params0
+    torch.cuda.empty_cache()
+    emit({**row, "phase_wall_s": time.perf_counter() - t0})
+    return launches
+
+
+LAUNCH_STEPS = 12
+
+
+def phase_launch_trace():
+    """The launcher on the card: repro_torch.launch.train.main with --tiny,
+    --trace-out and --metrics-out, 12 steps (DASO, macro, the paper's
+    wires). The merged trace holds one run_metadata event and one
+    comm_meters counter, and what `trace_faults` lists; the comm_meters
+    rows in the metrics file equal `level_bytes_report` computed here;
+    K2 / K3 launch as the modes imply. Returns its launches."""
+    from repro_torch.launch import train as launch_train
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_trace_")
+    trace_path, metrics_path = os.path.join(tmp, "t.jsonl"), os.path.join(tmp, "m.json")
+    try:
+        sync()
+        zero_counts()
+        res = launch_train.main(["--tiny", "--steps", str(LAUNCH_STEPS), "--trace-out",
+                                 trace_path, "--metrics-out", metrics_path])
+        sync()
+        launches = counts()
+        events = load_events(trace_path)
+        with open(metrics_path) as f:
+            metrics = json.load(f)
+        with open(trace_path) as f:
+            merged_lines = sum(1 for line in f if line.strip())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ctrl = res.controller
+    rows = meters.level_bytes_report(res.params, ctrl.level_sync_counts(), ctrl.cfg,
+                                     outer_split=meters.outer_sync_split(ctrl.history))
+    names = [ev["name"] for ev in events]
+    meta = next((ev["args"] for ev in events if ev["name"] == "run_metadata"), {})
+    comm = next((ev["args"] for ev in events if ev["name"] == "comm_meters"), None)
+    modes = [outer_mode(h[1]) for h in ctrl.history]
+    row = {"phase": "launch_trace", "entry": "repro_torch.launch.train.main",
+           "argv": ["--tiny", "--steps", LAUNCH_STEPS, "--trace-out", "T", "--metrics-out", "M"],
+           "device": metrics["device"], "events": len(events), "merged_lines": merged_lines,
+           "event_names": dict(collections.Counter(names)), "run_metadata": meta,
+           "comm_meters": metrics.get("comm_meters"), "launches": launches,
+           "spans": span_summary(events), "final_loss": res.final_loss}
+    faults = trace_faults(events, res) + [what for what, bad in (
+        ("not the merged trace", merged_lines != len(events) or not events),
+        ("run_metadata", names.count("run_metadata") != 1 or meta.get("procs") != 1),
+        ("comm_meters counter", names.count("comm_meters") != 1
+         or comm != meters.rows_as_counter(rows)),
+        ("comm_meters rows", metrics.get("comm_meters") != [
+            {**dataclasses.asdict(r), "total_bytes": r.total_bytes} for r in rows]),
+        ("device", not metrics["device"].startswith("cuda")),
+        ("launches", launches != train_launches(modes))) if bad]
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"launch_trace: {faults}")
+    del res
+    torch.cuda.empty_cache()
+    emit({**row, "phase_wall_s": time.perf_counter() - t0})
+    return launches
 
 
 # train_resume: one TrainState lands at the first cycle boundary at or past
@@ -1635,7 +1830,7 @@ def phase_train_resume():
             raise RuntimeError(f"train_resume: {free} bytes free in {tmp}, the "
                                f"checkpoint takes {carry_bytes}")
 
-        def run(**options):
+        def run(tracer=None, **options):
             loop_cfg = TrainLoopConfig(
                 strategy="daso", n_steps=RESUME_STEPS, n_replicas=TRAIN_R,
                 local_world=TRAIN_LOCAL_WORLD, b_max=TRAIN_B_MAX, lr=TRAIN_LR,
@@ -1645,13 +1840,26 @@ def phase_train_resume():
             zero_counts()
             t0 = time.perf_counter()
             res = run_training(make_lm_loss(cfg), params0, data, loop_cfg,
-                               optimizer=sgd(momentum=0.9, weight_decay=1e-4), log=None)
+                               optimizer=sgd(momentum=0.9, weight_decay=1e-4), log=None,
+                               tracer=tracer)
             sync()
             return res, counts(), torch.cuda.max_memory_allocated(), time.perf_counter() - t0
 
-        with timed_calls(loop, "save_train_state") as save_s:
+        with (timed_calls(loop, "save_train_state") as save_s,
+              run_trace("train_resume") as (tracer, events)):
             full, full_launches, full_peak, full_s = run(ckpt_every=RESUME_EVERY,
-                                                         ckpt_dir=tmp)
+                                                         ckpt_dir=tmp, tracer=tracer)
+        saves = [ev for ev in events if ev["name"] == "checkpoint_save"]
+        row.update(checkpoint_save_spans=[{"step": ev["args"]["step"], "ms": ev["dur"] / 1e3}
+                                          for ev in saves],
+                   trace_events=len(events), tracer_overhead_ms=1e3 * tracer.overhead_s)
+        span_faults = trace_faults(events, full)
+        if len(saves) != 1 or not (int(save_s[0] * 1e6) <= saves[0]["dur"]
+                                   <= (save_s[0] + 0.5) * 1e6):
+            span_faults.append("checkpoint_save span")
+        if span_faults:
+            emit({**row, "save_s": save_s, "failed": span_faults})
+            raise AssertionError(f"train_resume: {span_faults}")
         dirs = list_train_state_dirs(tmp)
         if len(dirs) != 1 or len(save_s) != 1:
             emit({**row, "failed": "one TrainState", "dirs": dirs})
@@ -1848,12 +2056,19 @@ def phase_train_topo():
 
 
 def phase_train_macro_topo(per_step):
-    """The 3-level topology through the macro-cycle executor: the per-step
-    run's history tokens, its final carry (params and momentum of every
-    replica) bit for bit, the same launches."""
-    res, row, launches, modes, params0 = run_train_phase(
-        "train_macro_topo", {"executor": "macro", "topology": TOPO_SPEC}, TRAIN_WHY)
-    faults = topo_holds(res, row, launches, train_launches(modes))
+    """The 3-level topology through the macro-cycle executor, traced: the
+    per-step run's history tokens, its final carry (params and momentum of
+    every replica) bit for bit, the same launches; the cycle spans' host
+    syncs add to `level_sync_counts()["host"]` (`trace_faults`)."""
+    with run_trace("train_macro_topo") as (tracer, events):
+        res, row, launches, modes, params0 = run_train_phase(
+            "train_macro_topo", {"executor": "macro", "topology": TOPO_SPEC}, TRAIN_WHY,
+            tracer=tracer)
+    faults = topo_holds(res, row, launches, train_launches(modes)) + trace_faults(events, res)
+    row.update(spans=span_summary(events), trace_events=len(events),
+               tracer_overhead_ms=1e3 * tracer.overhead_s,
+               cycle_span_host_syncs=sum(ev["args"]["syncs"].get("host", 0)
+                                         for ev in events if ev["name"] == "cycle"))
     row.update(per_step_ms_median=per_step["step_ms_median"],
                history_identical_to_per_step=[h[1] for h in res.controller.history]
                == per_step["history"],
@@ -2292,8 +2507,10 @@ def main():
     phase_train_check()
     resume_launches = phase_train_resume()
     int8_per_step = phase_train_int8_overlap()
-    int8_macro_launches = phase_train_macro_int8_overlap(int8_per_step)
+    int8_macro = phase_train_macro_int8_overlap(int8_per_step)
+    trace_launches = phase_train_trace(int8_per_step, int8_macro)
     del int8_per_step["carry"]
+    launch_trace_launches = phase_launch_trace()
     topo = phase_train_topo()
     topo_macro_launches = phase_train_macro_topo(topo)
     del topo["carry"]
@@ -2305,7 +2522,8 @@ def main():
     phase_timing(rows, serve_launches, {
         "train": trained["launches"], "train_macro": macro["launches"],
         "train_int8_overlap": int8_per_step["launches"],
-        "train_macro_int8_overlap": int8_macro_launches,
+        "train_macro_int8_overlap": int8_macro["launches"],
+        "train_trace": trace_launches, "launch_trace": launch_trace_launches,
         "train_resume": resume_launches, "train_topo": topo["launches"],
         "train_macro_topo": topo_macro_launches, "train_topo_2level": topo_2level_launches,
         **topo_int8_launches}, arena_parts,

@@ -25,6 +25,14 @@ The macro-cycle executor runs one controller cycle per host dispatch:
     stream meanwhile, then the stale Eq. (1) merge once both are done. On
     the CPU the three run one after the other, with the same numbers.
 
+With a tracer (obs/trace.py) the executor writes the reference's events:
+a `cycle` span per dispatched cycle (its steps and per-level sync counts),
+`compile` and `invalidate` instants, the overlap legs' spans and a
+`checkpoint_save` span per save. Each span that times device work ends on
+a wait the untraced path has anyway (the metrics' copy to the host, a
+stream's synchronize, the save's copies off the card), so tracing adds no
+synchronisation and changes no number.
+
 Functions that run a cycle take the carry in a one-element list and empty
 it, so no caller's frame keeps the old carry alive while the cycle writes a
 new one (the reference donates the carry's buffers to XLA); the per-step
@@ -45,6 +53,7 @@ from repro_torch.core.daso import (DasoConfig, _cross_replica_loss,
                                    global_send, normalize_group_perm, replica_divergence,
                                    replicate_params, sync_train_step)
 from repro_torch.core.schedule import DasoController, Mode, join_mode, split_mode, split_ov
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.tree import leaves, tree_map
 
@@ -447,18 +456,22 @@ class MacroCycleExecutor:
     """Runs planned cycles as programs, one per distinct `CycleShape`,
     cached in `_programs`; an overlap cycle runs its exchange on
     `exchange_stream`, a CUDA stream the executor owns (made at the first
-    overlap cycle on the card)."""
+    overlap cycle on the card). `tracer` takes the run's events; the
+    default `NULL_TRACER` keeps every call site free of branches."""
 
     def __init__(self, strategy: Strategy, *, max_cycle_len: int = 32,
-                 serial_exchange: bool = False):
+                 serial_exchange: bool = False, tracer=None):
         self.strategy = strategy
         self.max_cycle_len = max_cycle_len
         # wait for the exchange before the local steps start: the same
         # numbers, and overlap_exchange_blocking_s measures the exchange
         self.serial_exchange = serial_exchange
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.stats = ExecutorStats()
         self.exchange_stream: Optional[torch.cuda.Stream] = None
         self._programs: Dict[CycleShape, Callable] = {}
+        # the tail fallback's step variants, by (mode, staleness)
+        self._per_step: Dict[Tuple[str, int], Callable] = {}
         # the overlap exchange ("exchange") and merges (("merge", S, E))
         self._ov_fns: Dict[object, Callable] = {}
 
@@ -470,6 +483,8 @@ class MacroCycleExecutor:
         if shape not in self._programs:
             self._programs[shape] = self._build_program(shape)
             self.stats.compiles += 1
+            self.tracer.instant("compile", cat="executor", shape_len=len(shape),
+                                modes=[m for m, _ in shape])
         return self._programs[shape]
 
     def invalidate(self) -> int:
@@ -479,10 +494,12 @@ class MacroCycleExecutor:
         `DasoStrategy.set_group_permutation`, and the resilience supervisor
         when the membership changes (the reference's
         `resilience/supervisor.py`; ROADMAP item 15)."""
-        n = len(self._programs) + len(self._ov_fns)
+        n = len(self._programs) + len(self._per_step) + len(self._ov_fns)
         self._programs.clear()
+        self._per_step.clear()
         self._ov_fns.clear()
         self.stats.invalidations += 1
+        self.tracer.instant("invalidate", cat="executor", dropped=n)
         return n
 
     def _build_program(self, shape: CycleShape) -> Callable:
@@ -568,32 +585,40 @@ class MacroCycleExecutor:
                 stream.synchronize()
             return time.perf_counter()
 
+        tr, steps = self.tracer, len(ov.compute_shape)
         t0 = time.perf_counter()
         if self.serial_exchange:
-            inflight = run_exchange()
-            t1 = wait(side)
-            self.stats.overlap_exchange_blocking_s += t1 - t0
-            (params, opt_state), m = program(compute, batches, lrs)
-            t2 = wait(main)
-            self.stats.overlap_compute_s += t2 - t1
+            with tr.span("ov_exchange_blocking", cat="executor"):
+                inflight = run_exchange()
+                t1 = wait(side)
+                self.stats.overlap_exchange_blocking_s += t1 - t0
+            with tr.span("ov_compute", cat="executor", steps=steps):
+                (params, opt_state), m = program(compute, batches, lrs)
+                t2 = wait(main)
+                self.stats.overlap_compute_s += t2 - t1
         else:
-            inflight = run_exchange()                 # in flight, not awaited
-            (params, opt_state), m = program(compute, batches, lrs)
-            t1 = wait(main)
-            self.stats.overlap_compute_s += t1 - t0
-            t2 = wait(side)
-            self.stats.overlap_exchange_visible_s += t2 - t1
-        if side is not None:
-            # the merge reads what the exchange wrote; the snapshot it read
-            # may be freed once this wait is enqueued, and the result,
-            # allocated on the exchange stream, is used on this one from now
-            main.wait_stream(side)
-            for x in leaves(inflight):
-                x.record_stream(main)
-        del pending
-        params, loss = merge(params, inflight, m["loss_per_replica"])
-        t3 = wait(main)
-        self.stats.overlap_merge_s += t3 - t2
+            with tr.span("ov_compute", cat="executor", steps=steps):
+                inflight = run_exchange()             # in flight, not awaited
+                (params, opt_state), m = program(compute, batches, lrs)
+                t1 = wait(main)
+                self.stats.overlap_compute_s += t1 - t0
+            with tr.span("ov_exchange_visible", cat="executor"):
+                t2 = wait(side)
+                self.stats.overlap_exchange_visible_s += t2 - t1
+        with tr.span("ov_merge", cat="executor", staleness=ov.staleness,
+                     extra=ov.extra_staleness):
+            if side is not None:
+                # the merge reads what the exchange wrote; the snapshot it
+                # read may be freed once this wait is enqueued, and the
+                # result, allocated on the exchange stream, is used on this
+                # one from now
+                main.wait_stream(side)
+                for x in leaves(inflight):
+                    x.record_stream(main)
+            del pending
+            params, loss = merge(params, inflight, m["loss_per_replica"])
+            t3 = wait(main)
+            self.stats.overlap_merge_s += t3 - t2
         self.stats.overlap_wall_s += t3 - t0
         metrics = dict(m)
         metrics["loss"] = loss
@@ -605,14 +630,19 @@ class MacroCycleExecutor:
         self.stats.overlap_cycles += 1
         return (params, opt_state, inflight, params), metrics
 
+    def _per_step_fn(self, mode: str, stale: int) -> Callable:
+        key = (mode, stale)
+        if key not in self._per_step:
+            self._per_step[key] = self.strategy.step_fn(mode, stale)
+        return self._per_step[key]
+
     def _run_per_step(self, slot: list, shape: CycleShape, batches, lrs):
         """The tail fallback: one dispatch per step, so a shape used once at
         the end of a run builds no program."""
         carry = slot.pop()
         chunks = []
         for i, (mode, stale) in enumerate(shape):
-            carry, m = self.strategy.step_fn(mode, stale)(carry, _step_batch(batches, i),
-                                                          lrs[i])
+            carry, m = self._per_step_fn(mode, stale)(carry, _step_batch(batches, i), lrs[i])
             chunks.append(m)
             self.stats.dispatches += 1
             self.stats.fallback_steps += 1
@@ -629,7 +659,8 @@ def shape_sync_counts(shape: CycleShape) -> Dict[str, int]:
             m = m[len(OVERLAP_COMPUTE_PREFIX):]
         outer, inner = split_mode(m)
         if split_ov(outer)[0] in (Mode.SEND, Mode.SEND_RECEIVE, Mode.BLOCKING,
-                                  Mode.HARD_AVG, Mode.OV_SYNC):
+                                  Mode.HARD_AVG, Mode.OV_SYNC, Mode.GOSSIP,
+                                  Mode.ELASTIC, Mode.PUSH):
             counts["_outer"] += 1
         for name in inner:
             counts[name] = counts.get(name, 0) + 1
@@ -645,19 +676,34 @@ def dispatch_planned_cycle(ex: MacroCycleExecutor, slot: list, plan: CyclePlan,
     the cycle's only wait for the device. Returns (carry, cycle_losses,
     per_step_metrics, seconds): host seconds from the staged batches to the
     metrics on the host, the span the per-step path's `step_seconds` times
-    for one step."""
-    steps = range(plan.start_step, plan.start_step + len(plan))
-    per_step = [data_fn(t) for t in steps]
-    batches = tree_map(lambda *xs: torch.stack(xs), *per_step)
-    del per_step
-    lrs = torch.tensor([lr_fn(t) for t in steps], dtype=torch.float32,
-                       device=_device_of(batches))
-    t0 = time.perf_counter()
-    carry, metrics = ex.run_cycle(slot, plan, batches, lrs,
-                                  is_tail=plan.start_step + len(plan) >= n_steps)
-    keys = [k for k, v in metrics.items() if v.dim() == 1]
-    host = torch.stack([metrics[k].double() for k in keys]).cpu()
-    seconds = time.perf_counter() - t0
+    for one step.
+
+    The whole sequence, staging included, is one `cycle` trace span, as in
+    the reference; it ends on the metrics' copy to the host, so it times
+    the card's work, and it is at least `seconds` long. Its args carry the
+    per-level sync counts and, set after the run, `fresh_compile` (the
+    cycle built its shape's program) and `fallback` (it ran step by
+    step)."""
+    compiles0, fallback0 = ex.stats.compiles, ex.stats.fallback_steps
+    with ex.tracer.span("cycle", cat="executor", start_step=plan.start_step,
+                        steps=len(plan), syncs=shape_sync_counts(plan.shape)) as sp:
+        steps = range(plan.start_step, plan.start_step + len(plan))
+        per_step = [data_fn(t) for t in steps]
+        batches = tree_map(lambda *xs: torch.stack(xs), *per_step)
+        del per_step
+        lrs = torch.tensor([lr_fn(t) for t in steps], dtype=torch.float32,
+                           device=_device_of(batches))
+        t0 = time.perf_counter()
+        carry, metrics = ex.run_cycle(slot, plan, batches, lrs,
+                                      is_tail=plan.start_step + len(plan) >= n_steps)
+        keys = [k for k, v in metrics.items() if v.dim() == 1]
+        host = torch.stack([metrics[k].double() for k in keys]).cpu()
+        seconds = time.perf_counter() - t0
+        if ex.tracer.enabled:
+            # span args serialize at the span's exit, so the outcome flags
+            # can land after the run
+            sp.args["fresh_compile"] = ex.stats.compiles > compiles0
+            sp.args["fallback"] = ex.stats.fallback_steps > fallback0
     per_step_metrics = [{k: float(host[i, j]) for i, k in enumerate(keys)}
                         for j in range(len(plan))]
     cycle_losses = [m["loss"] for m in per_step_metrics]
@@ -724,7 +770,8 @@ def run_compiled_training(strategy: Strategy, params0, data_fn: Callable,
         if next_ckpt is not None and ckpt_cb is not None and step >= next_ckpt:
             if ex.exchange_stream is not None:
                 torch.cuda.current_stream().wait_stream(ex.exchange_stream)
-            ckpt_cb(step, slot[0], losses)
+            with ex.tracer.span("checkpoint_save", cat="checkpoint", step=step):
+                ckpt_cb(step, slot[0], losses)
             next_ckpt = (step // ckpt_every + 1) * ckpt_every
     carry = slot.pop()
     return SimResult(losses=losses, metrics=metrics_log,

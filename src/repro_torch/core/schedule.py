@@ -22,7 +22,10 @@ the outermost level.
 Pure host logic: given the step index it returns which step variant to run
 and consumes windowed loss means for plateau detection. Its state_dict has
 the reference's keys, so the two packages' schedules compare directly.
-`retune` and the `notify_*` hooks are later ports (ROADMAP items 18, 15).
+With a `tracer` attached, each plateau decision is a `bw_change` instant
+(obs/trace.py). `retune` and the `notify_*` hooks, and the `retune` /
+`membership_change` / `dcn_scale` events they emit, are later ports
+(ROADMAP items 18, 15).
 """
 from __future__ import annotations
 
@@ -44,6 +47,14 @@ class Mode:
     # stale; an OV_SYNC token carries its extra staleness as "~E"
     OV_START = "ov_start"
     OV_SYNC = "ov_sync"
+    # baseline strategy family (the reference's core/baselines.py, ROADMAP
+    # item 14): GOSSIP carries its ring-shift as a "~s" suffix
+    # ("gossip~2"), reusing the split_ov mechanics so each shift runs as
+    # its own step variant; ELASTIC is the EASGD center pull, PUSH the
+    # DOWNPOUR delta push — both one global all-reduce.
+    GOSSIP = "gossip"
+    ELASTIC = "elastic"
+    PUSH = "push"
 
 
 # outermost-level actions that touch the global (cross-node) network
@@ -103,6 +114,17 @@ class DasoController:
                                                      default_factory=list)
     events: List[Tuple[int, str, float]] = field(init=False,
                                                  default_factory=list)
+
+    # obs.trace sink for decision events (plateau B/W changes), attached by
+    # train/loop.py when a run is traced. A plain class attribute, not a
+    # dataclass field: it never enters _STATE_FIELDS / state_dict (a
+    # checkpoint round-trips through JSON), and a controller without one
+    # stays silent.
+    tracer = None
+
+    def _trace(self, name: str, **args) -> None:
+        if self.tracer is not None:
+            self.tracer.instant(name, cat="schedule", **args)
 
     def __post_init__(self):
         self._b = max(1, self.cfg.b_max)
@@ -233,12 +255,19 @@ class DasoController:
         self._since_improve += 1
         if self._since_improve >= self.cfg.plateau_patience:
             self._since_improve = 0
+            b0, w0 = self._b, self._w
             if self._b == 1 and self._w == 1:
                 self._b = max(1, self.cfg.b_max)          # paper: reset
                 self._w = max(1, self._b // 4)
+                reason = "plateau_reset"
             else:
                 self._b = max(1, self._b // 2)             # paper: halve
                 self._w = max(1, self._w // 2)
+                reason = "plateau_halve"
+            self._trace("bw_change", reason=reason, b_from=b0, b_to=self._b,
+                        w_from=w0, w_to=self._w, window_mean=mean,
+                        best=self._best,
+                        patience=self.cfg.plateau_patience)
 
     # -- checkpoint state --------------------------------------------------
     _STATE_FIELDS = ("_b", "_w", "_last_send", "_inflight_since",

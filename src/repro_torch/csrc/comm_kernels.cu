@@ -7,7 +7,8 @@
 //   K4 bf16_unpack      bf16 wire buffer -> arena dtype (exact)
 //   K5 quantize_int8    arena -> int8 wire values + one f32 scale per block
 //                       of the trailing axis, scale = max(absmax, 1e-12)/127,
-//                       round half to even or floor(v + u) from caller bits
+//                       round half to even or floor(v + u) from caller bits,
+//                       the sum taken exactly
 //   K6 dequantize_int8  int8 values * their block's scale -> f32
 //
 // Replace the Pallas TPU kernels of repro/kernels/comm_kernels.py:
@@ -379,8 +380,9 @@ template <bool kStochastic>
 __device__ __forceinline__ int8_t quantize1(float x, float scale, uint32_t bits) {
   const float v = __fdiv_rn(x, scale);
   float q;
-  if constexpr (kStochastic)  // u = top 24 bits * 2^-24, exact
-    q = floorf(__fadd_rn(v, __fmul_rn(__uint2float_rn(bits >> 8), 0x1p-24f)));
+  if constexpr (kStochastic)  // u = top 24 bits * 2^-24; v + u is exact in f64, where
+    // f32 rounds v = -127, u = 1 - 2^-24 up to -126, an error over the scale
+    q = float(floor(__dadd_rn(double(v), double(bits >> 8) * 0x1p-24)));
   else
     q = rintf(v);  // ties to even
   q = isnan(q) ? 0.0f : fminf(fmaxf(q, -127.0f), 127.0f);

@@ -127,7 +127,10 @@ def quantize_int8_block_ref(x, *, block: int = 256, bits=None):
     (the divisor is a tensor on x's device: PyTorch's CUDA `div` by a
     Python scalar multiplies by the reciprocal); q = round-half-even(x /
     scale), or floor(x / scale + u) with u = (bits >> 8) * 2^-24 when
-    `bits` (uint32, x's shape) is given; clipped to +-127.
+    `bits` (uint32, x's shape) is given; clipped to +-127. The sum v + u
+    is taken in f64, where it is exact: the reference's f32 sum rounds,
+    for one, -127 + (1 - 2^-24) up to -126, and its error then passes
+    the scale.
 
     A block whose absmax is NaN or inf has NaN in place of some x / scale;
     the reference's float -> int8 cast of NaN is undefined, and here such
@@ -145,8 +148,8 @@ def quantize_int8_block_ref(x, *, block: int = 256, bits=None):
         # torch's uint32 cannot shift: the int32 view shifts arithmetically,
         # the mask keeps the logical shift's 24 bits
         bb, _ = _blocked(bits.view(torch.int32), block)
-        u = ((bb >> 8) & 0xFFFFFF).float() * 2.0 ** -24  # exact: < 2^24 times 2^-24
-        v = v.add_(u).floor_()
+        u = ((bb >> 8) & 0xFFFFFF).double() * 2.0 ** -24  # exact: < 2^24 times 2^-24
+        v = (v.double() + u).floor_().float()  # an integer: exact in f32
     v = v.clamp_(-127.0, 127.0).nan_to_num_(nan=0.0)
     values = _unblocked(v.to(torch.int8), *meta)
     lead, _, npad = meta

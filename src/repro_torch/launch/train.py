@@ -28,10 +28,21 @@ step per dispatch.
   PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
       --topology "chip:4 x host:2@50e9 x pod:2@25e9" --steps 40
 
-Either package loads the other's checkpoints (`checkpoint/io.py`).
-The reference's other flags (the per-leaf exchange, fault plans, tracing,
-autotune, the multi-process runtime) are not ported yet: each is refused
-with the ROADMAP item that will port it.
+  # a JSONL run trace (obs/trace.py): the run_metadata event, the macro
+  # executor's cycle / overlap / compile / checkpoint events, the
+  # controller's decisions and the per-level comm_meters counter; the
+  # stream PATH.e0p0.jsonl is merged into PATH at the end of the run.
+  # tools/trace_report.py PATH reads it where JAX is installed
+  PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
+      --steps 40 --trace-out runs/trace.jsonl --metrics-out runs/m.json
+
+Either package loads the other's checkpoints (`checkpoint/io.py`), and
+reads the other's traces. The reference's other flags (the per-leaf
+exchange, fault plans, autotune, the multi-process runtime) are not ported
+yet: each is refused with the ROADMAP item that will port it. So a trace
+here is one process's stream: the merge of several processes' streams
+(tools/launch_procs.py) and the health monitor's `phase` instants wait for
+item 16, the supervisor's spans and the membership events for item 15.
 """
 import argparse
 import dataclasses
@@ -48,17 +59,20 @@ from repro_torch.core.executor import list_strategies
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import init_params
+from repro_torch.obs import meters
+from repro_torch.obs.trace import Tracer, merge_streams, stream_path
 from repro_torch.optim.schedules import warmup_linear_scaled
 from repro_torch.topo import TopologySpec, derive_inner_periods
 from repro_torch.train.loop import TrainLoopConfig, run_training
 from repro_torch.train.step import make_lm_loss
+from repro_torch.tree import leaves
 
 # flags of the reference launcher that wait for a later part of the port,
 # with the ROADMAP item that ports them
 LATER_FLAGS = {
     "--exchange-impl": 7, "--dispatch": 16, "--fault-plan": 15,
-    "--autotune": 18, "--autotune-every": 18, "--trace-out": 17,
-    "--distributed": 16, "--coordinator": 16, "--procs": 16, "--proc-id": 16,
+    "--autotune": 18, "--autotune-every": 18, "--distributed": 16,
+    "--coordinator": 16, "--procs": 16, "--proc-id": 16,
 }
 
 
@@ -125,6 +139,11 @@ def parse_args(argv=None):
                     help="resume from a TrainState directory written by "
                          "--ckpt-every (by either package)")
     ap.add_argument("--metrics-out", default=None)
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a JSONL run trace (obs/trace.py): the macro "
+                         "executor's and the controller's events and the comm "
+                         "meters; the stream PATH.e0p0.jsonl is merged into PATH. "
+                         "Inspect with tools/trace_report.py")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.ckpt_every and not args.ckpt:
@@ -190,15 +209,38 @@ def main(argv=None):
         device=str(device))
     lr_fn = warmup_linear_scaled(args.lr / (R * args.local_world), R * args.local_world,
                                  max(1, args.steps // 10))
+    tracer = None
+    if args.trace_out:
+        tracer = Tracer(stream_path(args.trace_out, 0), proc_id=0)
+        # what tools/trace_report.py needs to price the model side of its
+        # drift table, in the reference launcher's keys
+        tracer.metadata(
+            arch=args.arch, strategy=args.strategy, steps=args.steps,
+            topology=spec.to_str() if spec is not None else None,
+            n_replicas=R, local_world=args.local_world,
+            b_max=(spec.outer.period if spec is not None and spec.outer.period is not None
+                   else args.b_max),
+            wire_format=args.wire_format, exchange_impl="fused", overlap=args.overlap,
+            param_bytes=sum(x.numel() * x.element_size() for x in leaves(params0)),
+            procs=1, seed=args.seed, tiny=bool(args.tiny))
     result = run_training(make_lm_loss(cfg), params0,
                           sync_data if args.strategy == "sync" else daso_data,
-                          loop_cfg, lr_fn=lr_fn)
+                          loop_cfg, lr_fn=lr_fn, tracer=tracer)
     stats = result.executor_stats
     if stats is not None:
         print(f"[train] executor: {stats.dispatches} host dispatches for "
               f"{args.steps} steps ({stats.compiles} compiled cycle shapes, "
               f"{stats.fallback_steps} tail-fallback steps, "
               f"{stats.invalidations} invalidations)")
+    comm_rows = None
+    if tracer is not None and result.controller is not None:
+        # per-level comm accounting over the whole run, in the trace (a
+        # counter event) and in the metrics JSON
+        ctrl = result.controller
+        comm_rows = meters.level_bytes_report(
+            params0, ctrl.level_sync_counts(), ctrl.cfg, topo=spec,
+            outer_split=meters.outer_sync_split(ctrl.history))
+        tracer.counter("comm_meters", meters.rows_as_counter(comm_rows))
     if args.ckpt:
         save_checkpoint(args.ckpt, result.params, step=args.steps)
         print(f"[train] checkpoint -> {args.ckpt}")
@@ -209,9 +251,19 @@ def main(argv=None):
                    "device": str(device)}
         if stats is not None:
             metrics["executor_stats"] = dataclasses.asdict(stats)
+        if comm_rows is not None:
+            metrics["comm_meters"] = [{**dataclasses.asdict(r), "total_bytes": r.total_bytes}
+                                      for r in comm_rows]
         with open(args.metrics_out, "w") as f:
             json.dump(metrics, f)
         print(f"[train] metrics -> {args.metrics_out}")
+    if tracer is not None:
+        tracer.close()
+        # one process: merge its own stream, so --trace-out names a ready
+        # run trace
+        merge_streams(args.trace_out, log=print)
+        print(f"[train] trace events={tracer.n_events} "
+              f"overhead={tracer.overhead_s * 1e3:.1f}ms -> {args.trace_out}")
     return result
 
 

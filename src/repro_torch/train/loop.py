@@ -147,12 +147,18 @@ def wire_summary(dcfg: DasoConfig, params) -> str:
 def run_training(loss_fn: Callable, params0, data_fn: Callable,
                  cfg: TrainLoopConfig, *, optimizer: Optional[Optimizer] = None,
                  lr_fn: Optional[Callable] = None,
-                 log: Optional[Callable] = print) -> SimResult:
+                 log: Optional[Callable] = print, tracer=None) -> SimResult:
     """data_fn(step) -> batch on cfg.device. For the daso strategy the batch
     carries the leading replica axis; for sync it is flat. params0 must
     already be on cfg.device. On resume (`cfg.resume_from`) the returned
     loss trace is the whole run's: the checkpoint's losses, then this
-    run's."""
+    run's.
+
+    `tracer` (obs.trace.Tracer) takes the run's events: the macro executor's
+    cycle, overlap and checkpoint spans and the controller's decision
+    events (launch/train.py wires it from --trace-out). The per-step path
+    is left untraced, as in the reference: it is the numbers' oracle, not
+    a surface to measure."""
     device = resolve_device(cfg.device)
     if cfg.executor not in ("macro", "per_step"):
         raise ValueError(f"unknown executor {cfg.executor!r}; "
@@ -163,6 +169,8 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
     optimizer = optimizer or sgd(momentum=0.9, weight_decay=1e-4)
     lr_fn = lr_fn or constant_lr(cfg.lr)
     strategy = build_strategy(loss_fn, cfg, optimizer)
+    if tracer is not None and strategy.controller is not None:
+        strategy.controller.tracer = tracer
     overlap = cfg.overlap if cfg.strategy != "sync" else "off"
 
     # the loaded carry, handed over by `loaded.pop()` in the call, so that no
@@ -208,7 +216,8 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
             ckpt_cb=ckpt_cb)
     else:
         executor = MacroCycleExecutor(strategy, max_cycle_len=cfg.max_cycle_len,
-                                      serial_exchange=cfg.overlap_serial_exchange)
+                                      serial_exchange=cfg.overlap_serial_exchange,
+                                      tracer=tracer)
         result = run_compiled_training(
             strategy, params0, data_fn, lr_fn, cfg.n_steps, executor=executor,
             start_step=start_step, carry=loaded.pop() if loaded else None,

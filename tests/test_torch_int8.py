@@ -23,7 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings
+from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
 from repro.core import compression as jcomp
@@ -180,10 +180,12 @@ def test_within_one_ulp_of_pallas_and_the_split_shows(source):
 # -- twins of tests/test_flatbuf.py's int8 tests ---------------------------------
 
 @given(st.sampled_from([64, 128, 256]), st.integers(1, 2000), st.booleans())
+@example(256, 1404, True)  # x[3] / scale = -127 in f32, bits 0xFFFFFFFF
 @settings(max_examples=20, deadline=None)
 def test_int8_quantize_error_bounds_property(block, n, stochastic):
     """|x - deq(q(x))| <= scale / 2 rounding to nearest, < scale
-    stochastically (tests/test_flatbuf.py:105)."""
+    stochastically (tests/test_flatbuf.py:105). The example is a block
+    absmax whose f32 sum v + u rounds up to the next integer."""
     x = _x(block + n, (n,), scale=1.0 + n % 7)
     bits = torch.from_numpy(_bits(n, (n,))) if stochastic else None
     v, s = ops.quantize_int8(torch.from_numpy(x), bits, block=block)

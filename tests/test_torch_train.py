@@ -5,6 +5,7 @@ reference's per-step executor: identical mode history and sync fraction,
 loss trace within RTOL. Also the launcher and the quickstart twin. Inputs
 are made from a seed with numpy; both sides train on the same synthetic
 tokens from the same initial parameters."""
+import dataclasses
 import json
 
 import jax
@@ -28,6 +29,8 @@ from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.launch import quickstart
 from repro_torch.launch import train as launch_train
 from repro_torch.models.common import cross_entropy_loss
+from repro_torch.obs import meters
+from repro_torch.obs.trace import RUN_METADATA, load_events, validate_event
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
 from repro_torch.train.loop import TrainLoopConfig, run_training
@@ -226,7 +229,6 @@ def test_launcher_trains_on_the_cpu(tmp_path):
     (["--autotune"], SystemExit, "item 18"),
     (["--distributed"], SystemExit, "item 16"),
     (["--exchange-impl", "per_leaf"], SystemExit, "item 7"),
-    (["--trace-out", "t.jsonl"], SystemExit, "item 17"),
 ])
 def test_launcher_refuses_unported_flags(argv, err, match):
     with pytest.raises(err, match=match):
@@ -294,6 +296,49 @@ def test_launcher_trains_a_topology_on_the_cpu(tmp_path, capsys, one_torch_threa
     assert res.controller.level_sync_counts()["host"] > 0
     assert res.carry[0]["final_norm"]["scale"].shape[0] == 4
     assert len(json.loads(out.read_text())["losses"]) == 8
+
+
+# the run_metadata keys of the reference launcher (src/repro/launch/train.py:306-316)
+RUN_METADATA_KEYS = {"arch", "strategy", "steps", "topology", "n_replicas", "local_world",
+                     "b_max", "wire_format", "exchange_impl", "overlap", "param_bytes",
+                     "procs", "seed", "tiny"}
+
+
+@pytest.mark.parametrize("executor", ["macro", "per_step"])
+def test_launcher_writes_a_run_trace(tmp_path, capsys, one_torch_thread, executor):
+    """--trace-out: the merged trace with one run_metadata event in the
+    reference launcher's keys and one comm_meters counter, the same meters
+    in --metrics-out, and cycle spans on the macro executor only (the
+    per-step path stays untraced, as in the reference)."""
+    path, out = tmp_path / "t.jsonl", tmp_path / "m.json"
+    res = launch_train.main(["--tiny", "--device", "cpu", "--steps", "10", "--nodes", "2",
+                             "--per-node-batch", "2", "--seq-len", "16", "--executor", executor,
+                             "--trace-out", str(path), "--metrics-out", str(out)])
+    text = capsys.readouterr().out
+    assert path.exists() and (tmp_path / "t.jsonl.e0p0.jsonl").exists()
+    assert "[train] trace events=" in text and text.rstrip().endswith(f"-> {path}")
+    evs = load_events(str(path))
+    assert all(validate_event(ev) is None for ev in evs)
+    assert [ev["ts"] for ev in evs] == sorted(ev["ts"] for ev in evs)
+    meta = [ev for ev in evs if ev["name"] == RUN_METADATA]
+    assert len(meta) == 1 and set(meta[0]["args"]) == RUN_METADATA_KEYS
+    args = meta[0]["args"]
+    assert (args["exchange_impl"], args["procs"], args["n_replicas"], args["tiny"]) == (
+        "fused", 1, 2, True)
+    assert args["param_bytes"] == sum(x.numel() * x.element_size() for x in leaves(res.params))
+    comm = [ev for ev in evs if ev["name"] == "comm_meters"]
+    assert len(comm) == 1 and comm[0]["ph"] == "C"
+    ctrl = res.controller
+    rows = meters.level_bytes_report(res.params, ctrl.level_sync_counts(), ctrl.cfg,
+                                     outer_split=meters.outer_sync_split(ctrl.history))
+    assert comm[0]["args"] == meters.rows_as_counter(rows)
+    assert json.loads(out.read_text())["comm_meters"] == [
+        {**dataclasses.asdict(r), "total_bytes": r.total_bytes} for r in rows]
+    cycles = [ev for ev in evs if ev["name"] == "cycle"]
+    if executor == "macro":
+        assert sum(ev["args"]["steps"] for ev in cycles) == 10
+    else:
+        assert cycles == [] and res.executor_stats is None
 
 
 def test_launcher_refuses_to_train_the_ssm_family():
