@@ -21,8 +21,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                K6) on 1 and 4 rows, blocks 64 / 128 / 256, int8 edge blocks
                and stochastic bits 0, 0xFFFFFFFF and random; K2 to K4 also
                on Eq. (1) edge pairs (subnormals, overflow, +-inf, NaN,
-               signed zeros; NaN compared as NaN), at the stream ring's
-               boundaries (one chunk - 1 and + 1, one turn of the ring + 1),
+               signed zeros; NaN compared as NaN; K2 also at the
+               fractional P_eff 12.0 and 40 / 3 of elastic membership), at
+               the stream ring's boundaries (one chunk - 1 and + 1, one
+               turn of the ring + 1),
                on views whose misalignment x, y and out share (the ring's
                scalar head) and on views where they do not
   scan_check   hold K7 against its plain version within 1e-4 for f32 and
@@ -139,6 +141,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                (params, momentum, in-flight and pending of every replica)
                and the history bit for bit between the two, K2 / K5 / K6
                launches as the pod level's modes imply
+  train_baselines_gossip, train_baselines_gossip_per_step,
+  train_baselines_easgd, train_baselines_downpour
+               run_training with the baselines at the train cell's size,
+               macro: gossip on the int8 wire (K5 = K6 = exchanges + blocking
+               steps; also per-step, its losses and carry bit for bit the
+               macro run's), EASGD (f32 elastic mean, bf16 blocking: K3 =
+               blocking steps) and DOWNPOUR (bf16 wire: K3 = pushes +
+               blocking steps; lr / 16, see BASELINES). Each: a falling loss,
+               every replica's params one value after the cool-down, EASGD's
+               center and DOWNPOUR's anchor the params; ms per step by cycle
+               shape, a local and an exchange step's ms on the final carry,
+               peak and allocator retries, wire bytes per exchange
+  train_faults_daso, train_faults_gossip
+               resilience.run_with_faults through FAULT_EVENTS (a straggler,
+               a crash and rejoin, a degraded network) on the DASO train
+               cell (traced) and the gossip int8 cell: replica 2's params
+               and momentum rows frozen at every cycle boundary from the
+               crash to the rejoin, its rows the donors' mean right after the
+               rejoin, two membership and two dcn_scale controller events, B
+               = 8 while the network is degraded, two invalidations (those
+               of the executor and, traced, of the invalidate instants), the
+               membership timeline and simulated clock of a CPU rehearsal of
+               the plan, K2 at P_eff = 12.0 during the crash (DASO), one
+               fault_event span per event and what trace_faults lists
+  launch_faults
+               repro_torch.launch.train.main --tiny --steps 12 --fault-plan
+               --metrics-out on the card: the "resilience" record's keys and
+               events, K2 / K3 as the modes imply
   train        run_training with DASO on llama3.2-1b at full width, 4 of its
                16 layers, f32, R = 4 replicas: 40 steps on the per-step
                executor, K2 and K3 launches held to the schedule's receive
@@ -148,12 +178,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                every replica) bit for bit the train phase's, the same K2 and
                K3 launches; dispatches per step, programs built, fallback
                steps, ms per step by cycle shape, peak memory
+  train_faults_empty
+               run_with_faults with an empty plan on the train cell:
+               train_macro's losses and final carry bit for bit
   train_topo_2level
                the train cell on the 2-level spec chip:4 x pod:4 through the
                macro-cycle executor: the stock strategy and controller, and
                train_macro's final carry and losses bit for bit
   arena        K2 to K6 held bit-exact against their plain versions on the
-               final carry's parameter and momentum arenas (4 x N f32); a
+               final carry's parameter and momentum arenas (4 x N f32; K2
+               also at P_eff 12.0 and 40 / 3); a
                wire_roundtrip of the parameters launches K3 and K4
   timing       each kernel, its plain version and the library call, at the
                serving shapes (K1, K7, K8) and the training arena (K2 to K6);
@@ -186,7 +220,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 # The train phases come close to the card's memory and allocate whole
@@ -200,7 +234,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import compression, daso, flatbuf  # noqa: E402
-from repro_torch.core.executor import DasoStrategy, shape_sync_counts  # noqa: E402
+from repro_torch.core.executor import (DasoStrategy, MacroCycleExecutor,  # noqa: E402
+                                       shape_sync_counts)
 from repro_torch.core.schedule import split_mode, split_ov  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -217,9 +252,12 @@ from repro_torch.obs import meters  # noqa: E402
 from repro_torch.obs.trace import (Tracer, load_events, merge_streams,  # noqa: E402
                                    stream_path, validate_event)
 from repro_torch.optim.optimizers import sgd  # noqa: E402
+from repro_torch.optim.schedules import constant_lr  # noqa: E402
+from repro_torch.resilience import FaultPlan, membership, run_with_faults  # noqa: E402
+from repro_torch.resilience import supervisor  # noqa: E402
 from repro_torch.serve.engine import Engine, make_decode_fn, make_prefill_fn  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
-from repro_torch.train.loop import TrainLoopConfig, run_training  # noqa: E402
+from repro_torch.train.loop import TrainLoopConfig, build_strategy, run_training  # noqa: E402
 from repro_torch.train.step import make_lm_loss  # noqa: E402
 
 ARCH = "llama3.2-1b"
@@ -304,6 +342,11 @@ EQ1_X = [0.0, -0.0, 1e-40, -1e-40, 1.4e-45, 9e-39, 1.2e-38, 1e-36, 1.17e-38, 3e3
          -3e38, 3.4e38, float("inf"), float("-inf"), float("nan"), 1.0, -2.5, 2e37]
 EQ1_Y = [0.0, -0.0, -9e-39, 1e-40, 1.4e-45, 1e-38, 3e38, -3e38, 2.2e37, -2.2e37,
          float("inf"), float("-inf"), float("nan"), 1.0, -1.0, 1e-30]
+
+# Eq. (1)'s (S, P, E) on the card's paths: P = 16 (R = 4 nodes of 4), the
+# overlap schedule's extra staleness, and the fractional P_eff = P n_active / R
+# of elastic membership (12.0: one of 4 replicas down; 40 / 3 = 16 * 5 / 6)
+EQ1_WEIGHTS = ((1, 16, 0), (3, 16, 1), (1, 12.0, 0), (2, 40 / 3, 0))
 
 # the stream ring's instance of each of K2 to K4 at the training arena's
 # dtypes, as ptxas names it (f32 Eq. (1), f32 -> bf16, bf16 -> f32)
@@ -1054,7 +1097,7 @@ def check_streams(record):
     for dtype in (f32, bf16):
         for n, offset in ((999, 0), (4099, 1)):
             x, y = eq1_edge_arenas(n, dtype, offset)
-            for S, P, E in ((1, 16, 0), (3, 16, 1), (1, 1, 0)):
+            for S, P, E in EQ1_WEIGHTS + ((1, 1, 0),):
                 kw = dict(staleness=S, global_world=P, extra_staleness=E)
                 record("eq1_merge", same_bits_or_nan(ops.eq1_merge(x, y, **kw),
                                                      ref.eq1_merge_ref(x, y, **kw)),
@@ -1212,10 +1255,11 @@ def phase_comm_check():
             case = dict(n=n, offset=offset, dtype=str(dtype))
             x = card_arena(n, 1, dtype, offset)
             y = card_arena(n, 2, dtype, offset)
-            for S, P, E in ((1, 16, 0), (3, 16, 1)):
+            for S, P, E in EQ1_WEIGHTS:
                 kw = dict(staleness=S, global_world=P, extra_staleness=E)
                 record("eq1_merge", same_bits(ops.eq1_merge(x, y, **kw),
-                                              ref.eq1_merge_ref(x, y, **kw)), **case)
+                                              ref.eq1_merge_ref(x, y, **kw)), **case, S=S,
+                       P=P, E=E)
             e = card_arena(n, 3, dtype, offset, edges=True)
             record("bf16_pack", same_bits(ops.bf16_pack(e), ref.bf16_pack_ref(e)), **case)
             w = e.to(torch.bfloat16)
@@ -1361,14 +1405,19 @@ def cycle_rows(res):
     return rows
 
 
-def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None):
-    """run_training with DASO at llama3.2-1b's published widths, 4 layers,
-    f32, R = 4; the counts are set to 0 just before and read just after.
-    Returns (result, its row, launch counts, the outermost level's base
-    modes). The per-step executor's row has the step ms by mode token, the
-    macro executor's its ExecutorStats and the ms per step by cycle shape.
-    `on_batch(step)` runs as each step's batch is made, before the step's
-    clock starts; `tracer` goes to run_training."""
+def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
+                    strategy="daso", plan=None, supervise=None, lr=TRAIN_LR):
+    """run_training with `strategy` (DASO by default) at llama3.2-1b's
+    published widths, 4 layers, f32, R = 4; the counts are set to 0 just
+    before and read just after. Returns (result, its row, launch counts, the
+    outermost level's base modes, params0). The per-step executor's row has
+    the step ms by mode token, the macro executor's its ExecutorStats and
+    the ms per step by cycle shape. `on_batch(step)` runs as each step's
+    batch is made, before the step's clock starts; `tracer` goes to
+    run_training. With a fault `plan` the run goes through
+    `resilience.run_with_faults` on the macro executor instead (the strategy
+    as run_training builds it, `supervise` its extra keyword arguments), and
+    the result is the ResilienceReport."""
     cfg = train_config(TRAIN_LAYERS)
     params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(x.numel() for x in leaves(params0))
@@ -1379,17 +1428,26 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None)
         def data(step):
             on_batch(step)
             return make_batch(step)
-    loop_cfg = TrainLoopConfig(strategy="daso", n_steps=TRAIN_STEPS, n_replicas=TRAIN_R,
+    loop_cfg = TrainLoopConfig(strategy=strategy, n_steps=TRAIN_STEPS, n_replicas=TRAIN_R,
                                local_world=TRAIN_LOCAL_WORLD, b_max=TRAIN_B_MAX,
-                               lr=TRAIN_LR, device="cuda", **loop_options)
+                               lr=lr, device="cuda", **loop_options)
     sync()
     torch.cuda.reset_peak_memory_stats()
     start, retries = torch.cuda.memory_allocated(), torch.cuda.memory_stats()["num_alloc_retries"]
     zero_counts()
     t0 = time.perf_counter()
-    res = run_training(make_lm_loss(cfg), params0, data, loop_cfg,
-                       optimizer=sgd(momentum=0.9, weight_decay=1e-4), log=None,
-                       tracer=tracer)
+    report = None
+    if plan is None:
+        res = run_training(make_lm_loss(cfg), params0, data, loop_cfg,
+                           optimizer=sgd(momentum=0.9, weight_decay=1e-4), log=None,
+                           tracer=tracer)
+    else:
+        strat = build_strategy(make_lm_loss(cfg), loop_cfg, sgd(momentum=0.9, weight_decay=1e-4))
+        report = run_with_faults(strat, params0, data, constant_lr(lr), TRAIN_STEPS,
+                                 plan, executor=MacroCycleExecutor(strat), tracer=tracer,
+                                 **(supervise or {}))
+        res = report.result
+        del strat
     sync()
     wall = time.perf_counter() - t0
     launches = counts()
@@ -1401,7 +1459,8 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None)
               "alloc_retries": torch.cuda.memory_stats()["num_alloc_retries"] - retries}
     modes = [h[1] for h in res.controller.history]
     losses = res.losses
-    row = {"phase": name, "arch": ARCH, "strategy": "daso", "entry": "run_training",
+    row = {"phase": name, "arch": ARCH, "strategy": strategy,
+           "entry": "run_training" if plan is None else "resilience.run_with_faults",
            **loop_options,
            "widths": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
                       "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
@@ -1411,7 +1470,7 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None)
                        "why": why_reduced},
            "dtype": "float32", "params_per_replica": n_params,
            "replicas": TRAIN_R, "local_world": TRAIN_LOCAL_WORLD, "b_max": TRAIN_B_MAX,
-           "lr": TRAIN_LR, "optimizer": "sgd(0.9, 1e-4)", "seq_len": TRAIN_SEQ,
+           "lr": lr, "optimizer": "sgd(0.9, 1e-4)", "seq_len": TRAIN_SEQ,
            "seqs_per_replica": TRAIN_PER, "steps": TRAIN_STEPS,
            "mode_counts": {m: modes.count(m) for m in sorted(set(modes))},
            "controller": type(res.controller).__name__,
@@ -1435,7 +1494,8 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None)
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         emit({**row, "failed": "loss"})
         raise AssertionError(f"{name} losses {losses[0]} -> {losses[-1]}")
-    return res, row, launches, [outer_mode(m) for m in modes], params0
+    return (res if report is None else report), row, launches, \
+        [outer_mode(m) for m in modes], params0
 
 
 def check_launches(row, launches, want):
@@ -2155,6 +2215,399 @@ def phase_train_topo_int8_overlap():
     return out
 
 
+# -- the baselines and the fault supervisor ---------------------------------------
+
+# (strategy, TrainLoopConfig options, lr): each baseline on a wire that puts
+# a kernel on its exchange; EASGD's elastic mean is f32 (its default), so only
+# its blocking steps launch one. DOWNPOUR's push adds the sum of the R
+# replicas' deltas to the server copy (push_scale 1, the launcher's), and each
+# replica keeps its own momentum across pushes: at the train cell's lr the
+# loss went 12.07 -> 52.67 in 40 steps, at lr / 4 it fell to 5.74 by step 17
+# and rose to 13.13 (PERF.md §6); the cell takes lr / 16
+BASELINES = (("gossip", {"wire_format": "int8"}, TRAIN_LR), ("easgd", {}, TRAIN_LR),
+             ("downpour", {"wire_format": "bf16"}, TRAIN_LR / 16))
+BASELINE_WHY = ("memory: the carry holds params and momentum (and EASGD's center or "
+                "DOWNPOUR's anchor) for 4 replicas in f32, beside the exchange's arenas")
+EXCHANGE_MODES = ("gossip", "elastic", "push")
+
+
+def baseline_launches(name, modes):
+    """One f32 arena. gossip on the int8 wire: K5 and K6 once per exchange
+    (the partner copy) and per blocking step; easgd: K3 once per blocking
+    step (its elastic mean is f32); downpour on the bf16 wire: K3 once per
+    push and per blocking step."""
+    n_ex = sum(m in EXCHANGE_MODES for m in modes)
+    n_blk = modes.count("blocking")
+    out = dict.fromkeys((k["name"] for k in KERNELS), 0)
+    if name == "gossip":
+        out.update(quantize_int8=n_ex + n_blk, dequantize_int8=n_ex + n_blk)
+    elif name == "easgd":
+        out.update(bf16_pack=n_blk)
+    else:
+        out.update(bf16_pack=n_ex + n_blk)
+    return out
+
+
+def step_ms(name, options, lr, carry, tokens, reps=3):
+    """Median host ms (each ending in a synchronize) of one step of each
+    mode token on `carry`, the train cell's strategy and batch of step 0;
+    each output carry is dropped before the next step."""
+    cfg = train_config(TRAIN_LAYERS)
+    strat = build_strategy(make_lm_loss(cfg), TrainLoopConfig(
+        strategy=name, n_steps=TRAIN_STEPS, n_replicas=TRAIN_R, local_world=TRAIN_LOCAL_WORLD,
+        b_max=TRAIN_B_MAX, lr=lr, device="cuda", **options),
+        sgd(momentum=0.9, weight_decay=1e-4))
+    batch = replica_data(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                     seed=0))(0)
+    lr = torch.tensor(lr, dtype=torch.float32, device="cuda")
+    out = {}
+    for token in tokens:
+        fn, times = strat.step_fn(token, 1), []
+        for i in range(reps + 1):
+            sync()
+            t0 = time.perf_counter()
+            done = fn(carry, batch, lr)
+            sync()
+            del done
+            if i:  # the first call is the warm-up
+                times.append(1e3 * (time.perf_counter() - t0))
+        out[token] = statistics.median(times)
+    return out
+
+
+def wire_rows(res, params0):
+    """The run's outer meter rows (obs/meters.py): bytes per exchange at each
+    wire tier and the exchanges priced at it."""
+    ctrl = res.controller
+    rows = meters.level_bytes_report(params0, ctrl.level_sync_counts(), ctrl.cfg,
+                                     outer_split=meters.outer_sync_split(ctrl.history))
+    return [{**dataclasses.asdict(r), "total_bytes": r.total_bytes} for r in rows]
+
+
+def rows_identical(tree):
+    """Every replica's row of every leaf bit for bit replica 0's."""
+    return all(same_bits(x[i], x[0]) for x in leaves(tree) for i in range(1, x.shape[0]))
+
+
+def phase_train_baselines():
+    """gossip (int8 wire), EASGD and DOWNPOUR (bf16 wire) through
+    run_training at the train cell's size on the macro executor, and gossip
+    once more on the per-step executor. Each: the launches its modes imply,
+    a falling loss, and after the final cool-down blocking step every
+    replica's params bit for bit equal (EASGD's center and DOWNPOUR's anchor
+    bit for bit the params); the per-step gossip run's losses and carry bit
+    for bit the macro run's. Prints ms per step by cycle shape, one local and
+    one exchange step's ms on the final carry and their difference, the
+    peak memory and allocator retries, and the wire bytes per exchange.
+    Returns the launches of each run, by phase name."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, options, lr in BASELINES:
+        phase = f"train_baselines_{name}"
+        res, row, launches, modes, params0 = run_train_phase(
+            phase, {"executor": "macro", **options}, BASELINE_WHY, strategy=name, lr=lr)
+        check_launches(row, launches, baseline_launches(name, modes))
+        carry = res.carry
+        token = next(h[1] for h in res.controller.history
+                     if outer_mode(h[1]) in EXCHANGE_MODES)
+        row.update(carry_slots=len(carry), wire_bytes=wire_rows(res, params0),
+                   exchange_token=token, replicas_identical=rows_identical(carry[0]))
+        if name != "gossip":
+            row["third_slot_is_params"] = all(
+                same_bits(a, b) for a, b in zip(leaves(carry[2]), leaves(carry[0]),
+                                                strict=True))
+        ms = step_ms(name, options, lr, carry, ("local", token))
+        row.update(step_ms_on_final_carry=ms,
+                   exchange_ms_over_local=ms[token] - ms["local"])
+        faults = [what for what, bad in (
+            ("replicas differ after the cool-down", not row["replicas_identical"]),
+            ("center / anchor", not row.get("third_slot_is_params", True))) if bad]
+        if name == "gossip":
+            host = [x.cpu() for x in leaves(carry)]
+            losses = res.losses
+            res = carry = None  # the card's room for the per-step run
+            torch.cuda.empty_cache()
+            pres, prow, plaunches, pmodes, pparams0 = run_train_phase(
+                "train_baselines_gossip_per_step", {"executor": "per_step", **options},
+                BASELINE_WHY, strategy=name, lr=lr)
+            check_launches(prow, plaunches, baseline_launches(name, pmodes))
+            row.update(per_step_step_ms_median=prow["step_ms_median"],
+                       per_step_losses_identical=pres.losses == losses,
+                       per_step_carry_identical=all(
+                           same_bits(a, b.to(a.device))
+                           for a, b in zip(leaves(pres.carry), host, strict=True)))
+            out["train_baselines_gossip_per_step"] = plaunches
+            faults += [what for what, bad in (
+                ("per-step losses", not row["per_step_losses_identical"]),
+                ("per-step carry", not row["per_step_carry_identical"])) if bad]
+            del pres, host, pparams0
+        if faults:
+            emit({**row, "failed": faults})
+            raise AssertionError(f"{phase}: {faults}")
+        emit(row)
+        out[phase] = launches
+        res = carry = params0 = None
+        torch.cuda.empty_cache()
+    emit({"phase": "train_baselines", "phase_wall_s": time.perf_counter() - t0})
+    return out
+
+
+# replica 1 straggles x1.5 from step 8 to 20, replica 2 is down from step 10
+# to 22, and the network between the nodes runs at half its bandwidth from
+# step 14 to 28: all inside the cycling phase (steps 4 to 35)
+FAULT_EVENTS = [{"step": 8, "kind": "straggle", "replica": 1, "factor": 1.5},
+                {"step": 10, "kind": "crash", "replica": 2},
+                {"step": 14, "kind": "degrade_dcn", "factor": 0.5},
+                {"step": 20, "kind": "recover", "replica": 1},
+                {"step": 22, "kind": "rejoin", "replica": 2},
+                {"step": 28, "kind": "restore_dcn"}]
+CRASH, REJOIN, DOWN = 10, 22, 2
+# the simulated clock: a compute step's seconds and one exchange's cost (a
+# model of the network, not a measurement)
+SIM_T_COMPUTE = 0.25
+
+
+def sim_exchange_s(n_active, dcn_scale):
+    return 0.02 * n_active / dcn_scale
+
+
+@contextmanager
+def eq1_worlds():
+    """Yields the global_world of each Eq. (1) merge through ops.eq1_merge,
+    in call order."""
+    fn, seen = ops.eq1_merge, []
+
+    def spy(local, stale, **kw):
+        seen.append(kw["global_world"])
+        return fn(local, stale, **kw)
+
+    ops.eq1_merge = spy
+    try:
+        yield seen
+    finally:
+        ops.eq1_merge = fn
+
+
+@contextmanager
+def reseed_checks():
+    """Yields one record per rejoin: whether the supervisor's reseed put the
+    donors' mean (`membership.donor_mean_rows`) in the joiner's rows of every
+    carry leaf and left every other row as it was."""
+    fn, records = supervisor.reseed_carry, []
+
+    def spy(carry, donor_mask, joining):
+        want = membership.donor_mean_rows(carry, donor_mask)
+        out = fn(carry, donor_mask, joining)
+        ok = all(same_bits(o[j], m[0]) for o, m in zip(leaves(out), leaves(want), strict=True)
+                 for j in joining) and all(
+            same_bits(o[i], c[i]) for o, c in zip(leaves(out), leaves(carry))
+            for i in range(o.shape[0]) if i not in joining)
+        records.append({"joining": list(joining), "donors": list(donor_mask),
+                        "rows_are_donor_mean": ok})
+        del want
+        return out
+
+    supervisor.reseed_carry = spy
+    try:
+        yield records
+    finally:
+        supervisor.reseed_carry = fn
+
+
+def frozen_row_checks(n_slots):
+    """(ckpt_cb, results): at the cycle boundary of the crash step the
+    callback keeps replica DOWN's rows of the first `n_slots` carry slots, and
+    at each later boundary up to the rejoin holds them bit for bit."""
+    kept, results = [], []
+
+    def cb(step, carry, losses):
+        rows = [x[DOWN] for x in leaves(carry[:n_slots])]
+        if step == CRASH:
+            kept[:] = [x.clone() for x in rows]
+        elif CRASH < step <= REJOIN:
+            results.append((step, all(same_bits(a, b) for a, b in zip(rows, kept,
+                                                                     strict=True))))
+    return cb, results
+
+
+def cpu_rehearsal(strategy, options):
+    """The same plan through run_with_faults on the CPU at the launcher's
+    --tiny size (2 layers, d_model 128): the membership timeline and the
+    simulated clock, which depend on the schedule only."""
+    cfg = get_config(ARCH).replace(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                                   head_dim=32, d_ff=256, vocab_size=256)
+    params0 = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    src = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=16, seed=0)
+
+    def data(step):
+        b = src.batch(TRAIN_R * 2, step, device="cpu")
+        return {k: v.reshape((TRAIN_R, 2) + v.shape[1:]) for k, v in b.items()}
+
+    strat = build_strategy(make_lm_loss(cfg), TrainLoopConfig(
+        strategy=strategy, n_steps=TRAIN_STEPS, n_replicas=TRAIN_R,
+        local_world=TRAIN_LOCAL_WORLD, b_max=TRAIN_B_MAX, lr=TRAIN_LR, device="cpu",
+        **options), sgd(momentum=0.9, weight_decay=1e-4))
+    rep = run_with_faults(strat, params0, data, constant_lr(TRAIN_LR), TRAIN_STEPS,
+                          FaultPlan.from_dicts(FAULT_EVENTS), t_compute_s=SIM_T_COMPUTE,
+                          exchange_cost_fn=sim_exchange_s)
+    return rep
+
+
+def phase_train_faults():
+    """run_with_faults through the plan FAULT_EVENTS on the DASO train cell
+    (the paper's wires, overlap off, macro; traced) and on the gossip int8
+    cell. Each holds: replica 2's params and momentum rows bit for bit
+    frozen at every cycle boundary from the crash to the rejoin (the DASO
+    in-flight buffer is the active replicas' mean on every row, as in the
+    reference), and right after the rejoin the donors' mean in every carry
+    leaf; two membership and two dcn_scale controller events, B = 8 = min(4
+    b_max, ceil(b_max / 0.5)) while the network is degraded and at most
+    b_max after; the report's invalidations those of the executor (and of
+    the trace's invalidate instants); the membership timeline and the
+    simulated clock those of a CPU rehearsal of the plan; the launches the
+    modes imply. DASO's Eq. (1) merges run at P_eff = 12.0 during the crash
+    and P = 16 otherwise, and its trace holds one fault_event span per
+    event, the membership_change / dcn_scale instants, and what
+    `trace_faults` lists. Returns the launches by phase name."""
+    t0 = time.perf_counter()
+    plan = FaultPlan.from_dicts(FAULT_EVENTS)
+    cost = {"t_compute_s": SIM_T_COMPUTE, "exchange_cost_fn": sim_exchange_s}
+    out = {}
+    for name, options, slots in (("daso", {}, 2), ("gossip", {"wire_format": "int8"}, 2)):
+        phase = f"train_faults_{name}"
+        cb, frozen = frozen_row_checks(slots)
+        supervise = dict(cost, ckpt_every=1, ckpt_cb=cb)
+        with ExitStack() as stack:
+            tracer, events = (stack.enter_context(run_trace(phase)) if name == "daso"
+                              else (None, []))
+            worlds = stack.enter_context(eq1_worlds())
+            reseeds = stack.enter_context(reseed_checks())
+            report, row, launches, modes, params0 = run_train_phase(
+                phase, {"executor": "macro", **options}, TRAIN_WHY if name == "daso"
+                else BASELINE_WHY, strategy=name, plan=plan, supervise=supervise,
+                tracer=tracer)
+        res = report.result
+        check_launches(row, launches, train_launches(modes) if name == "daso"
+                       else baseline_launches(name, modes))
+        hist = res.controller.history
+        names = [ev["name"] for ev in events]
+        rehearsal = cpu_rehearsal(name, options)
+        want_worlds = [12.0 if CRASH <= t < REJOIN else TRAIN_R * TRAIN_LOCAL_WORLD
+                       for t, m, _, _ in hist if outer_mode(m) in ("receive", "send_receive")]
+        row.update(
+            fault_events=FAULT_EVENTS, applied=report.applied,
+            recovery_s=report.recovery_s(), membership_timeline=report.membership_timeline,
+            simulated_time_s=report.simulated_time_s, wasted_wait_s=report.wasted_wait_s,
+            invalidations=report.invalidations, controller_events=res.controller.events,
+            b_by_step=[h[2] for h in hist], frozen_rows=frozen, reseeds=reseeds,
+            eq1_worlds=worlds, rehearsal_timeline=rehearsal.membership_timeline,
+            rehearsal_simulated_time_s=rehearsal.simulated_time_s)
+        if name == "daso":
+            row.update(events=len(events), event_names=dict(collections.Counter(names)),
+                       spans=span_summary(events))
+        kinds = [e[1] for e in res.controller.events]
+        faults = [what for what, bad in (
+            ("frozen rows", not frozen or frozen[-1][0] != REJOIN
+             or not all(ok for _, ok in frozen)),
+            ("reseed", len(reseeds) != 1 or not reseeds[0]["rows_are_donor_mean"]),
+            ("controller events", kinds.count("membership") != 2
+             or kinds.count("dcn_scale") != 2),
+            ("B under degradation", any(b != 8 for t, _, b, _ in hist if 14 <= t < 28)
+             or any(b > TRAIN_B_MAX for t, _, b, _ in hist if t < 14 or t >= 28)),
+            ("invalidations", report.invalidations != res.executor_stats.invalidations
+             or report.invalidations != 2),
+            ("timeline", report.membership_timeline != rehearsal.membership_timeline),
+            ("simulated clock", report.simulated_time_s != rehearsal.simulated_time_s),
+            ("Eq. (1) worlds", worlds != want_worlds
+             or (name == "daso" and 12.0 not in worlds)),
+            ("trace", name == "daso" and (
+                trace_faults(events, res)
+                or names.count("fault_event") != len(FAULT_EVENTS)
+                or names.count("membership_change") != 2 or names.count("dcn_scale") != 2
+                or names.count("invalidate") != report.invalidations))) if bad]
+        if faults:
+            emit({**row, "failed": faults})
+            raise AssertionError(f"{phase}: {faults}")
+        emit(row)
+        out[phase] = launches
+        del report, res, params0
+        torch.cuda.empty_cache()
+    emit({"phase": "train_faults", "phase_wall_s": time.perf_counter() - t0})
+    return out
+
+
+def phase_train_faults_empty(trained, macro):
+    """run_with_faults with an empty plan on the train cell: train_macro's
+    losses and final carry (params and momentum of every replica, in
+    `trained`) bit for bit. Returns its launches."""
+    report, row, launches, modes, params0 = run_train_phase(
+        "train_faults_empty", {"executor": "macro"}, TRAIN_WHY, plan=FaultPlan())
+    check_launches(row, launches, train_launches(modes))
+    params_r, opt_r, _ = report.result.carry
+    row.update(losses_identical_to_train_macro=report.result.losses == macro["losses"],
+               carry_identical_to_train_macro=all(
+                   same_bits(a, b) for a, b in zip(leaves((params_r, opt_r)),
+                                                   leaves(trained["carry"]), strict=True)),
+               invalidations=report.invalidations)
+    if not (row["losses_identical_to_train_macro"] and row["carry_identical_to_train_macro"]):
+        emit({**row, "failed": "not train_macro's numbers"})
+        raise AssertionError("train_faults_empty differs from train_macro")
+    emit(row)
+    del report, params0, params_r, opt_r
+    torch.cuda.empty_cache()
+    return launches
+
+
+LAUNCH_FAULTS = {"events": [{"step": 4, "kind": "crash", "replica": 1},
+                            {"step": 8, "kind": "rejoin", "replica": 1}]}
+RESILIENCE_KEYS = ["events", "invalidations", "reshuffles", "retunes", "simulated_time_s",
+                   "wasted_wait_s"]
+
+
+def phase_launch_faults():
+    """repro_torch.launch.train.main --tiny --steps 12 --fault-plan PLAN
+    --metrics-out M on the card (replica 1 down from step 4 to 8): M holds
+    the "resilience" record with the reference launcher's keys and both
+    events, two invalidations, and K2 / K3 launch as the modes imply.
+    Returns its launches."""
+    from repro_torch.launch import train as launch_train
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_faults_")
+    metrics_path = os.path.join(tmp, "m.json")
+    try:
+        sync()
+        zero_counts()
+        res = launch_train.main(["--tiny", "--steps", str(LAUNCH_STEPS), "--fault-plan",
+                                 json.dumps(LAUNCH_FAULTS), "--metrics-out", metrics_path])
+        sync()
+        launches = counts()
+        with open(metrics_path) as f:
+            metrics = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res_rec = metrics.get("resilience", {})
+    modes = [outer_mode(h[1]) for h in res.controller.history]
+    row = {"phase": "launch_faults", "entry": "repro_torch.launch.train.main",
+           "argv": ["--tiny", "--steps", LAUNCH_STEPS, "--fault-plan", LAUNCH_FAULTS,
+                    "--metrics-out", "M"],
+           "device": metrics["device"], "resilience": res_rec, "launches": launches,
+           "final_loss": res.final_loss}
+    faults = [what for what, bad in (
+        ("keys", sorted(res_rec) != RESILIENCE_KEYS),
+        ("events", [(e["step"], e["kind"]) for e in res_rec.get("events", [])]
+         != [(4, "crash"), (8, "rejoin")]),
+        ("invalidations", res_rec.get("invalidations") != 2),
+        ("device", not metrics["device"].startswith("cuda")),
+        ("launches", launches != train_launches(modes))) if bad]
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"launch_faults: {faults}")
+    emit(row)
+    del res
+    torch.cuda.empty_cache()
+    return launches
+
+
 def max_abs_err(a, b, chunk=1 << 27):
     """Largest |a - b| in f32 (0 where the values are equal, infinities
     included), in chunks so that a full arena needs no f32 copy."""
@@ -2204,6 +2657,10 @@ def phase_arena(trained):
         old = stale if name == "params" else flatbuf.wire_roundtrip(arena, "bf16")
         check("eq1_merge", name, ops.eq1_merge(arena, old, **kw),
               ref.eq1_merge_ref(arena, old, **kw))
+        for p_eff in (12.0, 40 / 3):  # elastic membership's fractional P_eff
+            kw_eff = dict(staleness=1, global_world=p_eff)
+            check("eq1_merge", f"{name}@P={p_eff:g}", ops.eq1_merge(arena, old, **kw_eff),
+                  ref.eq1_merge_ref(arena, old, **kw_eff))
         del old
         wire = ops.bf16_pack(arena)
         check("bf16_pack", name, wire, ref.bf16_pack_ref(arena))
@@ -2515,8 +2972,12 @@ def main():
     topo_macro_launches = phase_train_macro_topo(topo)
     del topo["carry"]
     topo_int8_launches = phase_train_topo_int8_overlap()
+    baselines_launches = phase_train_baselines()
+    faults_launches = phase_train_faults()
+    launch_faults_launches = phase_launch_faults()
     trained = phase_train()
     macro = phase_train_macro(trained)
+    empty_launches = phase_train_faults_empty(trained, macro)
     topo_2level_launches = phase_train_topo_2level(trained, macro)
     arena_parts = phase_arena(trained)
     phase_timing(rows, serve_launches, {
@@ -2526,7 +2987,9 @@ def main():
         "train_trace": trace_launches, "launch_trace": launch_trace_launches,
         "train_resume": resume_launches, "train_topo": topo["launches"],
         "train_macro_topo": topo_macro_launches, "train_topo_2level": topo_2level_launches,
-        **topo_int8_launches}, arena_parts,
+        **topo_int8_launches, **baselines_launches, **faults_launches,
+        "launch_faults": launch_faults_launches, "train_faults_empty": empty_launches},
+        arena_parts,
         [scan_line] + rgemma_lines, reports)
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -336,9 +336,9 @@ class TrainState:
     as the executors thread it; `controller` is
     `DasoController.state_dict()` (None for sync); `step` doubles as the
     data cursor (the synthetic sources are seeded per (seed, step));
-    `membership` and `rng` are kept for the reference's checkpoints (the
-    port has no elastic membership yet, ROADMAP item 15, and draws no
-    PRNG key)."""
+    `membership` is the active-replica mask of an elastic run (None: every
+    replica active); `rng` is kept for the reference's checkpoints (the
+    port draws no PRNG key)."""
     step: int
     carry: Any
     controller: Optional[Dict[str, Any]] = None

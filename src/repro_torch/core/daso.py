@@ -1,4 +1,4 @@
-"""DASO core for one process and fixed membership (`repro/core/daso.py`).
+"""DASO core for one process (`repro/core/daso.py`).
 
 Every parameter leaf carries a leading replica axis of size R, one row per
 node of the paper (a pod on the TPU). The per-replica training step runs
@@ -29,14 +29,22 @@ The macro-cycle executor (core/executor.py) splits an overlap cycle into
 `daso_overlap_compute_step` (the local steps, no exchange) and the
 exchange and merge, which it runs around them.
 
+Elastic membership: every step builder takes `membership`, a 0/1 mask over
+the R replicas (`flatbuf.normalize_membership`), baked into the variant as
+the reference bakes it into its compiled step. The exchanges at every level
+become means over the active replicas, Eq. (1) runs with the effective
+world P_eff = P * n_active / R, a dropped replica's rows are frozen
+(`freeze_inactive`), and the reported loss averages the active replicas.
+With every replica active (None) each step gives the numbers of a run
+without membership, bit for bit.
+
 The exchange math runs through the hand-written kernels: Eq. (1) through
 K2, the bf16 wire cast through K3, the int8 tier through K5 / K6
 (`kernels/ops.py`, which takes their plain versions for CPU tensors). The
 inner-level group mean is plain torch, as the reference's is jnp: on the
 f32 wire it launches no kernel, on the bf16 wire its cast is K3. Not ported
 yet, and raising NotImplementedError: the per-leaf exchange
-(`exchange_impl="per_leaf"`, ROADMAP item 7) and elastic membership (item
-15).
+(`exchange_impl="per_leaf"`, ROADMAP item 7).
 
 No step writes in place into a tensor it was given (only into outputs it
 allocated), so carries may share tensors, as the reference's immutable
@@ -128,33 +136,38 @@ def dereplicate_params(params, index: int = 0):
     return tree_map(lambda p: p[index], params)
 
 
-def _arena_mean(arena, wire_format: str, *, int8_block: int = 256):
+def _arena_mean(arena, wire_format: str, *, int8_block: int = 256, mask=None):
     """Mean over the replica axis of one arena, as a (1, N) tensor in the
     arena's dtype (`repro/core/daso.py:179-216`). A floating arena is cast
     to the wire dtype first and reduced in it; on the int8 tier each
     replica's row goes through K5 -> K6 (what a transfer of int8 values and
     scales delivers, rounded to nearest: the step variants take no random
     bits, as in the reference) and the mean runs over the dequantized
-    arena. The caller hands the arena over: it is freed once the wire
-    payload is encoded, and the payload once it is decoded."""
+    arena. `mask` (`flatbuf.normalize_membership`) makes it the mean over
+    the active replicas. The caller hands the arena over: it is freed once
+    the wire payload is encoded, and the payload once it is decoded."""
     dtype = arena.dtype
     if not arena.is_floating_point():
         # integer leaves: mean in f32, rounded back
-        return torch.round(flatbuf.masked_axis0_mean(arena.float())).to(dtype)
+        return torch.round(flatbuf.masked_axis0_mean(arena.float(), mask)).to(dtype)
     w = flatbuf.encode_wire(arena, wire_format, int8_block=int8_block)
     del arena
     if wire_format == "int8":
         w = flatbuf.decode_wire(w, "int8", dtype, int8_block=int8_block)
-    return flatbuf.masked_axis0_mean(w).to(dtype)
+    return flatbuf.masked_axis0_mean(w, mask).to(dtype)
 
 
-def replica_mean(tree, *, wire_format: str = "f32", int8_block: int = 256):
+def replica_mean(tree, *, wire_format: str = "f32", int8_block: int = 256,
+                 mask=None):
     """Mean over the leading replica axis, broadcast back to (R, ...): one
-    reduction per arena, with the wire tier applied to the whole arena."""
+    reduction per arena, with the wire tier applied to the whole arena.
+    `mask` (a normalized membership tuple, or None for all active) takes
+    the mean over the active replicas only."""
     flatbuf._check_wire_format(wire_format)
     layout = flatbuf.build_layout(tree, batch_dims=1)
     arenas = flatbuf.pack(tree, layout)
-    means = {k: _arena_mean(arenas.pop(k), wire_format, int8_block=int8_block)
+    means = {k: _arena_mean(arenas.pop(k), wire_format, int8_block=int8_block,
+                            mask=mask)
              for k in list(arenas)}
     r = layout.batch_shape[0]
     return tree_map(lambda m: m.expand((r,) + m.shape[1:]),
@@ -179,7 +192,7 @@ def _index(rows, device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.long, device=device)
 
 
-def _arena_group_mean(slot: list, group_size: int, perm=None):
+def _arena_group_mean(slot: list, group_size: int, perm=None, mask=None):
     """Mean over replica groups of `group_size` consecutive slots of the
     arena in `slot` (a one-element list, emptied: the arena is freed once
     the group sums exist), back in replica order as an (R, N) tensor of the
@@ -189,11 +202,18 @@ def _arena_group_mean(slot: list, group_size: int, perm=None):
     as a chain in slot order in the arena's dtype, then multiplied by 1/g
     rounded to that dtype: `flatbuf.masked_axis0_mean` per group.
     `group_size == R` is that whole-axis mean, broadcast as a view (a
-    whole-world group ignores the permutation)."""
+    whole-world group ignores the permutation).
+
+    `mask` (a normalized membership tuple, by replica) weights each group
+    by its active rows: a dropped replica's row is multiplied by 0 before
+    the sum, and the group's scale is 1 / max(1, its active count) rounded
+    to the arena's dtype (a group with no active row divides by 1; its rows
+    are frozen ghosts that `freeze_inactive` keeps). The mask travels with
+    its rows under a regrouping."""
     arena = slot.pop()
     r = arena.shape[0]
     if group_size == r:
-        return flatbuf.masked_axis0_mean(arena).expand(arena.shape)
+        return flatbuf.masked_axis0_mean(arena, mask).expand(arena.shape)
     if r % group_size:
         raise ValueError(f"replica axis {r} not divisible by group size "
                          f"{group_size}")
@@ -205,9 +225,25 @@ def _arena_group_mean(slot: list, group_size: int, perm=None):
                arena.index_select(0, _index(slots[i::g], arena.device))
                for i in range(g)]
     del arena
+    if mask is None:
+        scale = float(torch.tensor(1.0 / g, dtype=members[0].dtype))
+    else:
+        for i in range(g):
+            col = [mask[rep] for rep in slots[i::g]]
+            if not all(col):
+                members[i] = members[i] * flatbuf.membership_col(
+                    col, members[i].dtype, members[i].dim(), members[i].device)
+        counts = [max(1.0, sum(mask[rep] for rep in slots[j * g:(j + 1) * g]))
+                  for j in range(r // g)]
+        scale = torch.tensor([1.0 / c for c in counts], dtype=members[0].dtype,
+                             device=members[0].device)[:, None]
     s = flatbuf.chain_axis0_sum(members)
     del members
-    m = s * float(torch.tensor(1.0 / g, dtype=s.dtype))
+    if mask is not None and g > 1:
+        # a sum of signed zeros is +0, as flatbuf.masked_axis0_mean's (the
+        # reference's reduce over a group of one is the row itself)
+        s = s + 0.0
+    m = s * scale
     del s
     # replica rep sits in slot slots.index(rep), of group slot // g
     group_of = [slots.index(rep) // g for rep in range(r)]
@@ -232,14 +268,12 @@ def level_group_mean(tree, group_size: int, *, wire_format: str = "f32",
     keeps its group's sum, so the global mean is the same under any
     permutation. The reference's `deterministic` tier is the chain of adds
     that this reduction always is (both of its tiers give these numbers on
-    the CPU). `mask` (elastic membership) is ROADMAP item 15."""
+    the CPU). `mask` (a normalized membership tuple) weights each group by
+    its active replicas (`_arena_group_mean`)."""
     if wire_format not in ("f32", "bf16"):
         raise ValueError("level_group_mean supports wire_format 'f32' | "
                          f"'bf16', got {wire_format!r} (the int8 tier is "
                          "for the outermost exchange)")
-    if mask is not None:
-        raise NotImplementedError("a membership mask on the group mean is not "
-                                  "ported yet (ROADMAP item 15)")
     layout = flatbuf.build_layout(tree, batch_dims=1)
     arenas = flatbuf.pack(tree, layout)
     perm = normalize_group_perm(perm, layout.batch_shape[0])
@@ -249,31 +283,56 @@ def level_group_mean(tree, group_size: int, *, wire_format: str = "f32",
         dtype = w[0].dtype
         if not dtype.is_floating_point:
             w.append(w.pop().float())
-            out[k] = torch.round(_arena_group_mean(w, group_size, perm)).to(dtype)
+            out[k] = torch.round(_arena_group_mean(w, group_size, perm, mask)).to(dtype)
             continue
         if wire_format == "bf16":
             w.append(flatbuf.encode_wire(w.pop(), "bf16"))
-        out[k] = _arena_group_mean(w, group_size, perm).to(dtype)
+        out[k] = _arena_group_mean(w, group_size, perm, mask).to(dtype)
     return flatbuf.unpack(out, layout)
+
+
+# -- elastic membership --------------------------------------------------------
+
+def freeze_inactive(new_tree, old_tree, mask):
+    """Row by row: an active replica's rows come from `new_tree`, a dropped
+    one's from `old_tree` (`repro/core/daso.py::freeze_inactive`). A dropped
+    replica's row is a ghost of the gone node; freezing it keeps it from
+    drifting, so a rejoin's reseed is the only write to it. mask=None (all
+    active) is the identity: `new_tree` itself is returned."""
+    if mask is None:
+        return new_tree
+
+    def leaf(n, o):
+        keep = flatbuf.membership_col(mask, torch.bool, n.dim(), n.device)
+        return torch.where(keep, n, o)
+
+    return tree_map(leaf, new_tree, old_tree)
 
 
 # -- DASO primitive operations -------------------------------------------------
 
-def global_send(params, *, wire_format: str = "f32", int8_block: int = 256):
+def global_send(params, *, wire_format: str = "f32", int8_block: int = 256,
+                mask=None):
     """Snapshot + start the global exchange: the in-flight buffer is the
-    replica mean of the current params, one copy per replica."""
-    return replica_mean(params, wire_format=wire_format, int8_block=int8_block)
+    replica mean of the current params (over the active replicas under
+    `mask`), one copy per replica."""
+    return replica_mean(params, wire_format=wire_format, int8_block=int8_block,
+                        mask=mask)
 
 
 def global_receive(params, inflight, *, staleness: int, global_world,
-                   extra_staleness: int = 0):
+                   extra_staleness: int = 0, mask=None):
     """Paper Eq. (1): merge the stale global average into the local params.
-    S = batches waited, P = the global world size.
+    S = batches waited, P = the global world size: a float under elastic
+    membership, the surviving world's P_eff = P * n_active / R. A dropped
+    replica's rows keep `params` (`mask`).
 
     Both trees are packed and each floating arena is merged by ONE K2
-    launch; the leaves of the result are views of the merged arena."""
+    launch; the leaves of the result are views of the merged arena, into
+    which a dropped replica's row is copied back from the packed params."""
     kw = dict(staleness=staleness, global_world=global_world,
               extra_staleness=extra_staleness)
+    dead = [] if mask is None else [i for i, m in enumerate(mask) if not m]
     layout = flatbuf.build_layout(params, batch_dims=1)
     locals_ = flatbuf.pack(params, layout)
     stales = flatbuf.pack(inflight, layout)
@@ -282,14 +341,20 @@ def global_receive(params, inflight, *, staleness: int, global_world,
         a, b = locals_.pop(k), stales.pop(k)
         out[k] = (ops.eq1_merge(a, b, **kw) if a.is_floating_point()
                   else eq1_merge_ref(a, b, **kw))
+        for r in dead:
+            out[k][r].copy_(a[r])
         del a, b
     return flatbuf.unpack(out, layout)
 
 
-def blocking_sync(params, *, wire_format: str = "bf16", int8_block: int = 256):
+def blocking_sync(params, *, wire_format: str = "bf16", int8_block: int = 256,
+                  mask=None):
     """Synchronous global average (warm-up / cool-down), with the paper's
-    16-bit transfer packaging (or the tier in `wire_format`)."""
-    return replica_mean(params, wire_format=wire_format, int8_block=int8_block)
+    16-bit transfer packaging (or the tier in `wire_format`). `mask` takes
+    the average over the active replicas and keeps the dropped rows."""
+    synced = replica_mean(params, wire_format=wire_format, int8_block=int8_block,
+                          mask=mask)
+    return freeze_inactive(synced, params, mask)
 
 
 def replica_divergence(params) -> torch.Tensor:
@@ -354,7 +419,8 @@ def microbatched_value_and_grad(loss_fn: Callable, n_micro: int):
     return fn
 
 
-def local_step(loss_fn: Callable, optimizer: Optimizer, n_micro: int = 1):
+def local_step(loss_fn: Callable, optimizer: Optimizer, n_micro: int = 1,
+               mask=None):
     """step(params_R, opt_R, batch_R, lr) -> (params, opt, loss_R, aux_R):
     gradient and optimizer update of every replica (the reference's
     `jax.vmap` over the replica axis, `repro/core/daso.py:554-571`).
@@ -364,7 +430,9 @@ def local_step(loss_fn: Callable, optimizer: Optimizer, n_micro: int = 1):
     A loop over the R replica rows: each row's gradient and update are
     computed on its own and written into (R, ...) outputs allocated at the
     first row, so one replica's activations and gradients are live at a
-    time."""
+    time. Under `mask` a dropped replica's rows of params and optimizer
+    state are written as they came in (the reference's `freeze_inactive`
+    after its vmapped step), its loss and aux as computed."""
     vg = microbatched_value_and_grad(loss_fn, n_micro)
 
     def step(params, opt_state, batch, lr):
@@ -373,10 +441,12 @@ def local_step(loss_fn: Callable, optimizer: Optimizer, n_micro: int = 1):
         for r in range(n_rep):
             def row(x):
                 return x[r]
-            p_r = tree_map(row, params)
+            p_r, o_r = tree_map(row, params), tree_map(row, opt_state)
             (loss, aux), grads = vg(p_r, tree_map(row, batch))
-            new_p, new_o = optimizer.update(grads, tree_map(row, opt_state), p_r, lr)
+            new_p, new_o = optimizer.update(grads, o_r, p_r, lr)
             del grads
+            if mask is not None and not mask[r]:
+                new_p, new_o = p_r, o_r
             out, treedef = flatten((new_p, new_o, loss, aux))
             del new_p, new_o
             if bufs is None:
@@ -401,24 +471,41 @@ MODES = ("local", "send", "receive", "send_receive", "blocking", "hard_avg")
 OV_MODES = ("local", "ov_start", "ov_sync", "blocking")
 
 
-def _cross_replica_loss(cfg: DasoConfig, loss_r: torch.Tensor, *,
-                        axis: int = 0) -> torch.Tensor:
+def _cross_replica_loss(cfg: DasoConfig, mask, n_active: int,
+                        loss_r: torch.Tensor, *, axis: int = 0) -> torch.Tensor:
     """The scalar loss the plateau controller consumes: the mean of the
-    per-replica losses (fixed membership), in the reduction order of the
-    reference's configured tier. `axis` is the replica axis: 0 for one
-    step's (R,) losses, 1 for the (L, R) losses of an overlap cycle's L
-    steps, whose merge defers the reduction out of the compute steps; it
-    reduces row by row, so each step's loss is the one the step itself
-    would give, bit for bit."""
+    per-replica losses over the active replicas, in the reduction order of
+    the reference's configured tier (with a mask: the chain of the masked
+    losses over n_active). `axis` is the replica axis: 0 for one step's
+    (R,) losses, 1 for the (L, R) losses of an overlap cycle's L steps,
+    whose merge defers the reduction out of the compute steps; it reduces
+    row by row, so each step's loss is the one the step itself would give,
+    bit for bit."""
     if axis == 1:
-        return torch.stack([_cross_replica_loss(cfg, row) for row in loss_r])
+        return torch.stack([_cross_replica_loss(cfg, mask, n_active, row)
+                            for row in loss_r])
+    if mask is not None:
+        w = loss_r * flatbuf.membership_col(mask, loss_r.dtype, loss_r.dim(),
+                                            loss_r.device)
+        return flatbuf.chain_axis0_sum(w) / n_active
     if cfg.deterministic_reduce:
         return flatbuf.chain_axis0_sum(loss_r) / cfg.n_replicas
     return torch.mean(loss_r, dim=0)
 
 
+def _membership_of(cfg: DasoConfig, membership):
+    """(mask, n_active, P_eff) of a step variant: the normalized mask, the
+    active count and Eq. (1)'s world, P * n_active / R under a mask."""
+    mask = flatbuf.normalize_membership(membership, cfg.n_replicas)
+    if mask is None:
+        return None, cfg.n_replicas, cfg.global_world
+    n_active = int(sum(mask))
+    return mask, n_active, cfg.global_world * n_active / cfg.n_replicas
+
+
 def daso_train_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
                     *, mode: str, staleness: int = 1, n_micro: int = 1,
+                    membership=None,
                     inner_syncs: Tuple[Tuple[str, int], ...] = (),
                     group_perm=None):
     """One step variant:
@@ -430,39 +517,47 @@ def daso_train_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
     period elapses this step. Each adds one `level_group_mean` over that
     level's replica groups after the local step and before the outer send,
     so an outer exchange ships tier-synced values. `group_perm`
-    (`normalize_group_perm`) regroups the replicas for every inner sync."""
+    (`normalize_group_perm`) regroups the replicas for every inner sync.
+
+    `membership` (a 0/1 mask over the R replicas) is baked into the
+    variant: every exchange is a mean over the active replicas, Eq. (1)
+    runs with P_eff = P * n_active / R, a dropped replica's params and
+    optimizer rows stay frozen, and the loss averages the active
+    replicas."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
-    inner = _inner_sync_fn(cfg, inner_syncs, group_perm)
-    lstep = local_step(loss_fn, optimizer, n_micro)
+    mask, n_active, p_eff = _membership_of(cfg, membership)
+    inner = _inner_sync_fn(cfg, inner_syncs, group_perm, mask)
+    lstep = local_step(loss_fn, optimizer, n_micro, mask)
     blk = cfg.int8_block
 
     def step(params, opt_state, inflight, batch, lr):
         if mode in ("receive", "send_receive"):
             params = global_receive(params, inflight, staleness=staleness,
-                                    global_world=cfg.global_world)
+                                    global_world=p_eff, mask=mask)
         params, opt_state, loss_r, aux_r = lstep(params, opt_state, batch, lr)
         params = inner(params)
         if mode in ("send", "send_receive"):
             inflight = global_send(params, wire_format=cfg.wire_format_for(blocking=False),
-                                   int8_block=blk)
+                                   int8_block=blk, mask=mask)
         elif mode == "blocking":
             params = blocking_sync(params, wire_format=cfg.wire_format_for(blocking=True),
-                                   int8_block=blk)
+                                   int8_block=blk, mask=mask)
         elif mode == "hard_avg":
-            params = replica_mean(params)
-        return params, opt_state, inflight, _step_metrics(cfg, loss_r, aux_r)
+            params = freeze_inactive(replica_mean(params, mask=mask), params, mask)
+        return params, opt_state, inflight, _step_metrics(cfg, mask, n_active,
+                                                          loss_r, aux_r)
 
     return step
 
 
 def daso_overlap_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
                       *, mode: str, staleness: int = 1, extra_staleness: int = 0,
-                      n_micro: int = 1,
+                      n_micro: int = 1, membership=None,
                       inner_syncs: Tuple[Tuple[str, int], ...] = (),
                       group_perm=None):
     """One step variant of the double-buffered overlap schedule
-    (`repro/core/daso.py::daso_overlap_step`, one process, no membership):
+    (`repro/core/daso.py::daso_overlap_step`, one process):
     step(params_R, opt_R, inflight, pending, batch_R, lr) -> (params_R,
     opt_R, inflight, pending, metrics). `mode` is one of OV_MODES:
 
@@ -478,11 +573,12 @@ def daso_overlap_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
     The merge lands after the step's local update, where off-mode
     `receive` merges before it: the exchange result arrives at the cycle's
     end. Inner syncs run between the local update and the buffers' update,
-    as in `daso_train_step`."""
+    as in `daso_train_step`, and `membership` is baked in as there."""
     if mode not in OV_MODES:
         raise ValueError(f"unknown overlap mode {mode!r}; expected one of {OV_MODES}")
-    inner = _inner_sync_fn(cfg, inner_syncs, group_perm)
-    lstep = local_step(loss_fn, optimizer, n_micro)
+    mask, n_active, p_eff = _membership_of(cfg, membership)
+    inner = _inner_sync_fn(cfg, inner_syncs, group_perm, mask)
+    lstep = local_step(loss_fn, optimizer, n_micro, mask)
     blk = cfg.int8_block
 
     def step(params, opt_state, inflight, pending, batch, lr):
@@ -492,21 +588,23 @@ def daso_overlap_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
             pending = params
         elif mode == "ov_sync":
             inflight = global_send(pending, wire_format=cfg.wire_format_for(blocking=False),
-                                   int8_block=blk)
+                                   int8_block=blk, mask=mask)
             params = global_receive(params, inflight, staleness=staleness,
                                     extra_staleness=extra_staleness,
-                                    global_world=cfg.global_world)
+                                    global_world=p_eff, mask=mask)
             pending = params
         elif mode == "blocking":
             params = blocking_sync(params, wire_format=cfg.wire_format_for(blocking=True),
-                                   int8_block=blk)
-        return params, opt_state, inflight, pending, _step_metrics(cfg, loss_r, aux_r)
+                                   int8_block=blk, mask=mask)
+        return params, opt_state, inflight, pending, _step_metrics(
+            cfg, mask, n_active, loss_r, aux_r)
 
     return step
 
 
 def daso_overlap_compute_step(loss_fn: Callable, optimizer: Optimizer,
                               cfg: DasoConfig, *, n_micro: int = 1,
+                              membership=None,
                               inner_syncs: Tuple[Tuple[str, int], ...] = (),
                               group_perm=None):
     """The compute half of an overlap cycle on the macro-cycle executor
@@ -519,9 +617,10 @@ def daso_overlap_compute_step(loss_fn: Callable, optimizer: Optimizer,
     reduce over the replicas, are dropped. Inner-level syncs stay: they run
     on the current stream beside the exchange, and read only the params
     this step made (the exchange reads the pending snapshot, which no step
-    writes)."""
-    inner = _inner_sync_fn(cfg, inner_syncs, group_perm)
-    lstep = local_step(loss_fn, optimizer, n_micro)
+    writes). `membership` freezes the dropped rows as in `daso_train_step`."""
+    mask = flatbuf.normalize_membership(membership, cfg.n_replicas)
+    inner = _inner_sync_fn(cfg, inner_syncs, group_perm, mask)
+    lstep = local_step(loss_fn, optimizer, n_micro, mask)
 
     def step(params, opt_state, batch, lr):
         params, opt_state, loss_r, _aux_r = lstep(params, opt_state, batch, lr)
@@ -530,10 +629,10 @@ def daso_overlap_compute_step(loss_fn: Callable, optimizer: Optimizer,
     return step
 
 
-def _inner_sync_fn(cfg: DasoConfig, inner_syncs, group_perm) -> Callable:
+def _inner_sync_fn(cfg: DasoConfig, inner_syncs, group_perm, mask=None) -> Callable:
     """params -> params after one `level_group_mean` per inner sync, in
-    order (the identity without inner syncs). Each group size must lie in
-    2..R."""
+    order, the dropped rows frozen under `mask` (the identity without inner
+    syncs). Each group size must lie in 2..R."""
     for name, g in inner_syncs:
         if not 1 < g <= cfg.n_replicas:
             raise ValueError(f"inner sync {name!r}: group size {g} outside "
@@ -542,19 +641,26 @@ def _inner_sync_fn(cfg: DasoConfig, inner_syncs, group_perm) -> Callable:
 
     def sync(params):
         for _name, g in inner_syncs:
-            params = level_group_mean(params, g, perm=perm)
+            params = freeze_inactive(level_group_mean(params, g, mask=mask, perm=perm),
+                                     params, mask)
         return params
 
     return sync
 
 
-def _step_metrics(cfg: DasoConfig, loss_r, aux_r) -> dict:
+def _step_metrics(cfg: DasoConfig, mask, n_active: int, loss_r, aux_r) -> dict:
     """The loss the controller reads, the per-replica losses, and the mean
-    of every aux metric of rank <= 1."""
-    metrics = {"loss": _cross_replica_loss(cfg, loss_r), "loss_per_replica": loss_r}
+    of every aux metric of rank <= 1 (over the active replicas, for a
+    per-replica vector under a mask)."""
+    metrics = {"loss": _cross_replica_loss(cfg, mask, n_active, loss_r),
+               "loss_per_replica": loss_r}
     for k, v in aux_r.items():
         if v.dim() <= 1:
-            metrics[k] = torch.mean(v)
+            if mask is not None and v.dim() == 1 and v.shape[0] == cfg.n_replicas:
+                w = v * flatbuf.membership_col(mask, v.dtype, 1, v.device)
+                metrics[k] = torch.sum(w) / n_active
+            else:
+                metrics[k] = torch.mean(v)
     return metrics
 
 

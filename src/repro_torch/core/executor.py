@@ -4,7 +4,8 @@ Every training strategy offers one interface to the training loop: its
 carry, a factory of step variants ``step(carry, batch, lr) -> (carry,
 metrics)`` cached per (mode, staleness), a per-step mode decision and a
 cycle planner. Registered here: `daso`, `sync` and `local_sgd`;
-repro_torch/topo/strategy.py registers `hier_daso`.
+core/baselines.py registers `gossip`, `easgd` and `downpour` (imported at
+the end of this module) and repro_torch/topo/strategy.py `hier_daso`.
 
 The macro-cycle executor runs one controller cycle per host dispatch:
 
@@ -47,6 +48,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import flatbuf
 from repro_torch.core.daso import (DasoConfig, _cross_replica_loss,
                                    daso_overlap_compute_step, daso_overlap_step,
                                    daso_train_step, dereplicate_params, global_receive,
@@ -185,13 +187,34 @@ class DasoStrategy(Strategy):
     """The paper's strategy: carry (params_R, opt_R, inflight) with the
     replica axis R leading every leaf, controller-planned cycles, step
     variants from core/daso.py. Under the overlap schedule the carry has a
-    fourth slot, the pending snapshot: (params_R, opt_R, inflight, pending)."""
+    fourth slot, the pending snapshot: (params_R, opt_R, inflight, pending).
+    `membership` (a 0/1 mask over the replicas) is baked into every step
+    variant (elastic membership, core/daso.py)."""
 
-    def __init__(self, loss_fn, optimizer, cfg, **kw):
+    def __init__(self, loss_fn, optimizer, cfg, *, membership=None, **kw):
         if cfg is None:
             raise ValueError("the daso strategy needs a DasoConfig")
         super().__init__(loss_fn, optimizer, cfg, **kw)
+        self._membership = flatbuf.normalize_membership(membership, cfg.n_replicas)
         self._group_perm = None
+
+    @property
+    def membership(self):
+        """The active-replica mask as a 0/1 tuple, or None when every
+        replica is active."""
+        return self._membership
+
+    def n_active(self) -> int:
+        return (self.cfg.n_replicas if self._membership is None
+                else int(sum(self._membership)))
+
+    def set_membership(self, mask) -> None:
+        """Change the active-replica set. The mask is part of every step
+        variant, so this drops the cached variants; the caller must
+        `invalidate()` an executor whose programs run the old ones (the
+        resilience supervisor does both)."""
+        self._membership = flatbuf.normalize_membership(mask, self.cfg.n_replicas)
+        self._steps.clear()
 
     @property
     def group_perm(self):
@@ -226,7 +249,10 @@ class DasoStrategy(Strategy):
         return (params, opt_state, params)
 
     def finalize_params(self, carry):
-        return dereplicate_params(carry[0], index=0)
+        # under elastic membership row 0 may be a dropped replica's frozen
+        # ghost: the first active replica's params instead
+        idx = 0 if self._membership is None else self._membership.index(1.0)
+        return dereplicate_params(carry[0], index=idx)
 
     def _inner_syncs_of(self, inner: Tuple[str, ...]):
         """The (name, group_size) pairs of a mode's inner levels: none, as
@@ -243,6 +269,7 @@ class DasoStrategy(Strategy):
             _, inner = split_mode(mode[len(OVERLAP_COMPUTE_PREFIX):])
             raw_c = daso_overlap_compute_step(self.loss_fn, self.optimizer, self.cfg,
                                               n_micro=self.n_micro,
+                                              membership=self._membership,
                                               inner_syncs=self._inner_syncs_of(inner),
                                               group_perm=self._group_perm)
 
@@ -258,7 +285,8 @@ class DasoStrategy(Strategy):
             base, extra = split_ov(outer)
             raw_ov = daso_overlap_step(self.loss_fn, self.optimizer, self.cfg, mode=base,
                                        staleness=staleness, extra_staleness=extra,
-                                       n_micro=self.n_micro, inner_syncs=inner_syncs,
+                                       n_micro=self.n_micro, membership=self._membership,
+                                       inner_syncs=inner_syncs,
                                        group_perm=self._group_perm)
 
             def ostep(carry, batch, lr):
@@ -270,7 +298,8 @@ class DasoStrategy(Strategy):
             return ostep
         raw = daso_train_step(self.loss_fn, self.optimizer, self.cfg, mode=outer,
                               staleness=staleness, n_micro=self.n_micro,
-                              inner_syncs=inner_syncs, group_perm=self._group_perm)
+                              membership=self._membership, inner_syncs=inner_syncs,
+                              group_perm=self._group_perm)
 
         def step(carry, batch, lr):
             params, opt_state, inflight = carry
@@ -300,27 +329,30 @@ class DasoStrategy(Strategy):
 
     def overlap_exchange_fn(self):
         """pending -> inflight: the one outer exchange of an overlap cycle,
-        at the cycling phase's wire tier."""
-        cfg = self.cfg
+        at the cycling phase's wire tier, over the active replicas."""
+        cfg, mask = self.cfg, self._membership
 
         def exchange(pending):
             return global_send(pending, wire_format=cfg.wire_format_for(blocking=False),
-                               int8_block=cfg.int8_block)
+                               int8_block=cfg.int8_block, mask=mask)
 
         return exchange
 
     def overlap_merge_fn(self, staleness: int, extra_staleness: int):
         """(params, inflight, loss_per_replica (L, R)) -> (merged params,
         per-step loss (L,)): Eq. (1) through K2 with S = staleness +
-        extra_staleness, and the loss reduction the compute steps deferred,
-        row by row as the per-step path reduces it."""
-        cfg = self.cfg
+        extra_staleness and the world P_eff of the active replicas, and the
+        loss reduction the compute steps deferred, row by row as the
+        per-step path reduces it."""
+        cfg, mask, n_active = self.cfg, self._membership, self.n_active()
+        p_eff = (cfg.global_world if mask is None
+                 else cfg.global_world * n_active / cfg.n_replicas)
 
         def merge(params, inflight, loss_r):
             params = global_receive(params, inflight, staleness=staleness,
                                     extra_staleness=extra_staleness,
-                                    global_world=cfg.global_world)
-            return params, _cross_replica_loss(cfg, loss_r, axis=1)
+                                    global_world=p_eff, mask=mask)
+            return params, _cross_replica_loss(cfg, mask, n_active, loss_r, axis=1)
 
         return merge
 
@@ -492,8 +524,7 @@ class MacroCycleExecutor:
         the strategy's current step variants. Returns how many were
         dropped. Its callers swap the strategy's step variants: after
         `DasoStrategy.set_group_permutation`, and the resilience supervisor
-        when the membership changes (the reference's
-        `resilience/supervisor.py`; ROADMAP item 15)."""
+        (resilience/supervisor.py) when the membership changes."""
         n = len(self._programs) + len(self._per_step) + len(self._ov_fns)
         self._programs.clear()
         self._per_step.clear()
@@ -780,3 +811,9 @@ def run_compiled_training(strategy: Strategy, params0, data_fn: Callable,
                      controller=strategy.controller, divergence=divs,
                      executor_stats=ex.stats, step_seconds=seconds, carry=carry,
                      cycles=cycles)
+
+
+# registered on import, so every user of the registry (the launcher's
+# --strategy choices, train/loop.py, the tests) sees the baselines; last,
+# as baselines.py subclasses DasoStrategy from this module
+from repro_torch.core import baselines  # noqa: E402,F401

@@ -122,19 +122,70 @@ def chain_axis0_sum(w) -> torch.Tensor:
     return acc
 
 
-def masked_axis0_mean(arena: torch.Tensor) -> torch.Tensor:
+# -- elastic membership --------------------------------------------------------
+
+def normalize_membership(mask, n_replicas: int) -> Optional[Tuple[float, ...]]:
+    """An active-replica mask checked against the replica axis and made a
+    tuple of 0.0 / 1.0 floats, the static weights a masked exchange bakes
+    in (`repro/core/flatbuf.py::normalize_membership`). The all-active mask
+    gives None: callers take None as the non-elastic path, whose numbers
+    are those of a run without membership, bit for bit."""
+    if mask is None:
+        return None
+    mask = tuple(float(m) for m in mask)
+    if len(mask) != n_replicas:
+        raise ValueError(f"membership mask has {len(mask)} entries for "
+                         f"{n_replicas} replicas")
+    if any(m not in (0.0, 1.0) for m in mask):
+        raise ValueError(f"membership mask must be 0/1 valued, got {mask}")
+    if not any(mask):
+        raise ValueError("membership mask has no active replicas")
+    if all(m == 1.0 for m in mask):
+        return None
+    return mask
+
+
+def membership_col(mask: Tuple[float, ...], dtype, ndim: int,
+                   device=None) -> torch.Tensor:
+    """The mask as an (R, 1, ..., 1) column of `dtype` that broadcasts
+    against a rank-`ndim` tensor with a leading replica axis. Multiplying
+    by it zeroes the dropped replicas' rows before a reduction (0 and 1 are
+    exact in every wire dtype)."""
+    col = torch.tensor(mask, dtype=dtype, device=device)
+    return col.reshape((len(mask),) + (1,) * (ndim - 1))
+
+
+def masked_axis0_mean(arena: torch.Tensor,
+                      mask: Optional[Tuple[float, ...]] = None) -> torch.Tensor:
     """Mean over the leading replica axis, kept as a (1, ...) tensor, in
     the arena's dtype: the sum of the rows as a chain of adds in replica
-    order, times 1/R rounded to the arena's dtype. (The reference's mask
-    argument, for elastic membership, comes with ROADMAP item 15.)
+    order, times 1/R rounded to the arena's dtype.
+
+    `mask` (`normalize_membership`) weights the mean by membership: each
+    dropped replica's row is multiplied by 0 before the sum, as the
+    reference multiplies the arena by `membership_col` (so a NaN or an
+    infinity in a frozen row reaches the mean in both packages), and the
+    scale is 1/n_active. The products are taken row by row, so no second
+    full-size arena is allocated; an active row's product by 1 is the row
+    itself and is skipped. The sum then takes a + 0: the reference's
+    default `lax.reduce` starts from +0, so where every row holds a signed
+    zero (a dropped row's 0 * x is -0 for a negative x) its sum is +0 (its
+    deterministic chain tier, which the unmasked mean matches, keeps -0).
 
     Both of the reference's tiers reduce so on the CPU: its default
     `lax.reduce` over axis 0 adds the rows in order, a bf16 arena in bf16
     after every add, and its deterministic tier is this chain
     (`chain_axis0_sum`). A `torch.sum` of a bf16 tensor accumulates in f32
     and differs."""
-    scale = float(torch.tensor(1.0 / arena.shape[0], dtype=arena.dtype))
-    return (chain_axis0_sum(arena) * scale)[None]
+    if mask is None:
+        scale = float(torch.tensor(1.0 / arena.shape[0], dtype=arena.dtype))
+        return (chain_axis0_sum(arena) * scale)[None]
+    if len(mask) != arena.shape[0]:
+        raise ValueError(f"membership mask has {len(mask)} entries for "
+                         f"{arena.shape[0]} replicas")
+    rows = [arena[i] if m else arena[i] * 0.0 for i, m in enumerate(mask)]
+    scale = float(torch.tensor(1.0 / sum(mask), dtype=arena.dtype))
+    return ((chain_axis0_sum(rows) + 0.0) * scale)[None]
 
 
 # -- wire codecs over an arena -------------------------------------------------

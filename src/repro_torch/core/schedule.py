@@ -23,11 +23,14 @@ Pure host logic: given the step index it returns which step variant to run
 and consumes windowed loss means for plateau detection. Its state_dict has
 the reference's keys, so the two packages' schedules compare directly.
 With a `tracer` attached, each plateau decision is a `bw_change` instant
-(obs/trace.py). `retune` and the `notify_*` hooks, and the `retune` /
-`membership_change` / `dcn_scale` events they emit, are later ports
-(ROADMAP items 18, 15).
+(obs/trace.py). The resilience supervisor's hooks (`notify_membership_change`,
+`notify_dcn_scale`) add `membership_change` / `dcn_scale` instants and
+`events` records. `retune` and its `retune` event are a later port (ROADMAP
+item 18).
 """
 from __future__ import annotations
+
+import math
 
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -47,8 +50,8 @@ class Mode:
     # stale; an OV_SYNC token carries its extra staleness as "~E"
     OV_START = "ov_start"
     OV_SYNC = "ov_sync"
-    # baseline strategy family (the reference's core/baselines.py, ROADMAP
-    # item 14): GOSSIP carries its ring-shift as a "~s" suffix
+    # the baseline strategies (core/baselines.py): GOSSIP carries its
+    # ring-shift as a "~s" suffix
     # ("gossip~2"), reusing the split_ov mechanics so each shift runs as
     # its own step variant; ELASTIC is the EASGD center pull, PUSH the
     # DOWNPOUR delta push — both one global all-reduce.
@@ -58,7 +61,8 @@ class Mode:
 
 
 # outermost-level actions that touch the global (cross-node) network
-_GLOBAL_SYNCS = (Mode.SEND, Mode.SEND_RECEIVE, Mode.BLOCKING, Mode.OV_SYNC)
+_GLOBAL_SYNCS = (Mode.SEND, Mode.SEND_RECEIVE, Mode.BLOCKING, Mode.OV_SYNC,
+                 Mode.GOSSIP, Mode.ELASTIC, Mode.PUSH)
 # the same, with the local-SGD average: what `level_sync_counts` tallies as
 # the outermost level's syncs
 _OUTER_SYNCS = _GLOBAL_SYNCS + (Mode.HARD_AVG,)
@@ -268,6 +272,43 @@ class DasoController:
                         w_from=w0, w_to=self._w, window_mean=mean,
                         best=self._best,
                         patience=self.cfg.plateau_patience)
+
+    # -- resilience hooks --------------------------------------------------
+    def notify_membership_change(self, step: int, n_active: int) -> None:
+        """A replica dropped or rejoined at `step`. The loss of another
+        active set does not compare with the old one, so the plateau
+        statistics are flushed: the current window is dropped and the best
+        window restarts (a crash's loss bump would otherwise count toward
+        `plateau_patience` at once). B and W stay where they are."""
+        self._win_acc.clear()
+        self._since_improve = 0
+        self._best = float("inf")
+        self.events.append((step, "membership", float(n_active)))
+        self._trace("membership_change", reason="plateau_stats_flushed",
+                    step=step, n_active=n_active)
+
+    def notify_dcn_scale(self, scale: float, *, step: int = -1) -> None:
+        """The outermost (cross-node) network runs at `scale` times its
+        nominal bandwidth: degraded (scale < 1) or recovered (scale >= 1).
+        Degraded, B stretches to ceil(b_max / scale), capped at 4 b_max, so
+        the exchange's cost per step stays bounded; recovered, B comes back
+        to at most b_max. W follows B at the paper's B/4."""
+        if scale <= 0:
+            raise ValueError(f"dcn scale must be positive, got {scale}")
+        self._dcn_scale = float(scale)
+        b_max = max(1, self.cfg.b_max)
+        b0 = self._b
+        if scale < 1.0:
+            stretched = int(math.ceil(b_max / scale))
+            self._b = max(self._b, min(4 * b_max, stretched))
+            reason = "dcn_degraded"
+        else:
+            self._b = min(self._b, b_max)
+            reason = "dcn_recovered"
+        self._w = max(1, self._b // 4)
+        self.events.append((step, "dcn_scale", float(scale)))
+        self._trace("dcn_scale", reason=reason, step=step, scale=scale,
+                    b_from=b0, b_to=self._b)
 
     # -- checkpoint state --------------------------------------------------
     _STATE_FIELDS = ("_b", "_w", "_last_send", "_inflight_since",

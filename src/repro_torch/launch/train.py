@@ -1,7 +1,7 @@
 """Training launcher of the port (`repro/launch/train.py`, its
 single-process flags): DASO (R virtual nodes as the replica axis on one
-device), the local-SGD ablation or the sync baseline, on CUDA unless
-`--device cpu`. It runs the macro-cycle executor (core/executor.py) by
+device), the local-SGD ablation, the gossip / EASGD / DOWNPOUR baselines
+or the sync baseline, on CUDA unless `--device cpu`. It runs the macro-cycle executor (core/executor.py) by
 default, one dispatch per controller cycle; `--executor per_step` runs one
 step per dispatch.
 
@@ -28,6 +28,19 @@ step per dispatch.
   PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
       --topology "chip:4 x host:2@50e9 x pod:2@25e9" --steps 40
 
+  # a baseline: gossip averages pairs of replicas every B steps (easgd,
+  # downpour: the elastic center and the parameter server's pushes)
+  PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
+      --strategy gossip --wire-format int8 --steps 40
+
+  # a fault plan (resilience/faults.py JSON, a file or inline) replayed by
+  # the resilience supervisor on the simulated clock: replica 2 crashes at
+  # step 10 and rejoins at step 22; prints one line per event, and
+  # --metrics-out gets a "resilience" record
+  PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
+      --steps 40 --fault-plan '{"events": [{"step": 10, "kind": "crash",
+      "replica": 2}, {"step": 22, "kind": "rejoin", "replica": 2}]}'
+
   # a JSONL run trace (obs/trace.py): the run_metadata event, the macro
   # executor's cycle / overlap / compile / checkpoint events, the
   # controller's decisions and the per-level comm_meters counter; the
@@ -38,11 +51,11 @@ step per dispatch.
 
 Either package loads the other's checkpoints (`checkpoint/io.py`), and
 reads the other's traces. The reference's other flags (the per-leaf
-exchange, fault plans, autotune, the multi-process runtime) are not ported
-yet: each is refused with the ROADMAP item that will port it. So a trace
-here is one process's stream: the merge of several processes' streams
-(tools/launch_procs.py) and the health monitor's `phase` instants wait for
-item 16, the supervisor's spans and the membership events for item 15.
+exchange, autotune, the multi-process runtime) are not ported yet: each is
+refused with the ROADMAP item that will port it. So a trace here is one
+process's stream: the merge of several processes' streams
+(tools/launch_procs.py), the health monitor's `phase` instants and the
+regroup replay of a real process death wait for item 16.
 """
 import argparse
 import dataclasses
@@ -52,26 +65,29 @@ import sys
 
 import torch
 
-from repro_torch.checkpoint.io import save_checkpoint
+from repro_torch.checkpoint.io import (TrainState, fit_tree, load_train_state,
+                                       save_checkpoint, save_train_state)
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import MAMBA, RGLRU
-from repro_torch.core.executor import list_strategies
+from repro_torch.core.executor import MacroCycleExecutor, list_strategies
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import init_params
 from repro_torch.obs import meters
 from repro_torch.obs.trace import Tracer, merge_streams, stream_path
+from repro_torch.optim.optimizers import sgd
 from repro_torch.optim.schedules import warmup_linear_scaled
+from repro_torch.resilience import FaultPlan, run_with_faults
 from repro_torch.topo import TopologySpec, derive_inner_periods
-from repro_torch.train.loop import TrainLoopConfig, run_training
+from repro_torch.train.loop import (TrainLoopConfig, build_strategy, ckpt_step_dir,
+                                    run_training)
 from repro_torch.train.step import make_lm_loss
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 
 # flags of the reference launcher that wait for a later part of the port,
 # with the ROADMAP item that ports them
 LATER_FLAGS = {
-    "--exchange-impl": 7, "--dispatch": 16, "--fault-plan": 15,
-    "--autotune": 18, "--autotune-every": 18, "--distributed": 16,
+    "--exchange-impl": 7, "--dispatch": 16, "--autotune": 18, "--autotune-every": 18, "--distributed": 16,
     "--coordinator": 16, "--procs": 16, "--proc-id": 16,
 }
 
@@ -138,6 +154,12 @@ def parse_args(argv=None):
     ap.add_argument("--resume", default=None, metavar="STATE_DIR",
                     help="resume from a TrainState directory written by "
                          "--ckpt-every (by either package)")
+    ap.add_argument("--fault-plan", default=None, metavar="PLAN_JSON",
+                    help="replay a declarative fault plan (JSON file or text: "
+                         "crash / rejoin / straggle / recover / degrade_dcn / "
+                         "restore_dcn events) through the resilience supervisor "
+                         "on the macro executor; replica-axis strategies, "
+                         "--overlap off")
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a JSONL run trace (obs/trace.py): the macro "
@@ -167,6 +189,72 @@ def build_config(args):
     return cfg
 
 
+def run_fault_plan(args, loss_fn, params0, data_fn, loop_cfg, lr_fn, spec, tracer,
+                   device):
+    """`--fault-plan`: the plan (its topology-node events resolved against
+    `spec`) replayed by `resilience.run_with_faults` on the macro executor,
+    with `--resume` and `--ckpt-every` (the TrainState keeps the membership
+    mask). Returns the ResilienceReport, its losses the whole run's."""
+    if args.strategy == "sync":
+        raise SystemExit("train: --fault-plan requires a replica-axis strategy "
+                         "(daso / local_sgd / gossip / easgd / downpour)")
+    if args.executor != "macro":
+        raise SystemExit("train: --fault-plan drives the macro-cycle supervisor; "
+                         "--executor per_step is not supported with it")
+    if args.overlap != "off":
+        raise SystemExit("train: --fault-plan with --overlap is not supported: a "
+                         "membership change mid-cycle would merge a pending snapshot "
+                         "taken under the old active set (stale exchange weights). "
+                         "Run fault plans with the blocking schedule (--overlap off).")
+    plan = FaultPlan.from_json(args.fault_plan)
+    if spec is not None:
+        plan = plan.resolve(spec)  # topology-node events -> replicas
+    strategy = build_strategy(loss_fn, loop_cfg, sgd(momentum=0.9, weight_decay=1e-4))
+    start_step, carry, membership, prior_losses = 0, None, None, []
+    if args.resume:
+        ts = load_train_state(args.resume, device=device, expect_overlap="off",
+                              fallback=True)
+        if ts.strategy != args.strategy:
+            raise SystemExit(f"train: checkpoint was written by strategy "
+                             f"{ts.strategy!r}, run requests {args.strategy!r}")
+        start_step, membership, prior_losses = ts.step, ts.membership, list(ts.losses)
+        like = strategy.init_carry(tree_map(lambda x: x.to("meta"), params0))
+        carry = fit_tree(like, ts.carry, "carry/", what="this run's carry")
+        if ts.controller is not None and strategy.controller is not None:
+            strategy.controller.load_state_dict(ts.controller)
+        del ts
+        print(f"[train] resumed from {args.resume} at step {start_step}")
+
+    ckpt_cb = None
+    if args.ckpt_every:
+        def ckpt_cb(step, cur_carry, seg_losses):
+            save_train_state(ckpt_step_dir(args.ckpt, step), TrainState(
+                step=step, carry=cur_carry, controller=strategy.controller.state_dict(),
+                membership=(list(strategy.membership)
+                            if strategy.membership is not None else None),
+                strategy=args.strategy, losses=prior_losses + list(seg_losses)))
+
+    if tracer is not None and strategy.controller is not None:
+        strategy.controller.tracer = tracer
+    executor = MacroCycleExecutor(strategy, max_cycle_len=args.max_cycle_len)
+    report = run_with_faults(strategy, params0, data_fn, lr_fn, args.steps, plan,
+                             executor=executor, ckpt_every=args.ckpt_every,
+                             ckpt_cb=ckpt_cb, start_step=start_step, carry=carry,
+                             membership=membership, tracer=tracer)
+    del carry
+    if prior_losses:
+        report.result.losses = prior_losses + report.result.losses
+    print(f"[train] fault plan: {len(plan.events)} events, "
+          f"{report.invalidations} cycle-cache invalidations, "
+          f"simulated_time={report.simulated_time_s:.2f}s")
+    for ev in report.applied:
+        print(f"[train]   step {ev['step']:>5} {ev['kind']:<12} "
+              f"replica={ev.get('replica')} "
+              f"handle={ev['handle_s'] * 1e3:.1f}ms "
+              f"first_cycle={ev['first_cycle_s'] * 1e3:.1f}ms")
+    return report
+
+
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -176,9 +264,9 @@ def main(argv=None):
     src = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq_len, seed=args.seed)
     spec = None
     if args.topology:
-        if args.strategy not in ("daso", "hier_daso"):
+        if args.strategy not in ("daso", "hier_daso", "gossip", "easgd", "downpour"):
             raise SystemExit("train: --topology drives the replica-axis strategies "
-                             "(daso / hier_daso)")
+                             "(daso / hier_daso / gossip / easgd / downpour)")
         spec = TopologySpec.load(args.topology)
         args.nodes, args.local_world = spec.n_replicas, spec.local_world
         # a %period on the outermost level overrides --b-max, as the
@@ -223,9 +311,15 @@ def main(argv=None):
             wire_format=args.wire_format, exchange_impl="fused", overlap=args.overlap,
             param_bytes=sum(x.numel() * x.element_size() for x in leaves(params0)),
             procs=1, seed=args.seed, tiny=bool(args.tiny))
-    result = run_training(make_lm_loss(cfg), params0,
-                          sync_data if args.strategy == "sync" else daso_data,
-                          loop_cfg, lr_fn=lr_fn, tracer=tracer)
+    report = None
+    if args.fault_plan:
+        report = run_fault_plan(args, make_lm_loss(cfg), params0, daso_data, loop_cfg,
+                                lr_fn, spec, tracer, device)
+        result = report.result
+    else:
+        result = run_training(make_lm_loss(cfg), params0,
+                              sync_data if args.strategy == "sync" else daso_data,
+                              loop_cfg, lr_fn=lr_fn, tracer=tracer)
     stats = result.executor_stats
     if stats is not None:
         print(f"[train] executor: {stats.dispatches} host dispatches for "
@@ -251,6 +345,12 @@ def main(argv=None):
                    "device": str(device)}
         if stats is not None:
             metrics["executor_stats"] = dataclasses.asdict(stats)
+        if report is not None:
+            metrics["resilience"] = {
+                "events": report.applied, "invalidations": report.invalidations,
+                "simulated_time_s": report.simulated_time_s,
+                "retunes": report.retunes, "reshuffles": report.reshuffles,
+                "wasted_wait_s": report.wasted_wait_s}
         if comm_rows is not None:
             metrics["comm_meters"] = [{**dataclasses.asdict(r), "total_bytes": r.total_bytes}
                                       for r in comm_rows]

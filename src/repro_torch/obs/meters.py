@@ -34,9 +34,9 @@ from repro_torch.core.schedule import Mode, split_mode, split_ov
 _BLOCKING_OUTER = (Mode.BLOCKING, Mode.HARD_AVG)
 #: outer-mode tokens whose exchange crosses at the non-blocking wire tier
 #: (paper send family, the overlap merge, and the baseline-family
-#: exchanges of the reference's core/baselines.py — gossip partner
-#: copies, the EASGD center pull, DOWNPOUR delta pushes — which all price
-#: their payload at `wire_format_for(blocking=False)`; ROADMAP item 14)
+#: exchanges of core/baselines.py — gossip partner copies, the EASGD center
+#: pull, DOWNPOUR delta pushes — which all price their payload at
+#: `wire_format_for(blocking=False)`)
 _ASYNC_OUTER = (Mode.SEND, Mode.SEND_RECEIVE, Mode.OV_SYNC,
                 Mode.GOSSIP, Mode.ELASTIC, Mode.PUSH)
 

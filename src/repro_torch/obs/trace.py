@@ -33,8 +33,8 @@ Span taxonomy (the `cat` field; docs/observability.md has the full table):
               membership/DCN notifications, each with a `reason`
               (core/schedule.py)
   resilience  health-plane phase changes, fault events, regroup replay
-              (resilience/runtime.py, resilience/supervisor.py; in the
-              port, ROADMAP items 15 and 16)
+              (resilience/supervisor.py; resilience/runtime.py, the
+              live plane, is ROADMAP item 16 in the port)
   checkpoint  TrainState saves (train/loop.py)
   meter       comm-accounting counter snapshots (obs/meters.py readings)
   meta        the run_metadata event: topology, wire format, parameter

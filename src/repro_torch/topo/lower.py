@@ -121,20 +121,21 @@ def build_topology_strategy(loss_fn: Callable, optimizer, spec: TopologySpec,
     `HierDasoStrategy` whose step variants carry the per-level phase
     vector. `cfg` may be passed pre-built (it must agree with the spec);
     otherwise it is derived via `daso_config_from(spec, b_max=b_max,
-    **cfg_overrides)`. `membership` (elastic membership) is ROADMAP item
-    15."""
+    **cfg_overrides)`. `membership` (a 0/1 mask over the replicas) is the
+    strategy's starting active set (elastic membership)."""
     from repro_torch.core.executor import DasoStrategy
     from repro_torch.topo.strategy import HierDasoStrategy
 
-    if membership is not None:
-        raise NotImplementedError("elastic membership is not ported yet "
-                                  "(ROADMAP item 15)")
     cfg = cfg or daso_config_from(spec, b_max=b_max, **cfg_overrides)
     controller = make_controller(spec, cfg, loss_window=loss_window)
     if spec.n_levels == 2:
         strategy = DasoStrategy(loss_fn, optimizer, cfg,
-                                controller=controller, n_micro=n_micro)
+                                controller=controller, n_micro=n_micro,
+                                membership=membership)
+        # the spec on the stock strategy too, so the resilience supervisor
+        # resolves fault events that name topology nodes for either kind
         strategy.topo = spec
         return strategy
     return HierDasoStrategy(loss_fn, optimizer, cfg, topo=spec,
-                            controller=controller, n_micro=n_micro)
+                            controller=controller, n_micro=n_micro,
+                            membership=membership)

@@ -10,9 +10,9 @@ level talk to each other. DS-Sync (arXiv 2007.03298) and the Hitchhiker's
 Guide survey (arXiv 1810.11787) both observe that real clusters have more
 than the two tiers the original DASO paper models. The port lowers a spec
 onto the DASO control plane (step variants, sync schedule;
-`repro_torch.topo.lower`); the mesh, the comm model and the fault plans
-that the reference also lowers from it are later ports (ROADMAP items 16
-and 15).
+`repro_torch.topo.lower`) and resolves fault plans' node paths against it
+(`repro_torch.resilience.faults`); the mesh and the comm model that the
+reference also lowers from it are later ports (ROADMAP item 16).
 
 Spec grammar (one level per segment, segments joined by ``x``/``×``/``,``,
 innermost first)::
@@ -243,7 +243,7 @@ class TopologySpec:
         replica of pod 1, ``"pod1/host0"`` narrows to host 0 of pod 1.
         Level 0 units cannot be addressed (they live inside a replica).
         Fault plans use these paths to crash whole subtrees
-        (the reference's resilience/faults.py; ROADMAP item 15)."""
+        (resilience/faults.py::FaultPlan.resolve)."""
         segs = node.strip().split("/")
         lo, hi = 0, self.n_replicas
         expect = len(self.levels) - 1  # index into self.levels, walking in

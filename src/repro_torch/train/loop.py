@@ -1,5 +1,6 @@
 """End-to-end training entry point (`repro/train/loop.py`): strategy selection
-through the registry (daso / hier_daso / sync / local_sgd), an optional
+through the registry (daso / hier_daso / sync / local_sgd / gossip / easgd /
+downpour), an optional
 N-level topology (`topology`, repro_torch/topo), LR schedule, loss trace
 and the schedule's sync fraction, on one of two executors:
 
@@ -15,7 +16,8 @@ resumable `TrainState` (carry, controller state, loss trace) lands in
 `ckpt_dir/step_XXXXXXXX/`, on a cycle boundary on the macro executor and
 every `ckpt_every` steps on the per-step one; `resume_from` continues from
 one with the uninterrupted run's numbers bit for bit, and the returned loss
-trace is the whole run's.
+trace is the whole run's. A TrainState keeps the strategy's membership mask
+(elastic membership, resilience/), and a resume sets it again.
 
 Runs on CUDA unless `device="cpu"`, and raises without CUDA.
 """
@@ -42,7 +44,9 @@ from repro_torch.tree import leaves, tree_map
 
 @dataclass
 class TrainLoopConfig:
-    strategy: str = "daso"            # registered name: daso | hier_daso | sync | local_sgd
+    # registered name: daso | hier_daso | sync | local_sgd | gossip | easgd |
+    # downpour
+    strategy: str = "daso"
     n_steps: int = 200
     n_replicas: int = 4               # paper "nodes"
     local_world: int = 4              # paper GPUs per node
@@ -52,7 +56,8 @@ class TrainLoopConfig:
     # supersedes n_replicas / local_world (from the level fanouts) and, for
     # daso / hier_daso, selects the per-level sync schedule: a 2-level spec
     # lowers to the stock daso strategy (the legacy run bit for bit), a
-    # deeper one to hier_daso
+    # deeper one to hier_daso. gossip / easgd / downpour take a 2-level spec
+    # for sizing only
     topology: Optional[str] = None
     warmup_frac: float = 0.1          # warm-up epochs as a step fraction
     cooldown_frac: float = 0.1
@@ -78,16 +83,21 @@ class TrainLoopConfig:
     device: str = "cuda"
 
 
+# strategies that take a topology spec for sizing only (replica count, world
+# size, the outer sync period), with no per-level sync schedule
+# (core/baselines.py; a spec with intermediate levels is refused for them)
+_FLAT_TOPOLOGY_STRATEGIES = ("gossip", "easgd", "downpour")
+
+
 def resolve_topology(cfg: TrainLoopConfig) -> Optional[TopologySpec]:
-    """The run's `TopologySpec`, or None when cfg.topology is unset. Only
-    the daso family takes one (gossip, easgd and downpour, which the
-    reference also sizes from a spec, are ROADMAP item 14)."""
+    """The run's `TopologySpec`, or None when cfg.topology is unset. Checks
+    that the strategy takes one."""
     if cfg.topology is None:
         return None
-    if cfg.strategy not in ("daso", "hier_daso"):
+    if cfg.strategy not in ("daso", "hier_daso") + _FLAT_TOPOLOGY_STRATEGIES:
         raise ValueError(f"topology specs drive the replica-axis strategies "
-                         f"(daso / hier_daso); strategy {cfg.strategy!r} does "
-                         f"not take one")
+                         f"(daso / hier_daso / gossip / easgd / downpour); "
+                         f"strategy {cfg.strategy!r} does not take one")
     return TopologySpec.load(cfg.topology)
 
 
@@ -97,7 +107,8 @@ def build_strategy(loss_fn: Callable, cfg: TrainLoopConfig, optimizer: Optimizer
     strategy is lowered from the spec (`topo.build_topology_strategy`): R,
     the Eq. (1) world P and a pinned outer ``%period`` (b_max) come from
     the spec, intermediate levels get their periods, and the plateau
-    controller drives the outermost level."""
+    controller drives the outermost level. gossip / easgd / downpour take
+    R, P and b_max from a 2-level spec and refuse a deeper one."""
     if cfg.strategy not in list_strategies():
         raise KeyError(f"unknown strategy {cfg.strategy!r}; "
                        f"registered: {list_strategies()}")
@@ -109,9 +120,6 @@ def build_strategy(loss_fn: Callable, cfg: TrainLoopConfig, optimizer: Optimizer
                              "baseline has no non-blocking exchange to overlap")
         return make_strategy("sync", loss_fn, optimizer)
     spec = resolve_topology(cfg)
-    if spec is None and cfg.strategy == "hier_daso":
-        raise ValueError("strategy 'hier_daso' needs a topology spec "
-                         "(TrainLoopConfig.topology / --topology)")
     dcfg = DasoConfig(
         n_replicas=cfg.n_replicas if spec is None else spec.n_replicas,
         global_world=cfg.n_replicas * cfg.local_world if spec is None else spec.world,
@@ -122,9 +130,18 @@ def build_strategy(loss_fn: Callable, cfg: TrainLoopConfig, optimizer: Optimizer
         wire_format=cfg.wire_format,
         exchange_impl=cfg.exchange_impl,
         overlap=cfg.overlap)
-    if spec is not None:
+    if spec is not None and cfg.strategy not in _FLAT_TOPOLOGY_STRATEGIES:
         return build_topology_strategy(loss_fn, optimizer, spec, dcfg,
                                        loss_window=cfg.loss_window)
+    if spec is not None and tuple(spec.inner_names()):
+        raise ValueError(
+            f"strategy {cfg.strategy!r} has no per-level sync schedule; "
+            f"topology spec carries intermediate levels "
+            f"{tuple(spec.inner_names())} — use a 2-level spec, or "
+            f"daso/hier_daso for hierarchical syncing")
+    if cfg.strategy == "hier_daso":
+        raise ValueError("strategy 'hier_daso' needs a topology spec "
+                         "(TrainLoopConfig.topology / --topology)")
     cls = get_strategy(cfg.strategy)
     controller = cls.make_controller(dcfg, loss_window=cfg.loss_window)
     return cls(loss_fn, optimizer, dcfg, controller=controller)
@@ -184,9 +201,6 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
         if ts.strategy != cfg.strategy:
             raise ValueError(f"checkpoint was written by strategy {ts.strategy!r}, "
                              f"run requests {cfg.strategy!r}")
-        if ts.membership is not None:
-            raise NotImplementedError("the checkpoint carries an elastic membership "
-                                      "mask, which is not ported yet (ROADMAP item 15)")
         start_step, prior_losses = ts.step, list(ts.losses)
         # held to this run's carry, built on the meta device (no memory), so
         # a shape that differs raises and empty containers come back
@@ -194,6 +208,8 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
         loaded.append(fit_tree(like, ts.carry, "carry/", what="this run's carry"))
         if ts.controller is not None and strategy.controller is not None:
             strategy.controller.load_state_dict(ts.controller)
+        if ts.membership is not None and hasattr(strategy, "set_membership"):
+            strategy.set_membership(ts.membership)
         del ts
         if log is not None:
             log(f"[train] resumed from {cfg.resume_from} at step {start_step}")
@@ -205,6 +221,9 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
                 step=step, carry=cur_carry,
                 controller=(strategy.controller.state_dict()
                             if strategy.controller is not None else None),
+                membership=(list(strategy.membership)
+                            if getattr(strategy, "membership", None) is not None
+                            else None),
                 strategy=cfg.strategy, overlap=overlap,
                 losses=prior_losses + seg_losses))
 

@@ -638,11 +638,45 @@ def test_resume_refuses_a_strategy_or_membership_it_cannot_take(tmp_path):
     mf = os.path.join(path, "manifest.json")
     with open(mf) as f:
         manifest = json.load(f)
+    manifest["extra"]["train_state"]["membership"] = [1.0, 0.0, 1.0]
+    with open(mf, "w") as f:
+        json.dump(manifest, f)
+    with pytest.raises(ValueError, match="3 entries for 2 replicas"):
+        _run_port(24, "macro", "off", resume_from=path)
+
+
+@pytest.mark.parametrize("executor", ["macro", "per_step"])
+def test_resume_takes_the_checkpoints_membership(tmp_path, executor):
+    """A TrainState whose membership is [1.0, 0.0] resumes with replica 1
+    dropped: its params and momentum rows stay as the checkpoint holds them,
+    the final params are replica 0's, the port's next TrainState keeps the
+    mask, and the losses (over the active replica) and params match the
+    reference's run resumed from the same directory within RTOL."""
+    ckpt = str(tmp_path / "ck")
+    _run_port(24, executor, "off", ckpt_every=12, ckpt_dir=ckpt)
+    path = io.list_train_state_dirs(ckpt)[-1]  # the first, at or past step 12
+    mf = os.path.join(path, "manifest.json")
+    with open(mf) as f:
+        manifest = json.load(f)
     manifest["extra"]["train_state"]["membership"] = [1.0, 0.0]
     with open(mf, "w") as f:
         json.dump(manifest, f)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _run_port(24, "macro", "off", resume_from=path)
+    ts = io.load_train_state(path, device="cpu")
+    again = str(tmp_path / "again")
+    port = _run_port(24, executor, "off", resume_from=path, ckpt_every=6, ckpt_dir=again)
+    jax_ = _run_jax(24, executor, "off", resume_from=path)
+    for slot in (0, 1):
+        for got, saved in zip(leaves(port.carry[slot]), leaves(ts.carry[slot]), strict=True):
+            assert torch.equal(got[1], saved[1])
+    for a, b in zip(leaves(port.params), leaves(port.carry[0])):
+        assert torch.equal(a, b[0])
+    assert ts.step < 24
+    assert io.load_train_state(io.list_train_state_dirs(again)[0],
+                               device="cpu").membership == [1.0, 0.0]
+    np.testing.assert_allclose(port.losses, jax_.losses, rtol=RTOL)
+    for a, b in zip(leaves(port.params), jax.tree.leaves(jax_.params), strict=True):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL, atol=1e-6)
+    assert [h[1] for h in port.controller.history] == [h[1] for h in jax_.controller.history]
 
 
 # -- the launchers ------------------------------------------------------------------

@@ -141,6 +141,22 @@ def test_exchange_without_kernels_takes_cpu_tensors_only():
         daso.blocking_sync(m)
 
 
+@pytest.mark.parametrize("mask", [(1.0, 1.0, 0.0, 1.0), (0.0, 0.0, 1.0, 1.0)],
+                         ids=["one_dead", "dead_group"])
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+def test_masked_level_group_mean_bit_exact(problem, wire, mask):
+    """The group mean under a membership mask (elastic membership): each
+    pair of replicas averaged over its active rows, a fully dropped pair
+    divided by 1, with and without a regrouping, bit for bit the
+    reference's on the model's params."""
+    params = problem["jax"][0]
+    for perm in (None, (3, 1, 0, 2)):
+        want = jdaso.level_group_mean(jax.tree.map(jnp.asarray, params), 2, wire_format=wire,
+                                      mask=mask, perm=perm)
+        got = daso.level_group_mean(_port(params), 2, wire_format=wire, mask=mask, perm=perm)
+        _assert_tree_close(got, _np_tree(want), 0)
+
+
 def test_unported_options_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 7"):
         daso.DasoConfig(n_replicas=4, global_world=16, exchange_impl="per_leaf")
@@ -148,8 +164,6 @@ def test_unported_options_raise_naming_their_roadmap_item():
         daso.DasoConfig(n_replicas=4, global_world=16, exchange_impl="per_leaf",
                         wire_format="int8")
     cfg = daso.DasoConfig(n_replicas=4, global_world=16)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        daso.level_group_mean({"w": torch.zeros(4, 3)}, 2, mask=(1.0, 1.0, 0.0, 1.0))
     assert cfg.exchange_kernels and cfg.wire_format_for(blocking=True) == "bf16"
 
 

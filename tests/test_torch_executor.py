@@ -427,8 +427,9 @@ def test_group_runs():
 def test_registry_surface():
     import repro.topo  # noqa: F401  (registers the reference's hier_daso)
     import repro_torch.topo  # noqa: F401  (registers hier_daso)
-    assert executor.list_strategies() == ["daso", "hier_daso", "local_sgd", "sync"]
-    assert set(jexecutor.list_strategies()) >= set(executor.list_strategies())
+    assert executor.list_strategies() == ["daso", "downpour", "easgd", "gossip",
+                                          "hier_daso", "local_sgd", "sync"]
+    assert jexecutor.list_strategies() == executor.list_strategies()
     assert executor.get_strategy("local_sgd").name == "local_sgd"
     with pytest.raises(KeyError, match="did you mean 'daso'"):
         executor.get_strategy("dasoo")

@@ -562,3 +562,38 @@ def test_trace_report_reads_a_port_trace(tmp_path):
     drift = {row["level"] for row in rep["drift"]}
     assert drift == {"host", "pod"}
     json.dumps(rep)
+
+
+@pytest.mark.parametrize("name", ["gossip", "downpour"])
+def test_meters_account_baseline_strategy_traffic(name):
+    """tests/test_obs.py:273 in both packages: every exchange a baseline's
+    controller emits lands in the outer meter row (its own token at the
+    nonblocking tier, warm-up / cool-down at the blocking one), the row's
+    syncs are the history's non-local steps, and the rows equal the
+    reference's for the reference's run of the same problem."""
+    params0, batch = _problem(11, 2)
+    kw = dict(strategy=name, n_steps=20, n_replicas=2, local_world=2, b_max=4, lr=0.1,
+              loss_window=10)
+    res = loop.run_training(_loss, {k: torch.from_numpy(v) for k, v in params0.items()},
+                            lambda s: {k: torch.from_numpy(v) for k, v in batch(s).items()},
+                            loop.TrainLoopConfig(device="cpu", **kw), log=None)
+    jres = jloop.run_training(_jax_loss, jax.tree.map(jnp.asarray, params0),
+                              lambda s: jax.tree.map(jnp.asarray, batch(s)),
+                              jloop.TrainLoopConfig(**kw), log=None)
+    ctl = res.controller
+    n_exchanges = sum(1 for (_, m, _, _) in ctl.history if m != "local")
+    assert n_exchanges > 0
+    split = meters.outer_sync_split(ctl.history)
+    assert split["nonblocking"] > 0 and split["blocking"] > 0
+    assert split["blocking"] + split["nonblocking"] == n_exchanges
+    counts = ctl.level_sync_counts()
+    assert counts == {"_outer": n_exchanges} == jres.controller.level_sync_counts()
+    rows = meters.level_bytes_report(res.params, counts, ctl.cfg, outer_split=split)
+    assert sum(r.syncs for r in rows) == n_exchanges
+    assert all(r.bytes_per_sync > 0 for r in rows)
+    flat = meters.rows_as_counter(rows)
+    assert sum(v for k, v in flat.items() if k.endswith(".syncs")) == n_exchanges
+    jrows = jmeters.level_bytes_report(jres.params, counts, jres.controller.cfg,
+                                       outer_split=jmeters.outer_sync_split(
+                                           jres.controller.history))
+    assert _rows(rows) == _rows(jrows)

@@ -14,8 +14,11 @@ and the group mean) held against the JAX package on the CPU:
     int32 leaves, the f32 and bf16 wires, with and without a permutation,
     and bit for bit an explicit numpy per-group chain oracle; the global
     mean kept under every permutation of 4 replicas;
-  * the refusals: retune (item 18), a membership mask (item 15), the int8
-    wire, a group size that does not divide R, `hier_daso` without a spec.
+  * the masked group mean (elastic membership) bit for bit the
+    reference's over the same cases, and `build_topology_strategy` taking a
+    membership mask;
+  * the refusals: retune (item 18), the int8 wire, a group size that does
+    not divide R, `hier_daso` without a spec.
 Inputs are made from a seed with numpy."""
 import dataclasses
 import itertools
@@ -139,8 +142,6 @@ def test_lowering_refusals():
         lower.derive_inner_periods(s, b_max=0)
     with pytest.raises(ValueError, match="does not match"):
         lower.make_controller(s, daso.DasoConfig(n_replicas=2, global_world=8))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        lower.build_topology_strategy(None, None, s, membership=(1, 1, 0, 1))
 
 
 # -- the N-level controller -------------------------------------------------------
@@ -294,6 +295,67 @@ def test_level_group_mean_bit_exact_with_the_reference_and_the_oracle(groups, pe
             np.testing.assert_array_equal(_bits(g.numpy()), _bits(_oracle(x, per, perm, wire)))
 
 
+@pytest.mark.parametrize("groups,per", list(itertools.product(range(2, 5), range(1, 4))))
+def test_masked_level_group_mean_bit_exact_with_the_reference(groups, per):
+    """The cases of the test above under membership masks (one random mask
+    per seed, and one whose first group is wholly dropped): bit for bit the
+    reference's default tier, f32 and bf16 wires, with and without a
+    permutation (the mask travels with its rows)."""
+    R = groups * per
+    for seed, wire, permuted in itertools.product((0, 1), ("f32", "bf16"), (False, True)):
+        tree = _group_tree(R, seed)
+        rng = np.random.default_rng(seed + 10)
+        perm = tuple(rng.permutation(R)) if permuted else None
+        masks = [tuple(float(m) for m in rng.integers(0, 2, R)),
+                 tuple(0.0 if i < per else 1.0 for i in range(R))]
+        for mask in masks:
+            if not any(mask) or all(mask):
+                continue
+            want = jdaso.level_group_mean(jax.tree.map(jnp.asarray, tree), per,
+                                          wire_format=wire, mask=mask, perm=perm)
+            got = daso.level_group_mean(jax.tree.map(torch.from_numpy, tree), per,
+                                        wire_format=wire, mask=mask, perm=perm)
+            for x, w, g in zip(jax.tree.leaves(tree), jax.tree.leaves(want),
+                               jax.tree.leaves(got), strict=True):
+                assert g.dtype == torch.from_numpy(x).dtype and g.shape == x.shape
+                np.testing.assert_array_equal(_bits(g.numpy()), _bits(np.asarray(w)),
+                                              err_msg=str((seed, wire, perm, mask)))
+
+
+def test_build_topology_strategy_takes_a_membership_mask():
+    """`membership=` sets the lowered strategy's mask (2-level: the stock
+    daso strategy; 3-level: hier_daso), and a masked hier step with a host
+    sync gives the reference's carry within rtol 2e-5, the dropped rows
+    frozen."""
+    mask = (1.0, 0.0, 1.0, 1.0)
+    for text in ("chip:4 x pod:4", "chip:2 x host:2 x pod:2"):
+        s = spec.TopologySpec.parse(text)
+        strat = lower.build_topology_strategy(None, None, s, membership=mask)
+        assert strat.membership == mask and strat.n_active() == 3 and strat.topo is s
+        assert lower.build_topology_strategy(None, None, s).membership is None
+    from repro.optim.optimizers import sgd as jax_sgd
+    from repro_torch.optim.optimizers import sgd
+    rng = np.random.default_rng(4)
+    w0 = rng.standard_normal((4, 3, 2)).astype(np.float32)
+    x = rng.standard_normal((4, 5, 3)).astype(np.float32)
+
+    def loss(p, b):
+        return ((b["x"] @ p["w"]) ** 2).mean(), {}
+
+    text = "chip:2 x host:2 x pod:2"
+    out = []
+    for mod, sp, opt, conv in ((lower, spec, sgd, torch.from_numpy),
+                               (jlower, jspec, jax_sgd, jnp.asarray)):
+        strat = mod.build_topology_strategy(loss, opt(momentum=0.9),
+                                            sp.TopologySpec.parse(text), membership=mask)
+        carry = strat.init_carry({"w": conv(w0[0])})
+        carry = ({"w": conv(w0)},) + tuple(carry[1:])
+        carry, _ = strat.step_fn("local+host", 1)(carry, {"x": conv(x)}, 0.1)
+        out.append(np.asarray(carry[0]["w"]))
+    np.testing.assert_allclose(out[0], out[1], rtol=2e-5, atol=1e-6)
+    np.testing.assert_array_equal(out[0][1], w0[1])
+
+
 def test_level_group_mean_of_the_whole_axis_is_the_replica_mean():
     tree = jax.tree.map(torch.from_numpy, _group_tree(4, 2))
     for wire in ("f32", "bf16"):
@@ -332,8 +394,6 @@ def test_group_mean_refusals():
         daso.level_group_mean(x, 3)
     with pytest.raises(ValueError, match="int8"):
         daso.level_group_mean(x, 2, wire_format="int8")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        daso.level_group_mean(x, 2, mask=(1.0, 0.0, 1.0, 1.0))
     with pytest.raises(ValueError, match="not a permutation"):
         daso.level_group_mean(x, 2, perm=(0, 0, 1, 2))
     assert daso.normalize_group_perm((0, 1, 2, 3), 4) is None

@@ -7,6 +7,7 @@ are made from a seed with numpy; both sides train on the same synthetic
 tokens from the same initial parameters."""
 import dataclasses
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -225,7 +226,6 @@ def test_launcher_trains_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--fault-plan", "plan.json"], SystemExit, "item 15"),
     (["--autotune"], SystemExit, "item 18"),
     (["--distributed"], SystemExit, "item 16"),
     (["--exchange-impl", "per_leaf"], SystemExit, "item 7"),
@@ -233,6 +233,51 @@ def test_launcher_trains_on_the_cpu(tmp_path):
 def test_launcher_refuses_unported_flags(argv, err, match):
     with pytest.raises(err, match=match):
         launch_train.main(["--tiny", "--device", "cpu", "--steps", "2"] + argv)
+
+
+FAULT_PLAN = json.dumps({"events": [{"step": 4, "kind": "crash", "replica": 2},
+                                     {"step": 6, "kind": "degrade_dcn", "factor": 0.5},
+                                     {"step": 9, "kind": "rejoin", "replica": 2}]})
+
+
+def test_launcher_runs_a_fault_plan_on_the_cpu(tmp_path, capsys):
+    """--fault-plan (inline JSON) through the resilience supervisor: one
+    line per event, the "resilience" record in --metrics-out with the
+    reference launcher's keys, a TrainState taken while replica 2 is down
+    keeps its mask, and --resume from it gives the uninterrupted losses bit
+    for bit. The flags the reference refuses with a plan are refused."""
+    base = ["--tiny", "--device", "cpu", "--steps", "12", "--nodes", "4",
+            "--per-node-batch", "2", "--seq-len", "16", "--fault-plan", FAULT_PLAN]
+    out, ck = tmp_path / "m.json", tmp_path / "ck"
+    full = launch_train.main(base + ["--metrics-out", str(out), "--ckpt", str(ck),
+                                     "--ckpt-every", "6"])
+    text = capsys.readouterr().out
+    assert "[train] fault plan: 3 events, 2 cycle-cache invalidations" in text
+    assert "crash        replica=2" in text and "rejoin       replica=2" in text
+    m = json.loads(out.read_text())
+    res = m["resilience"]
+    assert sorted(res) == ["events", "invalidations", "reshuffles", "retunes",
+                           "simulated_time_s", "wasted_wait_s"]
+    assert [(e["step"], e["kind"]) for e in res["events"]] == \
+        [(4, "crash"), (6, "degrade_dcn"), (9, "rejoin")]
+    assert res["invalidations"] == 2 and len(m["losses"]) == 12
+    states = sorted(d for d in os.listdir(ck) if d.startswith("step_"))
+    mid = str(ck / states[0])
+    from repro_torch.checkpoint.io import load_train_state
+    ts = load_train_state(mid, device="cpu")
+    assert 4 <= ts.step < 9 and ts.membership == [1.0, 1.0, 0.0, 1.0]
+    # a resumed run replays the plan's events still ahead of the checkpoint
+    ahead = json.dumps({"events": [e for e in json.loads(FAULT_PLAN)["events"]
+                                   if e["step"] >= ts.step]})
+    resumed = launch_train.main(base[:-1] + [ahead, "--resume", mid])
+    assert resumed.losses == full.losses
+    with pytest.raises(ValueError, match="before resume step"):
+        launch_train.main(base + ["--resume", mid])
+    for argv, match in ((["--strategy", "sync"], "replica-axis"),
+                        (["--executor", "per_step"], "per_step"),
+                        (["--overlap", "one_cycle"], "--overlap")):
+        with pytest.raises(SystemExit, match=match):
+            launch_train.main(base + argv)
 
 
 @pytest.mark.parametrize("argv,dispatches,fallback", [
