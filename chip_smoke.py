@@ -169,6 +169,30 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                repro_torch.launch.train.main --tiny --steps 12 --fault-plan
                --metrics-out on the card: the "resilience" record's keys and
                events, K2 / K3 as the modes imply
+  train_procs, train_procs_int8_overlap
+               the multi-process runtime: python -m repro_torch.launch.procs
+               runs the launcher's train cell at full width, 2 of 16 layers,
+               f32, on chip:4 x host:2@50e9 x pod:2@25e9 (the host syncs stay
+               in a process, the pod exchange crosses processes over gloo),
+               16 steps, --ckpt at the end, once with 1 process and once with
+               2 sharing the card; the second phase on the int8 wire with
+               --overlap one_cycle --dispatch overlap (each ov_sync's gather
+               on a helper thread beside the cycle's local steps). The losses,
+               the final params and every replica row of the final carry
+               (each process's --proc-report digests) bit for bit; each
+               process's K2 / K3 / K5 / K6 launches the one-process run's,
+               as the modes imply. Prints the peak per process, gathers and
+               bytes per exchange by dtype, ms per gather (D2H, gloo, H2D)
+               and GB/s, ms per step by cycle shape beside the one-process
+               run's, and (overlap) the gather's ms beside the local steps
+               against the wait after them
+  live_kill    python -m repro_torch.launch.procs --procs 2 --kill 1:6 at
+               --tiny on the same topology, --ckpt-every 1: the survivor
+               regroups onto one process over every replica, resumes from
+               the newest intact TrainState and replays the death; its
+               losses and final params equal a one-process run of the same
+               crash as a fault plan (resilience.run_with_faults) bit for
+               bit; prints the supervisor's detect / regroup / resume s
   train        run_training with DASO on llama3.2-1b at full width, 4 of its
                16 layers, f32, R = 4 replicas: 40 steps on the per-step
                executor, K2 and K3 launches held to the schedule's receive
@@ -209,6 +233,7 @@ Exits non-zero without printing a result when no CUDA device is present.
 import collections
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -222,7 +247,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import ExitStack, contextmanager
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+sys.path.insert(0, SRC)
 # The train phases come close to the card's memory and allocate whole
 # arenas at once; growable segments keep the caching allocator's free memory
 # usable for them after the serving phases (fixed-size segments left it in
@@ -2608,6 +2634,238 @@ def phase_launch_faults():
     return launches
 
 
+# -- the multi-process runtime ------------------------------------------------------
+
+# train_procs: the 3-level train cell at 2 of 16 layers (PROCS_WHY), once in
+# one process and once in two (one pod each), both through the process
+# launcher; live_kill: a supervised two-process run at --tiny size
+PROCS_LAYERS, PROCS_STEPS, PROCS_TIMEOUT = 2, 16, 420
+PROCS_ARGS = ["--full", "--layers", str(PROCS_LAYERS), "--dtype", "float32",
+              "--topology", TOPO_SPEC, "--steps", str(PROCS_STEPS),
+              "--per-node-batch", str(TRAIN_PER), "--seq-len", str(TRAIN_SEQ),
+              "--lr", str(TRAIN_LR), "--seed", "0"]
+PROCS_WHY = ("memory: two processes share the one card, each holding params0, its 2 "
+             "replicas' params and momentum, the in-flight mean and the gathered wire "
+             "arena of all 4 replicas; at 4 layers the one-process train cell alone "
+             "peaks at 51.7 GB (PERF.md)")
+PROCS_COMM = ("eq1_merge", "bf16_pack", "bf16_unpack", "quantize_int8", "dequantize_int8")
+# 40 steps: at --tiny size a step takes milliseconds on the card, so the
+# survivor has passed the kill's step by the time the supervisor reads the
+# heartbeat (written every 0.25 s); the regrouped epoch replays the rest
+LIVE_STEPS, LIVE_KILL, LIVE_WATCHDOG_S = 40, "1:6", 120
+LIVE_ARGS = ["--tiny", "--topology", TOPO_SPEC, "--steps", str(LIVE_STEPS),
+             "--per-node-batch", "2", "--seq-len", "16", "--b-max", "4", "--seed", "0"]
+
+
+def launch_procs(argv, timeout):
+    """`python -m repro_torch.launch.procs ARGV` from this checkout; returns
+    (exit code, output, seconds)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.procs"] + argv,
+                       capture_output=True, text=True, timeout=timeout + 60, env=env)
+    return r.returncode, r.stdout + r.stderr, time.perf_counter() - t0
+
+
+def procs_run(tmp, name, procs, extra):
+    """One launch of the train cell over `procs` processes; returns the
+    metrics, the per-process reports and the launcher's seconds."""
+    out = os.path.join(tmp, name)
+    code, log, wall = launch_procs(
+        ["--procs", str(procs), "--timeout", str(PROCS_TIMEOUT), "--"] + PROCS_ARGS + extra
+        + ["--ckpt", os.path.join(out, "ck"), "--metrics-out", os.path.join(out, "m.json"),
+           "--proc-report", os.path.join(out, "rep")], PROCS_TIMEOUT)
+    if code:
+        emit({"phase": name, "failed": f"the {procs}-process group exited {code}",
+              "output_tail": log[-4000:]})
+        raise AssertionError(f"{name}: exit {code}")
+    with open(os.path.join(out, "m.json")) as f:
+        metrics = json.load(f)
+    reports = []
+    for p in range(procs):
+        with open(os.path.join(out, f"rep.p{p}.json")) as f:
+            reports.append(json.load(f))
+    ckpt = os.path.isfile(os.path.join(out, "ck", "arrays.npz"))
+    return metrics, reports, wall, ckpt
+
+
+def gather_row(rep):
+    """A process's gathers: calls, bytes per exchange by dtype, ms per gather
+    split into D2H, gloo and H2D, the rate in GB/s of the bytes moved
+    (sent + received) over the gather's time, and the part beside the
+    local steps."""
+    ex = rep["placement"]["exchange"]
+    n = max(1, ex["calls"])
+    moved = ex["payload_bytes"] + ex["received_bytes"]
+    return {"calls": ex["calls"], "payload_bytes_per_exchange": ex["payload_bytes"] / n,
+            "received_bytes_per_exchange": ex["received_bytes"] / n,
+            "payload_bytes_by_dtype": ex["by_dtype"],
+            "ms_per_gather": 1e3 * ex["seconds"] / n, "d2h_ms": 1e3 * ex["d2h_s"] / n,
+            "gloo_ms": 1e3 * ex["comm_s"] / n, "h2d_ms": 1e3 * ex["h2d_s"] / n,
+            "gb_per_s": moved / ex["seconds"] / 1e9 if ex["seconds"] else None,
+            "beside_compute_calls": ex["beside_compute_calls"],
+            "beside_compute_ms": 1e3 * ex["beside_compute_s"],
+            "fetch": rep["placement"]["fetch"]}
+
+
+def report_cycle_ms(rep):
+    """ms per step by cycle shape, as `cycle_rows` gives them."""
+    by_shape = {}
+    for shape, sec in rep["cycles"]:
+        shape = tuple((m, s) for m, s in shape)
+        by_shape.setdefault(shape_name(shape), []).append(1e3 * sec / len(shape))
+    return {k: {"cycles": len(v), "ms_per_step_median": statistics.median(v)}
+            for k, v in by_shape.items()}
+
+
+def phase_train_procs(name, extra, want_launches):
+    """The train cell at 2 layers over two processes and over one, both
+    through `python -m repro_torch.launch.procs`: the losses, the final
+    params (process 0's checkpoint; each run's params digest) and every
+    replica row of the final carry (the processes' digests of their own
+    rows) bit for bit; each process's comm kernel launches those of the
+    one-process run, as the modes imply. Prints the peaks per process, the
+    gathers (bytes per exchange by dtype, ms per gather, GB/s), ms per step
+    by cycle shape beside the oracle's and the launches per process.
+    Returns {path: launches}."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    parent_allocated = torch.cuda.memory_allocated()
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    try:
+        m1, reps1, wall1, ck1 = procs_run(tmp, f"{name}_1proc", 1, extra)
+        m2, reps2, wall2, ck2 = procs_run(tmp, f"{name}_2proc", 2, extra)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    modes = [outer_mode(m) for m in reps1[0]["modes"]]
+    digests1, digests2 = reps1[0]["carry_digest"], {}
+    for rep in reps2:
+        digests2.update(rep["carry_digest"])
+    losses = m1["losses"]
+    row = {"phase": name, "arch": ARCH, "entry": "python -m repro_torch.launch.procs",
+           "argv": PROCS_ARGS + extra, "transport": "gloo", "procs": 2,
+           "parent_allocated_at_spawn": parent_allocated,
+           "reduced": {"n_layers": [get_config(ARCH).n_layers, PROCS_LAYERS],
+                       "why": PROCS_WHY},
+           "mode_counts": {m: modes.count(m) for m in sorted(set(modes))},
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "wall_s": {"1proc": wall1, "2proc": wall2},
+           "child_wall_s": {"1proc": [r["wall_s"] for r in reps1],
+                            "2proc": [r["wall_s"] for r in reps2]},
+           "max_memory_allocated": {"1proc": [r["max_memory_allocated"] for r in reps1],
+                                    "2proc": [r["max_memory_allocated"] for r in reps2]},
+           "gathers": [gather_row(r) for r in reps2],
+           "cycle_ms": {"1proc": report_cycle_ms(reps1[0]),
+                        "2proc": [report_cycle_ms(r) for r in reps2]},
+           "launches": {"1proc": reps1[0]["launches"],
+                        **{f"2proc.p{r['proc']}": r["launches"] for r in reps2}},
+           "launches_expected": want_launches(modes),
+           "executor_stats": {"1proc": reps1[0]["executor_stats"],
+                              "2proc": [r["executor_stats"] for r in reps2]},
+           "rows_digested": len(digests2)}
+    if "--dispatch" in extra:
+        st = [r["executor_stats"] for r in reps2]
+        row["overlap"] = [{
+            "gather_beside_local_steps_ms": g["beside_compute_ms"],
+            "exchange_visible_ms": 1e3 * s["overlap_exchange_visible_s"],
+            "gather_hidden_fraction": (1 - s["overlap_exchange_visible_s"]
+                                       / (g["beside_compute_ms"] / 1e3)
+                                       if g["beside_compute_ms"] else None)}
+            for g, s in zip(row["gathers"], st)]
+    want = want_launches(modes)
+    faults = [what for what, bad in (
+        ("losses", m1["losses"] != m2["losses"]),
+        ("loss not falling", not (all(map(math.isfinite, losses)) and losses[-1] < losses[0])),
+        ("final params", reps1[0]["params_digest"] != reps2[0]["params_digest"]),
+        ("carry rows", not digests1 or digests1 != digests2),
+        ("checkpoint", not (ck1 and ck2)),
+        ("no gather", any(r["placement"]["exchange"]["calls"] == 0 for r in reps2)),
+        ("launches", any({k: r["launches"][k] for k in PROCS_COMM}
+                         != {k: want[k] for k in PROCS_COMM} for r in reps1 + reps2)))
+        if bad]
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"{name}: {faults}")
+    emit(row)
+    return {f"{name}.p{r['proc']}": r["launches"] for r in reps2}
+
+
+def phase_live_kill():
+    """`python -m repro_torch.launch.procs --procs 2 --kill 1:6` at --tiny
+    size on the 3-level topology, --ckpt-every 1: process 1 is SIGKILLed once
+    its heartbeat reaches step 6, the survivor regroups onto one process
+    over every replica, resumes from the newest intact TrainState and
+    replays the death; its losses and final params are then held bit for
+    bit to a one-process run of the same crash as a fault plan
+    (resilience.run_with_faults). Prints the supervisor's --report timings.
+    Returns the oracle run's launches."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_live_kill_")
+    try:
+        live = os.path.join(tmp, "live")
+        code, log, wall = launch_procs(
+            ["--procs", "2", "--timeout", "300", "--watchdog", str(LIVE_WATCHDOG_S),
+             "--run-dir", os.path.join(live, "run"), "--report",
+             os.path.join(live, "report.json"), "--kill", LIVE_KILL, "--"] + LIVE_ARGS
+            + ["--ckpt", os.path.join(live, "ck"), "--ckpt-every", "1",
+               "--metrics-out", os.path.join(live, "m.json")], 300)
+        if code:
+            emit({"phase": "live_kill", "failed": f"supervised run exited {code}",
+                  "output_tail": log[-4000:]})
+            raise AssertionError(f"live_kill: exit {code}")
+        with open(os.path.join(live, "report.json")) as f:
+            report = json.load(f)
+        with open(os.path.join(live, "m.json")) as f:
+            metrics = json.load(f)
+        meta = metrics["resilience"]["live"]
+        plan = {"events": [{"step": meta["crash_step"], "kind": "crash", "replica": r}
+                           for r in meta["dead_replicas"]]}
+        orc = os.path.join(tmp, "oracle")
+        code, log, oracle_wall = launch_procs(
+            ["--procs", "1", "--timeout", "300", "--"] + LIVE_ARGS
+            + ["--fault-plan", json.dumps(plan), "--ckpt", os.path.join(orc, "ck"),
+               "--ckpt-every", "1", "--metrics-out", os.path.join(orc, "m.json"),
+               "--proc-report", os.path.join(orc, "rep")], 300)
+        if code:
+            emit({"phase": "live_kill", "failed": f"oracle exited {code}",
+                  "output_tail": log[-4000:]})
+            raise AssertionError(f"live_kill oracle: exit {code}")
+        with open(os.path.join(orc, "m.json")) as f:
+            oracle = json.load(f)
+        with open(os.path.join(orc, "rep.p0.json")) as f:
+            launches = json.load(f)["launches"]
+        import numpy as np
+        a = np.load(os.path.join(live, "ck", "arrays.npz"))
+        b = np.load(os.path.join(orc, "ck", "arrays.npz"))
+        params_same = sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files if k != "__save_id__")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"phase": "live_kill", "entry": "python -m repro_torch.launch.procs --kill",
+           "argv": LIVE_ARGS, "kill": LIVE_KILL, "watchdog_s": LIVE_WATCHDOG_S,
+           "epochs": [{k: e.get(k) for k in ("epoch", "procs", "codes", "outcome",
+                                            "detect", "regroup_s", "resume_s")}
+                      for e in report["epochs"]],
+           "dead_replicas": report["dead_replicas"], "timings": report["timings"],
+           "crash_step": meta["crash_step"], "resumed_from": os.path.basename(
+               meta["resumed_from"]), "wall_s": wall, "oracle_wall_s": oracle_wall,
+           "oracle": "resilience.run_with_faults (one process, --fault-plan)",
+           "losses_identical": metrics["losses"] == oracle["losses"],
+           "final_params_identical": params_same, "oracle_launches": launches}
+    faults = [what for what, bad in (
+        ("epochs", [(e["outcome"], e["procs"]) for e in report["epochs"]]
+         != [("failed", 2), ("ok", 1)]),
+        ("dead replicas", report["dead_replicas"] != [2, 3]),
+        ("losses", not row["losses_identical"]),
+        ("final params", not params_same)) if bad]
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"live_kill: {faults}")
+    emit(row)
+    return launches
+
+
 def max_abs_err(a, b, chunk=1 << 27):
     """Largest |a - b| in f32 (0 where the values are equal, infinities
     included), in chunks so that a full arena needs no f32 copy."""
@@ -2975,6 +3233,11 @@ def main():
     baselines_launches = phase_train_baselines()
     faults_launches = phase_train_faults()
     launch_faults_launches = phase_launch_faults()
+    procs_launches = phase_train_procs("train_procs", [], train_launches)
+    procs_launches.update(phase_train_procs(
+        "train_procs_int8_overlap", ["--wire-format", "int8", "--overlap", "one_cycle",
+                                     "--dispatch", "overlap"], int8_overlap_launches))
+    live_kill_launches = phase_live_kill()
     trained = phase_train()
     macro = phase_train_macro(trained)
     empty_launches = phase_train_faults_empty(trained, macro)
@@ -2988,7 +3251,8 @@ def main():
         "train_resume": resume_launches, "train_topo": topo["launches"],
         "train_macro_topo": topo_macro_launches, "train_topo_2level": topo_2level_launches,
         **topo_int8_launches, **baselines_launches, **faults_launches,
-        "launch_faults": launch_faults_launches, "train_faults_empty": empty_launches},
+        "launch_faults": launch_faults_launches, "train_faults_empty": empty_launches,
+        **procs_launches, "live_kill": live_kill_launches},
         arena_parts,
         [scan_line] + rgemma_lines, reports)
     print(card_line(), flush=True)

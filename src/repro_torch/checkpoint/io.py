@@ -35,8 +35,11 @@ a loaded carry holds no more on the card than the running carry did. A
 checkpoint without the record (the JAX package's) loads as dense leaves.
 
 Where the reference takes `shardings` / `carry_shardings`, the loaders here
-take `device=` and put every leaf there (sharded placement is ROADMAP item
-16). A TrainState's `rng` (the JAX package's uint32 PRNG key) stays a numpy
+take `device=` and put every leaf there, and the TrainState loaders take a
+`placement` (launch/distributed.py::ProcessPlacement): every process reads
+the file and keeps its own replica rows of each carry leaf, cut on the host
+before the copy to the device, with the recorded aliasing kept (a shared
+leaf stays one tensor, a broadcast row stays a broadcast). A TrainState's `rng` (the JAX package's uint32 PRNG key) stays a numpy
 array: the port draws from `torch.Generator`s and has no use for it.
 """
 from __future__ import annotations
@@ -266,13 +269,17 @@ def _carry_layout(carry) -> Dict[str, Any]:
     return {"shared": shared, "expanded": expanded}
 
 
-def _carry_tensors(items, layout: Dict[str, Any],
-                   device: torch.device) -> Dict[str, torch.Tensor]:
+def _carry_tensors(items, layout: Dict[str, Any], device: torch.device,
+                   placement=None) -> Dict[str, torch.Tensor]:
     """[(key, array, dtype name)] -> {key: tensor on `device`}, with the
-    aliasing that `layout` (`_carry_layout` at save time) records."""
+    aliasing that `layout` (`_carry_layout` at save time) records. With a
+    `placement`, a leaf with a leading replica axis keeps the process's
+    rows only."""
     shared, expanded = layout.get("shared", {}), set(layout.get("expanded", []))
     out = {}
     for key, arr, name in items:
+        if placement is not None and arr.ndim and arr.shape[0] == placement.n_replicas:
+            arr = arr[placement.rows.start:placement.rows.stop]
         if key in shared:
             out[key] = out[shared[key]]
         elif key in expanded:
@@ -387,7 +394,7 @@ def list_train_state_dirs(ckpt_dir: str) -> List[str]:
 
 def load_train_state(path: str, *, device="cuda",
                      expect_overlap: Optional[str] = None,
-                     fallback: bool = False) -> TrainState:
+                     fallback: bool = False, placement=None) -> TrainState:
     """Read a TrainState back, its carry on `device` (CUDA unless the caller
     passes device="cpu"). Raises on a checkpoint written by a newer
     TrainState version, or on a bare parameter checkpoint.
@@ -395,17 +402,20 @@ def load_train_state(path: str, *, device="cuda",
     `expect_overlap`: the overlap mode of the resuming run; a carry whose
     layout differs (3 slots against 4) is refused. `fallback`: when `path`
     is truncated or torn, take the newest intact `step_XXXXXXXX/` sibling
-    instead (reported with a print)."""
+    instead (reported with a print). `placement`: the carry keeps this
+    process's replica rows (the module docstring)."""
     if fallback:
         try:
-            return load_train_state(path, device=device, expect_overlap=expect_overlap)
+            return load_train_state(path, device=device, expect_overlap=expect_overlap,
+                                    placement=placement)
         except CheckpointCorruptError as e:
             for cand in list_train_state_dirs(os.path.dirname(os.path.abspath(path))):
                 if os.path.abspath(cand) == os.path.abspath(path):
                     continue
                 try:
                     st = load_train_state(cand, device=device,
-                                          expect_overlap=expect_overlap)
+                                          expect_overlap=expect_overlap,
+                                          placement=placement)
                 except CheckpointCorruptError:
                     continue
                 print(f"[checkpoint] {path} is corrupt ({e}); falling "
@@ -436,7 +446,7 @@ def load_train_state(path: str, *, device="cuda",
                 if k == "carry" or k.startswith("carry/")]
     layout = manifest["extra"].get("carry_layout", {})
     tree = _unflatten({**{k: a for k, (a, _) in flat.items()},
-                       **_carry_tensors(in_carry, layout, device)})
+                       **_carry_tensors(in_carry, layout, device, placement)})
     return TrainState(step=int(host["step"]), carry=tree["carry"],
                       controller=host.get("controller"),
                       membership=host.get("membership"),
@@ -449,15 +459,17 @@ def load_train_state(path: str, *, device="cuda",
 
 
 def load_latest_train_state(ckpt_dir: str, *, device="cuda",
-                            expect_overlap: Optional[str] = None
-                            ) -> Tuple[str, TrainState]:
+                            expect_overlap: Optional[str] = None,
+                            placement=None) -> Tuple[str, TrainState]:
     """The newest intact TrainState under `ckpt_dir`, skipping any snapshot a
-    crash left truncated or torn. Returns (path, state)."""
+    crash left truncated or torn. Returns (path, state); `placement` as in
+    `load_train_state`."""
     skipped = []
     for cand in list_train_state_dirs(ckpt_dir):
         try:
             return cand, load_train_state(cand, device=device,
-                                          expect_overlap=expect_overlap)
+                                          expect_overlap=expect_overlap,
+                                          placement=placement)
         except CheckpointCorruptError as e:
             skipped.append(f"{os.path.basename(cand)}: {e}")
     raise CheckpointCorruptError(

@@ -43,6 +43,12 @@ The exchanges run through the kernels: gossip's int8 partner through K5 /
 K6, its bf16 partner through K3 (then a plain upcast, as the reference's
 `astype`); EASGD's and DOWNPOUR's means and every blocking step as DASO's
 (`core/daso.py::replica_mean`).
+
+Across processes (`launch/distributed.py::ProcessPlacement`) each builder
+takes `placement`: the carry holds this process's rows, EASGD's and
+DOWNPOUR's means gather every row's wire payload as DASO's do, and gossip
+gathers every row's encoded partner copy and keeps the partners of its own
+rows, so the numbers are the one-process run's bit for bit.
 """
 from __future__ import annotations
 
@@ -52,9 +58,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import flatbuf
-from repro_torch.core.daso import (_membership_of, _step_metrics, blocking_sync,
-                                   freeze_inactive, local_step, replica_mean,
-                                   replicate_params)
+from repro_torch.core.daso import (_local, _membership_of, _step_metrics,
+                                   blocking_sync, freeze_inactive, local_step,
+                                   replica_mean, replicate_params)
 from repro_torch.core.executor import DasoStrategy, register_strategy
 from repro_torch.core.schedule import DasoController, Mode, split_mode, split_ov
 from repro_torch.tree import tree_map
@@ -124,7 +130,7 @@ class DownpourController(PeriodicController):
 # -- the gossip exchange -------------------------------------------------------
 
 def gossip_mix(tree, *, shift: int, wire_format: str = "f32",
-               int8_block: int = 256, mask=None):
+               int8_block: int = 256, mask=None, placement=None):
     """One pairwise gossip exchange over the leading replica axis:
     ``row_i <- (row_i + row_{(i+shift) mod R}) / 2``.
 
@@ -135,28 +141,44 @@ def gossip_mix(tree, *, shift: int, wire_format: str = "f32",
 
     `mask`: a row mixes only when both it and its partner are active; any
     other row keeps its own value (a dropped row stays a frozen ghost).
-    Under partial membership the exchange keeps the mean pairwise only."""
+    Under partial membership the exchange keeps the mean pairwise only.
+
+    `placement`: the tree holds this process's rows; every process encodes
+    its own rows, the payloads are gathered, and each process takes the
+    partners of its rows (the codecs work row by row, so each partner's
+    payload is the one-process run's)."""
     layout = flatbuf.build_layout(tree, batch_dims=1)
     arenas = flatbuf.pack(tree, layout)
-    r = layout.batch_shape[0]
+    r = layout.batch_shape[0] if placement is None else placement.n_replicas
     if not 1 <= shift < max(r, 2):
         raise ValueError(f"gossip shift {shift} outside 1..{r - 1}")
+    own = range(r) if placement is None else placement.rows
     keep = ([] if mask is None else
-            [i for i in range(r) if not (mask[i] and mask[(i + shift) % r])])
+            [i - own.start for i in own if not (mask[i] and mask[(i + shift) % r])])
+
+    def partner_of(arena, wire_format):
+        """The wire payload of every own row's partner."""
+        if placement is None:
+            return flatbuf.encode_wire(torch.roll(arena, -shift, 0), wire_format,
+                                       int8_block=int8_block)
+        full = placement.gather_rows(flatbuf.encode_wire(arena, wire_format,
+                                                         int8_block=int8_block))
+        idx = torch.tensor([(i + shift) % r for i in own], dtype=torch.long,
+                           device=arena.device)
+        if isinstance(full, tuple):
+            return tuple(x.index_select(0, idx) for x in full)
+        return full.index_select(0, idx)
 
     def mix(arena):
-        partner = torch.roll(arena, -shift, 0)
         if not arena.is_floating_point():
+            partner = partner_of(arena, "f32")
             out = torch.round(0.5 * (arena.float() + partner.float()))
         else:
-            if wire_format == "int8":
-                wire = flatbuf.encode_wire(partner, "int8", int8_block=int8_block)
-                del partner
-                partner = flatbuf.decode_wire(wire, "int8", arena.dtype,
+            tier = wire_format if wire_format in ("int8", "bf16") else "f32"
+            partner = partner_of(arena, tier)
+            if tier == "int8":
+                partner = flatbuf.decode_wire(partner, "int8", arena.dtype,
                                               int8_block=int8_block)
-                del wire
-            elif wire_format == "bf16":
-                partner = flatbuf.encode_wire(partner, "bf16")
             # the partner is this function's own tensor (the roll, or the
             # decoded wire): sum and halve in place (a + b and b + a are one
             # IEEE value, and so are 0.5 x and x * 0.5)
@@ -195,31 +217,33 @@ def _row(tree):
 
 
 def gossip_train_step(loss_fn, optimizer, cfg, *, mode: str, shift: int = 1,
-                      n_micro: int = 1, membership=None):
+                      n_micro: int = 1, membership=None, placement=None):
     """step(params_R, opt_R, batch_R, lr) -> (params_R, opt_R, metrics).
     `mode` is local | blocking | gossip (the shift decoded by the caller)."""
     if mode not in (Mode.LOCAL, Mode.BLOCKING, Mode.GOSSIP):
         raise ValueError(f"gossip step: unknown mode {mode!r}")
     mask, n_active, _ = _membership_of(cfg, membership)
-    lstep = local_step(loss_fn, optimizer, n_micro, mask)
+    lstep = local_step(loss_fn, optimizer, n_micro, _local(mask, placement))
     blk = cfg.int8_block
+    px = dict(mask=mask, placement=placement)
 
     def step(params, opt_state, batch, lr):
         params, opt_state, loss_r, aux_r = lstep(params, opt_state, batch, lr)
         if mode == Mode.GOSSIP:
             params = gossip_mix(params, shift=shift,
                                 wire_format=cfg.wire_format_for(blocking=False),
-                                int8_block=blk, mask=mask)
+                                int8_block=blk, **px)
         elif mode == Mode.BLOCKING:
             params = blocking_sync(params, wire_format=cfg.wire_format_for(blocking=True),
-                                   int8_block=blk, mask=mask)
-        return params, opt_state, _step_metrics(cfg, mask, n_active, loss_r, aux_r)
+                                   int8_block=blk, **px)
+        return params, opt_state, _step_metrics(cfg, mask, n_active, loss_r, aux_r,
+                                                placement)
 
     return step
 
 
 def easgd_train_step(loss_fn, optimizer, cfg, *, mode: str, alpha: float,
-                     n_micro: int = 1, membership=None):
+                     n_micro: int = 1, membership=None, placement=None):
     """step(params_R, opt_R, center_R, batch_R, lr)
         -> (params_R, opt_R, center_R, metrics).
 
@@ -232,31 +256,33 @@ def easgd_train_step(loss_fn, optimizer, cfg, *, mode: str, alpha: float,
     if mode not in (Mode.LOCAL, Mode.BLOCKING, Mode.ELASTIC):
         raise ValueError(f"easgd step: unknown mode {mode!r}")
     mask, n_active, _ = _membership_of(cfg, membership)
-    lstep = local_step(loss_fn, optimizer, n_micro, mask)
+    lmask = _local(mask, placement)
+    lstep = local_step(loss_fn, optimizer, n_micro, lmask)
     blk = cfg.int8_block
     beta = alpha * n_active
+    px = dict(mask=mask, placement=placement)
 
     def step(params, opt_state, center, batch, lr):
         params, opt_state, loss_r, aux_r = lstep(params, opt_state, batch, lr)
         if mode == Mode.ELASTIC:
             m = replica_mean(params, wire_format=cfg.wire_format_for(blocking=False),
-                             int8_block=blk, mask=mask)
-            params = freeze_inactive(_lerp(params, center, alpha), params, mask)
+                             int8_block=blk, **px)
+            params = freeze_inactive(_lerp(params, center, alpha), params, lmask)
             center = _lerp(center, _row(m), beta)
             del m
         elif mode == Mode.BLOCKING:
             params = blocking_sync(params, wire_format=cfg.wire_format_for(blocking=True),
-                                   int8_block=blk, mask=mask)
+                                   int8_block=blk, **px)
             center = params
         return params, opt_state, center, _step_metrics(cfg, mask, n_active,
-                                                        loss_r, aux_r)
+                                                        loss_r, aux_r, placement)
 
     return step
 
 
 def downpour_train_step(loss_fn, optimizer, cfg, *, mode: str,
                         push_scale: float = 1.0, n_micro: int = 1,
-                        membership=None):
+                        membership=None, placement=None):
     """step(params_R, opt_R, anchor_R, batch_R, lr)
         -> (params_R, opt_R, anchor_R, metrics).
 
@@ -270,16 +296,18 @@ def downpour_train_step(loss_fn, optimizer, cfg, *, mode: str,
     if mode not in (Mode.LOCAL, Mode.BLOCKING, Mode.PUSH):
         raise ValueError(f"downpour step: unknown mode {mode!r}")
     mask, n_active, _ = _membership_of(cfg, membership)
-    lstep = local_step(loss_fn, optimizer, n_micro, mask)
+    lmask = _local(mask, placement)
+    lstep = local_step(loss_fn, optimizer, n_micro, lmask)
     blk = cfg.int8_block
     scale = push_scale * n_active
+    px = dict(mask=mask, placement=placement)
 
     def step(params, opt_state, anchor, batch, lr):
         params, opt_state, loss_r, aux_r = lstep(params, opt_state, batch, lr)
         if mode == Mode.PUSH:
             delta = tree_map(lambda p, a: p.float() - a.float(), params, anchor)
             dmean = _row(replica_mean(delta, wire_format=cfg.wire_format_for(blocking=False),
-                                      int8_block=blk, mask=mask))
+                                      int8_block=blk, **px))
             del delta
 
             def apply(a, d):
@@ -290,14 +318,14 @@ def downpour_train_step(loss_fn, optimizer, cfg, *, mode: str,
 
             server = tree_map(apply, anchor, dmean)
             del dmean
-            params = freeze_inactive(server, params, mask)
+            params = freeze_inactive(server, params, lmask)
             anchor = server
         elif mode == Mode.BLOCKING:
             params = blocking_sync(params, wire_format=cfg.wire_format_for(blocking=True),
-                                   int8_block=blk, mask=mask)
+                                   int8_block=blk, **px)
             anchor = params
         return params, opt_state, anchor, _step_metrics(cfg, mask, n_active,
-                                                        loss_r, aux_r)
+                                                        loss_r, aux_r, placement)
 
     return step
 
@@ -356,7 +384,7 @@ class GossipStrategy(PeriodicStrategy):
         base, shift = self._base_mode(mode)
         raw = gossip_train_step(self.loss_fn, self.optimizer, self.cfg, mode=base,
                                 shift=max(shift, 1), n_micro=self.n_micro,
-                                membership=self._membership)
+                                membership=self._membership, placement=self.placement)
 
         def step(carry, batch, lr):
             params, opt_state = carry
@@ -392,7 +420,7 @@ class EasgdStrategy(PeriodicStrategy):
         base, _ = self._base_mode(mode)
         raw = easgd_train_step(self.loss_fn, self.optimizer, self.cfg, mode=base,
                                alpha=self.alpha, n_micro=self.n_micro,
-                               membership=self._membership)
+                               membership=self._membership, placement=self.placement)
 
         def step(carry, batch, lr):
             params, opt_state, center = carry
@@ -422,7 +450,8 @@ class DownpourStrategy(PeriodicStrategy):
         base, _ = self._base_mode(mode)
         raw = downpour_train_step(self.loss_fn, self.optimizer, self.cfg, mode=base,
                                   push_scale=self.push_scale, n_micro=self.n_micro,
-                                  membership=self._membership)
+                                  membership=self._membership,
+                                  placement=self.placement)
 
         def step(carry, batch, lr):
             params, opt_state, anchor = carry

@@ -46,6 +46,18 @@ f32 wire it launches no kernel, on the bf16 wire its cast is K3. Not ported
 yet, and raising NotImplementedError: the per-leaf exchange
 (`exchange_impl="per_leaf"`, ROADMAP item 7).
 
+Across processes (`launch/distributed.py::ProcessPlacement`): every builder
+and cross-row operation takes `placement` (None: the one-process path as
+before). A placed carry holds this process's replica rows; per-row work
+(the local step, Eq. (1), the codecs, freezing) runs on them with the
+process's entries of the membership mask, and every reduction over
+replicas first gathers the wire payload of every row
+(`ProcessPlacement.gather_rows`) and then runs the chain of adds of the
+one-process path, in replica order, so the numbers are the one-process
+run's bit for bit. Inner groups that lie inside one process gather
+nothing. The cross-replica loss and aux means are left to the cycle's fetch
+(`reduce_step_metrics`), so no step issues a collective for its metrics.
+
 No step writes in place into a tensor it was given (only into outputs it
 allocated), so carries may share tensors, as the reference's immutable
 arrays do.
@@ -136,7 +148,8 @@ def dereplicate_params(params, index: int = 0):
     return tree_map(lambda p: p[index], params)
 
 
-def _arena_mean(arena, wire_format: str, *, int8_block: int = 256, mask=None):
+def _arena_mean(arena, wire_format: str, *, int8_block: int = 256, mask=None,
+                placement=None):
     """Mean over the replica axis of one arena, as a (1, N) tensor in the
     arena's dtype (`repro/core/daso.py:179-216`). A floating arena is cast
     to the wire dtype first and reduced in it; on the int8 tier each
@@ -145,29 +158,38 @@ def _arena_mean(arena, wire_format: str, *, int8_block: int = 256, mask=None):
     bits, as in the reference) and the mean runs over the dequantized
     arena. `mask` (`flatbuf.normalize_membership`) makes it the mean over
     the active replicas. The caller hands the arena over: it is freed once
-    the wire payload is encoded, and the payload once it is decoded."""
+    the wire payload is encoded, and the payload once it is decoded.
+    `placement`: `arena` holds this process's rows; the payload of every
+    row is gathered before the decode and the mean (`mask` stays global)."""
     dtype = arena.dtype
     if not arena.is_floating_point():
-        # integer leaves: mean in f32, rounded back
+        # integer leaves: mean in f32, rounded back (the ints gathered)
+        if placement is not None:
+            arena = placement.gather_rows(arena)
         return torch.round(flatbuf.masked_axis0_mean(arena.float(), mask)).to(dtype)
     w = flatbuf.encode_wire(arena, wire_format, int8_block=int8_block)
     del arena
-    if wire_format == "int8":
-        w = flatbuf.decode_wire(w, "int8", dtype, int8_block=int8_block)
+    if wire_format != "int8":
+        return flatbuf.masked_axis0_mean(w, mask, placement).to(dtype)
+    # the int8 values and scales cross, then every row is decoded
+    if placement is not None:
+        w = placement.gather_rows(w)
+    w = flatbuf.decode_wire(w, "int8", dtype, int8_block=int8_block)
     return flatbuf.masked_axis0_mean(w, mask).to(dtype)
 
 
 def replica_mean(tree, *, wire_format: str = "f32", int8_block: int = 256,
-                 mask=None):
+                 mask=None, placement=None):
     """Mean over the leading replica axis, broadcast back to (R, ...): one
     reduction per arena, with the wire tier applied to the whole arena.
     `mask` (a normalized membership tuple, or None for all active) takes
-    the mean over the active replicas only."""
+    the mean over the active replicas only. Under `placement` the tree
+    holds this process's rows, and the mean comes back broadcast to them."""
     flatbuf._check_wire_format(wire_format)
     layout = flatbuf.build_layout(tree, batch_dims=1)
     arenas = flatbuf.pack(tree, layout)
     means = {k: _arena_mean(arenas.pop(k), wire_format, int8_block=int8_block,
-                            mask=mask)
+                            mask=mask, placement=placement)
              for k in list(arenas)}
     r = layout.batch_shape[0]
     return tree_map(lambda m: m.expand((r,) + m.shape[1:]),
@@ -192,7 +214,8 @@ def _index(rows, device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.long, device=device)
 
 
-def _arena_group_mean(slot: list, group_size: int, perm=None, mask=None):
+def _arena_group_mean(slot: list, group_size: int, perm=None, mask=None,
+                      n_replicas=None):
     """Mean over replica groups of `group_size` consecutive slots of the
     arena in `slot` (a one-element list, emptied: the arena is freed once
     the group sums exist), back in replica order as an (R, N) tensor of the
@@ -202,7 +225,9 @@ def _arena_group_mean(slot: list, group_size: int, perm=None, mask=None):
     as a chain in slot order in the arena's dtype, then multiplied by 1/g
     rounded to that dtype: `flatbuf.masked_axis0_mean` per group.
     `group_size == R` is that whole-axis mean, broadcast as a view (a
-    whole-world group ignores the permutation).
+    whole-world group ignores the permutation); R is `n_replicas` when the
+    arena holds a process's block of rows (the groups the block holds),
+    else the arena's own row count.
 
     `mask` (a normalized membership tuple, by replica) weights each group
     by its active rows: a dropped replica's row is multiplied by 0 before
@@ -212,7 +237,7 @@ def _arena_group_mean(slot: list, group_size: int, perm=None, mask=None):
     its rows under a regrouping."""
     arena = slot.pop()
     r = arena.shape[0]
-    if group_size == r:
+    if group_size == (n_replicas or r):
         return flatbuf.masked_axis0_mean(arena, mask).expand(arena.shape)
     if r % group_size:
         raise ValueError(f"replica axis {r} not divisible by group size "
@@ -251,7 +276,7 @@ def _arena_group_mean(slot: list, group_size: int, perm=None, mask=None):
 
 
 def level_group_mean(tree, group_size: int, *, wire_format: str = "f32",
-                     mask=None, perm=None):
+                     mask=None, perm=None, placement=None):
     """Synchronous parameter average over replica groups of `group_size`:
     the sync of one intermediate topology level
     (`repro/core/daso.py::level_group_mean`). group_size is the product of
@@ -269,25 +294,38 @@ def level_group_mean(tree, group_size: int, *, wire_format: str = "f32",
     permutation. The reference's `deterministic` tier is the chain of adds
     that this reduction always is (both of its tiers give these numbers on
     the CPU). `mask` (a normalized membership tuple) weights each group by
-    its active replicas (`_arena_group_mean`)."""
+    its active replicas (`_arena_group_mean`).
+
+    `placement`: the tree holds this process's rows. When every group lies
+    inside the process (`ProcessPlacement.holds_groups`) the groups are
+    reduced here with the process's entries of `mask`, and nothing is
+    gathered; otherwise each arena's wire payload is gathered, every group
+    is reduced as in one process, and this process's rows are kept."""
     if wire_format not in ("f32", "bf16"):
         raise ValueError("level_group_mean supports wire_format 'f32' | "
                          f"'bf16', got {wire_format!r} (the int8 tier is "
                          "for the outermost exchange)")
     layout = flatbuf.build_layout(tree, batch_dims=1)
     arenas = flatbuf.pack(tree, layout)
-    perm = normalize_group_perm(perm, layout.batch_shape[0])
+    r = layout.batch_shape[0] if placement is None else placement.n_replicas
+    perm = normalize_group_perm(perm, r)
+    cross = placement is not None and not placement.holds_groups(group_size, perm)
+    if placement is not None and not cross:
+        mask = placement.local_mask(mask)
     out = {}
     for k in list(arenas):
         w = [arenas.pop(k)]
         dtype = w[0].dtype
+        if dtype.is_floating_point and wire_format == "bf16":
+            w.append(flatbuf.encode_wire(w.pop(), "bf16"))
+        if cross:
+            w.append(placement.gather_rows(w.pop()))
         if not dtype.is_floating_point:
             w.append(w.pop().float())
-            out[k] = torch.round(_arena_group_mean(w, group_size, perm, mask)).to(dtype)
-            continue
-        if wire_format == "bf16":
-            w.append(flatbuf.encode_wire(w.pop(), "bf16"))
-        out[k] = _arena_group_mean(w, group_size, perm, mask).to(dtype)
+        m = _arena_group_mean(w, group_size, perm, mask, n_replicas=r)
+        if cross:
+            m = m[placement.rows.start:placement.rows.stop]
+        out[k] = (torch.round(m) if not dtype.is_floating_point else m).to(dtype)
     return flatbuf.unpack(out, layout)
 
 
@@ -312,16 +350,17 @@ def freeze_inactive(new_tree, old_tree, mask):
 # -- DASO primitive operations -------------------------------------------------
 
 def global_send(params, *, wire_format: str = "f32", int8_block: int = 256,
-                mask=None):
+                mask=None, placement=None):
     """Snapshot + start the global exchange: the in-flight buffer is the
     replica mean of the current params (over the active replicas under
-    `mask`), one copy per replica."""
+    `mask`), one copy per replica (per row of this process's, under
+    `placement`)."""
     return replica_mean(params, wire_format=wire_format, int8_block=int8_block,
-                        mask=mask)
+                        mask=mask, placement=placement)
 
 
 def global_receive(params, inflight, *, staleness: int, global_world,
-                   extra_staleness: int = 0, mask=None):
+                   extra_staleness: int = 0, mask=None, placement=None):
     """Paper Eq. (1): merge the stale global average into the local params.
     S = batches waited, P = the global world size: a float under elastic
     membership, the surviving world's P_eff = P * n_active / R. A dropped
@@ -329,9 +368,13 @@ def global_receive(params, inflight, *, staleness: int, global_world,
 
     Both trees are packed and each floating arena is merged by ONE K2
     launch; the leaves of the result are views of the merged arena, into
-    which a dropped replica's row is copied back from the packed params."""
+    which a dropped replica's row is copied back from the packed params.
+    Row by row, so under `placement` it runs on this process's rows and
+    gathers nothing."""
     kw = dict(staleness=staleness, global_world=global_world,
               extra_staleness=extra_staleness)
+    if placement is not None:
+        mask = placement.local_mask(mask)
     dead = [] if mask is None else [i for i, m in enumerate(mask) if not m]
     layout = flatbuf.build_layout(params, batch_dims=1)
     locals_ = flatbuf.pack(params, layout)
@@ -348,18 +391,27 @@ def global_receive(params, inflight, *, staleness: int, global_world,
 
 
 def blocking_sync(params, *, wire_format: str = "bf16", int8_block: int = 256,
-                  mask=None):
+                  mask=None, placement=None):
     """Synchronous global average (warm-up / cool-down), with the paper's
     16-bit transfer packaging (or the tier in `wire_format`). `mask` takes
     the average over the active replicas and keeps the dropped rows."""
     synced = replica_mean(params, wire_format=wire_format, int8_block=int8_block,
-                          mask=mask)
-    return freeze_inactive(synced, params, mask)
+                          mask=mask, placement=placement)
+    return freeze_inactive(synced, params, _local(mask, placement))
 
 
-def replica_divergence(params) -> torch.Tensor:
+def _local(mask, placement):
+    """The entries of `mask` for the rows this process holds."""
+    return mask if placement is None else placement.local_mask(mask)
+
+
+def replica_divergence(params, placement=None) -> torch.Tensor:
     """Max abs deviation of any replica from the replica mean (diagnostic),
-    a 0-dim f32 tensor."""
+    a 0-dim f32 tensor. Under `placement` every leaf's rows are gathered
+    first (a diagnostic fetch)."""
+    if placement is not None:
+        params = tree_map(lambda x: placement.gather_rows(x, kind="fetch"), params)
+
     def leaf(x):
         x = x.float()
         return torch.max(torch.abs(x - x.mean(dim=0, keepdim=True)))
@@ -471,6 +523,11 @@ MODES = ("local", "send", "receive", "send_receive", "blocking", "hard_avg")
 OV_MODES = ("local", "ov_start", "ov_sync", "blocking")
 
 
+# key prefix of an aux metric's per-replica values in a placed step's
+# metrics, reduced at the cycle's fetch (`reduce_step_metrics`)
+AUX_ROWS = "rows/"
+
+
 def _cross_replica_loss(cfg: DasoConfig, mask, n_active: int,
                         loss_r: torch.Tensor, *, axis: int = 0) -> torch.Tensor:
     """The scalar loss the plateau controller consumes: the mean of the
@@ -507,7 +564,7 @@ def daso_train_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
                     *, mode: str, staleness: int = 1, n_micro: int = 1,
                     membership=None,
                     inner_syncs: Tuple[Tuple[str, int], ...] = (),
-                    group_perm=None):
+                    group_perm=None, placement=None):
     """One step variant:
     step(params_R, opt_R, inflight, batch_R, lr) -> (params_R, opt_R,
     inflight, metrics). `mode` is the outermost level's action (MODES).
@@ -523,30 +580,33 @@ def daso_train_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
     variant: every exchange is a mean over the active replicas, Eq. (1)
     runs with P_eff = P * n_active / R, a dropped replica's params and
     optimizer rows stay frozen, and the loss averages the active
-    replicas."""
+    replicas. `placement` runs the variant on this process's rows (the
+    module docstring)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     mask, n_active, p_eff = _membership_of(cfg, membership)
-    inner = _inner_sync_fn(cfg, inner_syncs, group_perm, mask)
-    lstep = local_step(loss_fn, optimizer, n_micro, mask)
+    inner = _inner_sync_fn(cfg, inner_syncs, group_perm, mask, placement)
+    lstep = local_step(loss_fn, optimizer, n_micro, _local(mask, placement))
     blk = cfg.int8_block
+    px = dict(mask=mask, placement=placement)
 
     def step(params, opt_state, inflight, batch, lr):
         if mode in ("receive", "send_receive"):
             params = global_receive(params, inflight, staleness=staleness,
-                                    global_world=p_eff, mask=mask)
+                                    global_world=p_eff, **px)
         params, opt_state, loss_r, aux_r = lstep(params, opt_state, batch, lr)
         params = inner(params)
         if mode in ("send", "send_receive"):
             inflight = global_send(params, wire_format=cfg.wire_format_for(blocking=False),
-                                   int8_block=blk, mask=mask)
+                                   int8_block=blk, **px)
         elif mode == "blocking":
             params = blocking_sync(params, wire_format=cfg.wire_format_for(blocking=True),
-                                   int8_block=blk, mask=mask)
+                                   int8_block=blk, **px)
         elif mode == "hard_avg":
-            params = freeze_inactive(replica_mean(params, mask=mask), params, mask)
+            params = freeze_inactive(replica_mean(params, **px), params,
+                                     _local(mask, placement))
         return params, opt_state, inflight, _step_metrics(cfg, mask, n_active,
-                                                          loss_r, aux_r)
+                                                          loss_r, aux_r, placement)
 
     return step
 
@@ -555,7 +615,7 @@ def daso_overlap_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
                       *, mode: str, staleness: int = 1, extra_staleness: int = 0,
                       n_micro: int = 1, membership=None,
                       inner_syncs: Tuple[Tuple[str, int], ...] = (),
-                      group_perm=None):
+                      group_perm=None, placement=None):
     """One step variant of the double-buffered overlap schedule
     (`repro/core/daso.py::daso_overlap_step`, one process):
     step(params_R, opt_R, inflight, pending, batch_R, lr) -> (params_R,
@@ -577,9 +637,10 @@ def daso_overlap_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
     if mode not in OV_MODES:
         raise ValueError(f"unknown overlap mode {mode!r}; expected one of {OV_MODES}")
     mask, n_active, p_eff = _membership_of(cfg, membership)
-    inner = _inner_sync_fn(cfg, inner_syncs, group_perm, mask)
-    lstep = local_step(loss_fn, optimizer, n_micro, mask)
+    inner = _inner_sync_fn(cfg, inner_syncs, group_perm, mask, placement)
+    lstep = local_step(loss_fn, optimizer, n_micro, _local(mask, placement))
     blk = cfg.int8_block
+    px = dict(mask=mask, placement=placement)
 
     def step(params, opt_state, inflight, pending, batch, lr):
         params, opt_state, loss_r, aux_r = lstep(params, opt_state, batch, lr)
@@ -588,16 +649,16 @@ def daso_overlap_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
             pending = params
         elif mode == "ov_sync":
             inflight = global_send(pending, wire_format=cfg.wire_format_for(blocking=False),
-                                   int8_block=blk, mask=mask)
+                                   int8_block=blk, **px)
             params = global_receive(params, inflight, staleness=staleness,
                                     extra_staleness=extra_staleness,
-                                    global_world=p_eff, mask=mask)
+                                    global_world=p_eff, **px)
             pending = params
         elif mode == "blocking":
             params = blocking_sync(params, wire_format=cfg.wire_format_for(blocking=True),
-                                   int8_block=blk, mask=mask)
+                                   int8_block=blk, **px)
         return params, opt_state, inflight, pending, _step_metrics(
-            cfg, mask, n_active, loss_r, aux_r)
+            cfg, mask, n_active, loss_r, aux_r, placement)
 
     return step
 
@@ -606,7 +667,7 @@ def daso_overlap_compute_step(loss_fn: Callable, optimizer: Optimizer,
                               cfg: DasoConfig, *, n_micro: int = 1,
                               membership=None,
                               inner_syncs: Tuple[Tuple[str, int], ...] = (),
-                              group_perm=None):
+                              group_perm=None, placement=None):
     """The compute half of an overlap cycle on the macro-cycle executor
     (`repro/core/daso.py::daso_overlap_compute_step`):
     step(params_R, opt_R, batch_R, lr) -> (params_R, opt_R, metrics).
@@ -619,8 +680,8 @@ def daso_overlap_compute_step(loss_fn: Callable, optimizer: Optimizer,
     this step made (the exchange reads the pending snapshot, which no step
     writes). `membership` freezes the dropped rows as in `daso_train_step`."""
     mask = flatbuf.normalize_membership(membership, cfg.n_replicas)
-    inner = _inner_sync_fn(cfg, inner_syncs, group_perm, mask)
-    lstep = local_step(loss_fn, optimizer, n_micro, mask)
+    inner = _inner_sync_fn(cfg, inner_syncs, group_perm, mask, placement)
+    lstep = local_step(loss_fn, optimizer, n_micro, _local(mask, placement))
 
     def step(params, opt_state, batch, lr):
         params, opt_state, loss_r, _aux_r = lstep(params, opt_state, batch, lr)
@@ -629,7 +690,8 @@ def daso_overlap_compute_step(loss_fn: Callable, optimizer: Optimizer,
     return step
 
 
-def _inner_sync_fn(cfg: DasoConfig, inner_syncs, group_perm, mask=None) -> Callable:
+def _inner_sync_fn(cfg: DasoConfig, inner_syncs, group_perm, mask=None,
+                   placement=None) -> Callable:
     """params -> params after one `level_group_mean` per inner sync, in
     order, the dropped rows frozen under `mask` (the identity without inner
     syncs). Each group size must lie in 2..R."""
@@ -641,27 +703,58 @@ def _inner_sync_fn(cfg: DasoConfig, inner_syncs, group_perm, mask=None) -> Calla
 
     def sync(params):
         for _name, g in inner_syncs:
-            params = freeze_inactive(level_group_mean(params, g, mask=mask, perm=perm),
-                                     params, mask)
+            params = freeze_inactive(level_group_mean(params, g, mask=mask, perm=perm,
+                                                      placement=placement),
+                                     params, _local(mask, placement))
         return params
 
     return sync
 
 
-def _step_metrics(cfg: DasoConfig, mask, n_active: int, loss_r, aux_r) -> dict:
+def _aux_mean(cfg: DasoConfig, mask, n_active: int, v) -> torch.Tensor:
+    """An aux metric's mean over the replicas (the active ones, for a
+    per-replica vector under a mask)."""
+    if mask is not None and v.dim() == 1 and v.shape[0] == cfg.n_replicas:
+        w = v * flatbuf.membership_col(mask, v.dtype, 1, v.device)
+        return torch.sum(w) / n_active
+    return torch.mean(v)
+
+
+def _step_metrics(cfg: DasoConfig, mask, n_active: int, loss_r, aux_r,
+                  placement=None) -> dict:
     """The loss the controller reads, the per-replica losses, and the mean
     of every aux metric of rank <= 1 (over the active replicas, for a
-    per-replica vector under a mask)."""
+    per-replica vector under a mask). Under `placement` only this process's
+    per-replica values: the loss and the aux rows (`AUX_ROWS` + name),
+    which `reduce_step_metrics` reduces once the cycle's fetch has gathered
+    every replica's."""
+    if placement is not None:
+        metrics = {"loss_per_replica": loss_r}
+        for k, v in aux_r.items():
+            if v.dim() == 1:
+                metrics[AUX_ROWS + k] = v
+        return metrics
     metrics = {"loss": _cross_replica_loss(cfg, mask, n_active, loss_r),
                "loss_per_replica": loss_r}
     for k, v in aux_r.items():
         if v.dim() <= 1:
-            if mask is not None and v.dim() == 1 and v.shape[0] == cfg.n_replicas:
-                w = v * flatbuf.membership_col(mask, v.dtype, 1, v.device)
-                metrics[k] = torch.sum(w) / n_active
-            else:
-                metrics[k] = torch.mean(v)
+            metrics[k] = _aux_mean(cfg, mask, n_active, v)
     return metrics
+
+
+def reduce_step_metrics(cfg: DasoConfig, mask, n_active: int, metrics: dict) -> dict:
+    """A placed cycle's metrics, every replica's rows gathered ((L, R)
+    "loss_per_replica" and `AUX_ROWS` entries), reduced step by step as
+    `_step_metrics` reduces one step's in one process: the per-step loss
+    (L,) and aux means (L,), bit for bit."""
+    loss_r = metrics["loss_per_replica"]
+    out = {"loss": _cross_replica_loss(cfg, mask, n_active, loss_r, axis=1),
+           "loss_per_replica": loss_r}
+    for k, v in metrics.items():
+        if k.startswith(AUX_ROWS):
+            out[k[len(AUX_ROWS):]] = torch.stack(
+                [_aux_mean(cfg, mask, n_active, row) for row in v])
+    return out
 
 
 def sync_train_step(loss_fn: Callable, optimizer: Optimizer, n_micro: int = 1):

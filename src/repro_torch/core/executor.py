@@ -34,6 +34,15 @@ a wait the untraced path has anyway (the metrics' copy to the host, a
 stream's synchronize, the save's copies off the card), so tracing adds no
 synchronisation and changes no number.
 
+Across processes (`placement=`, `launch/distributed.py::ProcessPlacement`)
+the carry and the staged batches hold this process's replica rows, the
+strategy's step variants gather what they reduce, and each cycle's
+per-replica metrics are gathered once, at the fetch, and reduced there
+(`Strategy.reduce_metrics`). An overlap cycle's exchange is waited for
+before its local steps under ``dispatch="serial"``, and runs on a helper
+thread beside them under ``"overlap"``. `health` (resilience/runtime.py)
+hears of every completed cycle.
+
 Functions that run a cycle take the carry in a one-element list and empty
 it, so no caller's frame keeps the old carry alive while the cycle writes a
 new one (the reference donates the carry's buffers to XLA); the per-step
@@ -42,6 +51,7 @@ path holds two carries at a time, and so does a cycle.
 from __future__ import annotations
 
 import difflib
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
@@ -49,11 +59,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core import flatbuf
-from repro_torch.core.daso import (DasoConfig, _cross_replica_loss,
+from repro_torch.core.daso import (AUX_ROWS, DasoConfig, _cross_replica_loss,
                                    daso_overlap_compute_step, daso_overlap_step,
                                    daso_train_step, dereplicate_params, global_receive,
-                                   global_send, normalize_group_perm, replica_divergence,
-                                   replicate_params, sync_train_step)
+                                   global_send, normalize_group_perm, reduce_step_metrics,
+                                   replica_divergence, replicate_params, sync_train_step)
 from repro_torch.core.schedule import DasoController, Mode, join_mode, split_mode, split_ov
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.optim.optimizers import Optimizer
@@ -139,6 +149,8 @@ class Strategy:
         self.n_micro = n_micro
         self.controller = controller or (DasoController(cfg) if cfg else None)
         self._steps: Dict[Tuple[str, int], Callable] = {}
+        # launch/distributed.py::ProcessPlacement, or None in one process
+        self.placement = None
 
     def init_carry(self, params0):
         raise NotImplementedError
@@ -175,6 +187,22 @@ class Strategy:
 
     def divergence(self, carry) -> Optional[float]:
         return None
+
+    def set_placement(self, placement) -> None:
+        """Run the step variants on one process's replica rows
+        (`launch/distributed.py::ProcessPlacement`; None: every row). The
+        placement is part of every step variant, so this drops the cached
+        ones; an executor's programs must be rebuilt too (the executor's
+        own `placement` setter does both)."""
+        if placement is not None:
+            raise ValueError(f"strategy {self.name!r} has no replica axis to "
+                             "place across processes")
+        self.placement = None
+
+    def reduce_metrics(self, metrics: dict) -> dict:
+        """A placed cycle's gathered per-replica metrics -> the per-step
+        metrics of the one-process run."""
+        return metrics
 
     @classmethod
     def make_controller(cls, cfg: Optional[DasoConfig], *, loss_window: int = 50):
@@ -222,6 +250,16 @@ class DasoStrategy(Strategy):
         contiguous groups)."""
         return self._group_perm
 
+    def set_placement(self, placement) -> None:
+        if placement is not None and placement.n_replicas != self.cfg.n_replicas:
+            raise ValueError(f"placement of {placement.n_replicas} replicas for a "
+                             f"strategy of {self.cfg.n_replicas}")
+        self.placement = placement
+        self._steps.clear()
+
+    def reduce_metrics(self, metrics):
+        return reduce_step_metrics(self.cfg, self._membership, self.n_active(), metrics)
+
     def set_group_permutation(self, perm) -> None:
         """Regroup the replicas of every inner sync: slot i of the new
         grouping holds replica perm[i] (core/daso.py::
@@ -250,8 +288,11 @@ class DasoStrategy(Strategy):
 
     def finalize_params(self, carry):
         # under elastic membership row 0 may be a dropped replica's frozen
-        # ghost: the first active replica's params instead
+        # ghost: the first active replica's params instead (broadcast from
+        # the process that owns it, across processes)
         idx = 0 if self._membership is None else self._membership.index(1.0)
+        if self.placement is not None:
+            return self.placement.row(carry[0], idx)
         return dereplicate_params(carry[0], index=idx)
 
     def _inner_syncs_of(self, inner: Tuple[str, ...]):
@@ -271,7 +312,8 @@ class DasoStrategy(Strategy):
                                               n_micro=self.n_micro,
                                               membership=self._membership,
                                               inner_syncs=self._inner_syncs_of(inner),
-                                              group_perm=self._group_perm)
+                                              group_perm=self._group_perm,
+                                              placement=self.placement)
 
             def cstep(carry, batch, lr):
                 params, opt_state = carry
@@ -287,7 +329,8 @@ class DasoStrategy(Strategy):
                                        staleness=staleness, extra_staleness=extra,
                                        n_micro=self.n_micro, membership=self._membership,
                                        inner_syncs=inner_syncs,
-                                       group_perm=self._group_perm)
+                                       group_perm=self._group_perm,
+                                       placement=self.placement)
 
             def ostep(carry, batch, lr):
                 params, opt_state, inflight, pending = carry
@@ -299,7 +342,7 @@ class DasoStrategy(Strategy):
         raw = daso_train_step(self.loss_fn, self.optimizer, self.cfg, mode=outer,
                               staleness=staleness, n_micro=self.n_micro,
                               membership=self._membership, inner_syncs=inner_syncs,
-                              group_perm=self._group_perm)
+                              group_perm=self._group_perm, placement=self.placement)
 
         def step(carry, batch, lr):
             params, opt_state, inflight = carry
@@ -330,11 +373,11 @@ class DasoStrategy(Strategy):
     def overlap_exchange_fn(self):
         """pending -> inflight: the one outer exchange of an overlap cycle,
         at the cycling phase's wire tier, over the active replicas."""
-        cfg, mask = self.cfg, self._membership
+        cfg, mask, placement = self.cfg, self._membership, self.placement
 
         def exchange(pending):
             return global_send(pending, wire_format=cfg.wire_format_for(blocking=False),
-                               int8_block=cfg.int8_block, mask=mask)
+                               int8_block=cfg.int8_block, mask=mask, placement=placement)
 
         return exchange
 
@@ -343,15 +386,19 @@ class DasoStrategy(Strategy):
         per-step loss (L,)): Eq. (1) through K2 with S = staleness +
         extra_staleness and the world P_eff of the active replicas, and the
         loss reduction the compute steps deferred, row by row as the
-        per-step path reduces it."""
+        per-step path reduces it. Placed, the loss is None: the cycle's fetch
+        reduces it (`reduce_metrics`)."""
         cfg, mask, n_active = self.cfg, self._membership, self.n_active()
+        placement = self.placement
         p_eff = (cfg.global_world if mask is None
                  else cfg.global_world * n_active / cfg.n_replicas)
 
         def merge(params, inflight, loss_r):
             params = global_receive(params, inflight, staleness=staleness,
                                     extra_staleness=extra_staleness,
-                                    global_world=p_eff, mask=mask)
+                                    global_world=p_eff, mask=mask, placement=placement)
+            if placement is not None:
+                return params, None
             return params, _cross_replica_loss(cfg, mask, n_active, loss_r, axis=1)
 
         return merge
@@ -363,7 +410,7 @@ class DasoStrategy(Strategy):
         return self.controller.mode_for_step(step)
 
     def divergence(self, carry):
-        return float(replica_divergence(carry[0]))
+        return float(replica_divergence(carry[0], self.placement))
 
 
 @register_strategy("sync")
@@ -489,16 +536,21 @@ class MacroCycleExecutor:
     cached in `_programs`; an overlap cycle runs its exchange on
     `exchange_stream`, a CUDA stream the executor owns (made at the first
     overlap cycle on the card). `tracer` takes the run's events; the
-    default `NULL_TRACER` keeps every call site free of branches."""
+    default `NULL_TRACER` keeps every call site free of branches.
+    `placement` runs the cycles on one process's replica rows (the
+    strategy's step variants take it too), `health` hears of each
+    completed cycle."""
 
     def __init__(self, strategy: Strategy, *, max_cycle_len: int = 32,
-                 serial_exchange: bool = False, tracer=None):
+                 serial_exchange: bool = False, tracer=None, placement=None,
+                 health=None):
         self.strategy = strategy
         self.max_cycle_len = max_cycle_len
         # wait for the exchange before the local steps start: the same
         # numbers, and overlap_exchange_blocking_s measures the exchange
         self.serial_exchange = serial_exchange
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.health = health
         self.stats = ExecutorStats()
         self.exchange_stream: Optional[torch.cuda.Stream] = None
         self._programs: Dict[CycleShape, Callable] = {}
@@ -506,6 +558,23 @@ class MacroCycleExecutor:
         self._per_step: Dict[Tuple[str, int], Callable] = {}
         # the overlap exchange ("exchange") and merges (("merge", S, E))
         self._ov_fns: Dict[object, Callable] = {}
+        if placement is not None:
+            self.placement = placement
+
+    @property
+    def placement(self):
+        """The strategy's placement: the executor runs what its step
+        variants are built for."""
+        return self.strategy.placement
+
+    @placement.setter
+    def placement(self, placement) -> None:
+        """Bind the strategy to `placement`; programs built for the previous
+        one are dropped."""
+        self.strategy.set_placement(placement)
+        self._programs.clear()
+        self._per_step.clear()
+        self._ov_fns.clear()
 
     @property
     def cached_shapes(self) -> List[CycleShape]:
@@ -616,9 +685,15 @@ class MacroCycleExecutor:
                 stream.synchronize()
             return time.perf_counter()
 
+        # across processes the exchange gathers: waited for at once under
+        # dispatch "serial", on a helper thread beside the local steps under
+        # "overlap" (their own collectives wait for the cycle's fetch)
+        placed = self.placement
+        serial = self.serial_exchange or (placed is not None and placed.dispatch == "serial")
+        threaded = placed is not None and not serial
         tr, steps = self.tracer, len(ov.compute_shape)
         t0 = time.perf_counter()
-        if self.serial_exchange:
+        if serial:
             with tr.span("ov_exchange_blocking", cat="executor"):
                 inflight = run_exchange()
                 t1 = wait(side)
@@ -629,11 +704,20 @@ class MacroCycleExecutor:
                 self.stats.overlap_compute_s += t2 - t1
         else:
             with tr.span("ov_compute", cat="executor", steps=steps):
-                inflight = run_exchange()             # in flight, not awaited
+                if threaded:
+                    def beside():
+                        with placed.beside_compute():
+                            return run_exchange()
+
+                    helper = _Helper(beside)
+                else:
+                    inflight = run_exchange()         # in flight, not awaited
                 (params, opt_state), m = program(compute, batches, lrs)
                 t1 = wait(main)
                 self.stats.overlap_compute_s += t1 - t0
             with tr.span("ov_exchange_visible", cat="executor"):
+                if threaded:
+                    inflight = helper.join()
                 t2 = wait(side)
                 self.stats.overlap_exchange_visible_s += t2 - t1
         with tr.span("ov_merge", cat="executor", staleness=ov.staleness,
@@ -652,7 +736,8 @@ class MacroCycleExecutor:
             self.stats.overlap_merge_s += t3 - t2
         self.stats.overlap_wall_s += t3 - t0
         metrics = dict(m)
-        metrics["loss"] = loss
+        if loss is not None:
+            metrics["loss"] = loss
         # pending <- the merged params (by reference: nothing writes in
         # place): the next cycle's exchange sends what this merge produced
         self.stats.dispatches += 3
@@ -678,6 +763,54 @@ class MacroCycleExecutor:
             self.stats.dispatches += 1
             self.stats.fallback_steps += 1
         return carry, _stack_metrics(chunks)
+
+
+class _Helper:
+    """`fn()` on a thread of its own; `join()` returns its result or raises
+    its exception. (CUDA's current stream is per thread, so `fn` sets its
+    own.)"""
+
+    def __init__(self, fn: Callable):
+        self._out: list = []
+        self._thread = threading.Thread(target=self._run, args=(fn,),
+                                        name="daso-exchange", daemon=True)
+        self._thread.start()
+
+    def _run(self, fn):
+        try:
+            self._out.append((True, fn()))
+        except BaseException as e:  # handed to the joining thread
+            self._out.append((False, e))
+
+    def join(self):
+        self._thread.join()
+        ok, value = self._out.pop()
+        if not ok:
+            raise value
+        return value
+
+
+def resolve_executor(strategy: Strategy, executor: Optional[MacroCycleExecutor],
+                     placement) -> Tuple[MacroCycleExecutor, object]:
+    """One rule for an executor (the caller's or a new one) and a placement
+    (or none), shared by `run_compiled_training` and the resilience
+    supervisor: build the executor if needed, hand it the placement unless
+    it has one, and return the placement in force."""
+    ex = executor or MacroCycleExecutor(strategy, placement=placement)
+    if placement is not None and ex.placement is None:
+        ex.placement = placement
+    return ex, ex.placement
+
+
+def placed_metrics(strategy: Strategy, metrics: dict) -> dict:
+    """Stacked per-step metrics (L, ...) as the one-process run gives them:
+    unchanged without a placement; placed, every replica's per-replica
+    values gathered in one collective and reduced step by step
+    (`Strategy.reduce_metrics`)."""
+    if strategy.placement is None:
+        return metrics
+    keys = [k for k in metrics if k == "loss_per_replica" or k.startswith(AUX_ROWS)]
+    return strategy.reduce_metrics(strategy.placement.gather_metrics(metrics, keys))
 
 
 def shape_sync_counts(shape: CycleShape) -> Dict[str, int]:
@@ -714,19 +847,29 @@ def dispatch_planned_cycle(ex: MacroCycleExecutor, slot: list, plan: CyclePlan,
     the card's work, and it is at least `seconds` long. Its args carry the
     per-level sync counts and, set after the run, `fresh_compile` (the
     cycle built its shape's program) and `fallback` (it ran step by
-    step)."""
+    step).
+
+    Placed (`ex.placement`), the batches are this process's rows and the
+    per-replica metrics are gathered and reduced before the copy to the
+    host (`placed_metrics`); `ex.health` hears of the cycle once its metrics
+    are on the host, so its watchdog moves only when the group has come
+    through the cycle's collectives."""
     compiles0, fallback0 = ex.stats.compiles, ex.stats.fallback_steps
     with ex.tracer.span("cycle", cat="executor", start_step=plan.start_step,
                         steps=len(plan), syncs=shape_sync_counts(plan.shape)) as sp:
         steps = range(plan.start_step, plan.start_step + len(plan))
         per_step = [data_fn(t) for t in steps]
-        batches = tree_map(lambda *xs: torch.stack(xs), *per_step)
+        lr_list = [lr_fn(t) for t in steps]
+        if ex.placement is not None:
+            batches, lrs = ex.placement.stage_cycle(per_step, lr_list)
+        else:
+            batches = tree_map(lambda *xs: torch.stack(xs), *per_step)
+            lrs = torch.tensor(lr_list, dtype=torch.float32, device=_device_of(batches))
         del per_step
-        lrs = torch.tensor([lr_fn(t) for t in steps], dtype=torch.float32,
-                           device=_device_of(batches))
         t0 = time.perf_counter()
         carry, metrics = ex.run_cycle(slot, plan, batches, lrs,
                                       is_tail=plan.start_step + len(plan) >= n_steps)
+        metrics = placed_metrics(ex.strategy, metrics)
         keys = [k for k, v in metrics.items() if v.dim() == 1]
         host = torch.stack([metrics[k].double() for k in keys]).cpu()
         seconds = time.perf_counter() - t0
@@ -738,6 +881,8 @@ def dispatch_planned_cycle(ex: MacroCycleExecutor, slot: list, plan: CyclePlan,
     per_step_metrics = [{k: float(host[i, j]) for i, k in enumerate(keys)}
                         for j in range(len(plan))]
     cycle_losses = [m["loss"] for m in per_step_metrics]
+    if ex.health is not None:
+        ex.health.cycle_done(plan.start_step + len(plan))
     return carry, cycle_losses, per_step_metrics, seconds
 
 
@@ -746,7 +891,7 @@ def run_compiled_training(strategy: Strategy, params0, data_fn: Callable,
                           executor: Optional[MacroCycleExecutor] = None,
                           track_divergence: bool = False, start_step: int = 0,
                           carry=None, ckpt_every: int = 0,
-                          ckpt_cb: Optional[Callable] = None):
+                          ckpt_cb: Optional[Callable] = None, placement=None):
     """Macro-cycle counterpart of `simulator.run_per_step_training`: plans
     cycles with the strategy, stages each cycle's batches and runs one
     program per cycle, the same numbers as the per-step path bit for bit.
@@ -769,12 +914,20 @@ def run_compiled_training(strategy: Strategy, params0, data_fn: Callable,
 
     `SimResult.cycles` lists each cycle's shape and its host seconds
     (`dispatch_planned_cycle`); `step_seconds` gives each step its cycle's
-    seconds over the cycle's length."""
+    seconds over the cycle's length.
+
+    `placement` (launch/distributed.py::ProcessPlacement, or the
+    executor's) runs the same loop on this process's replica rows: the
+    carry is placed, the metrics are the one-process run's, the final
+    params are broadcast from their owner, and `SimResult.carry` holds this
+    process's rows."""
     from repro_torch.core.simulator import SimResult
 
-    ex = executor or MacroCycleExecutor(strategy)
+    ex, placement = resolve_executor(strategy, executor, placement)
     slot = [strategy.init_carry(params0) if carry is None else carry]
     del carry
+    if placement is not None:
+        slot.append(placement.put_carry(slot.pop()))
     losses: List[float] = []
     metrics_log: List[Dict[str, float]] = []
     divs: List[float] = []
@@ -810,7 +963,7 @@ def run_compiled_training(strategy: Strategy, params0, data_fn: Callable,
                      sync_fraction=strategy.sync_fraction(),
                      controller=strategy.controller, divergence=divs,
                      executor_stats=ex.stats, step_seconds=seconds, carry=carry,
-                     cycles=cycles)
+                     cycles=cycles, placement=placement)
 
 
 # registered on import, so every user of the registry (the launcher's

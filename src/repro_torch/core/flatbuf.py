@@ -115,7 +115,9 @@ def unpack(arenas: Dict[str, torch.Tensor], layout: ArenaLayout):
 def chain_axis0_sum(w) -> torch.Tensor:
     """Order-fixed sum over the leading axis, ``w[0] + w[1] + ...`` in w's
     dtype, a rounding after every add. `w` is a tensor or a sequence of
-    tensors of one shape."""
+    tensors of one shape. Across processes its callers gather the rows
+    first (`masked_axis0_mean`'s `placement`), so every process adds the
+    same rows in the same order."""
     acc = w[0]
     for i in range(1, len(w)):
         acc = acc + w[i]
@@ -155,8 +157,8 @@ def membership_col(mask: Tuple[float, ...], dtype, ndim: int,
     return col.reshape((len(mask),) + (1,) * (ndim - 1))
 
 
-def masked_axis0_mean(arena: torch.Tensor,
-                      mask: Optional[Tuple[float, ...]] = None) -> torch.Tensor:
+def masked_axis0_mean(arena: torch.Tensor, mask: Optional[Tuple[float, ...]] = None,
+                      placement=None) -> torch.Tensor:
     """Mean over the leading replica axis, kept as a (1, ...) tensor, in
     the arena's dtype: the sum of the rows as a chain of adds in replica
     order, times 1/R rounded to the arena's dtype.
@@ -176,7 +178,13 @@ def masked_axis0_mean(arena: torch.Tensor,
     `lax.reduce` over axis 0 adds the rows in order, a bf16 arena in bf16
     after every add, and its deterministic tier is this chain
     (`chain_axis0_sum`). A `torch.sum` of a bf16 tensor accumulates in f32
-    and differs."""
+    and differs.
+
+    `placement` (launch/distributed.py::ProcessPlacement): `arena` holds
+    this process's rows, and every process's are gathered first (the int8
+    tier gathers its payload before the decode instead: core/daso.py)."""
+    if placement is not None:
+        arena = placement.gather_rows(arena)
     if mask is None:
         scale = float(torch.tensor(1.0 / arena.shape[0], dtype=arena.dtype))
         return (chain_axis0_sum(arena) * scale)[None]

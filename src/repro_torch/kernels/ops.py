@@ -9,6 +9,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -60,15 +61,39 @@ def build(name: str) -> str:
 
 
 def kernel_library(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built if missing or stale."""
+    """The loaded library of `csrc/<name>.cu`, built if missing or stale.
+    Processes that share the checkout (a multi-process run's workers) take
+    a file lock around the check and the build, so one builds and the
+    others load its library."""
     lib = _libraries.get(name)
     if lib is None:
         so = BUILD_DIR / f"lib{name}.so"
         src = CSRC / f"{name}.cu"
-        if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
-            build(name)
+
+        def stale():
+            return not so.exists() or so.stat().st_mtime < src.stat().st_mtime
+
+        if stale():
+            BUILD_DIR.mkdir(exist_ok=True)
+            with open(BUILD_DIR / f".lib{name}.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if stale():
+                    build(name)
         lib = _libraries[name] = ctypes.CDLL(str(so))
     return lib
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches in this process so far (the wrappers count
+    where they launch, and nowhere else), by kernel name."""
+    return {"flash_attention_fwd": flash_attention_fwd.launches,
+            "eq1_merge": comm.eq1_merge_fwd.launches,
+            "bf16_pack": comm.bf16_pack_fwd.launches,
+            "bf16_unpack": comm.bf16_unpack_fwd.launches,
+            "quantize_int8": comm.quantize_int8_fwd.launches,
+            "dequantize_int8": comm.dequantize_int8_fwd.launches,
+            "ssm_scan": scan.ssm_scan_fwd.launches,
+            "rglru_scan": rglru.rglru_scan_fwd.launches}
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):

@@ -34,7 +34,7 @@ Span taxonomy (the `cat` field; docs/observability.md has the full table):
               (core/schedule.py)
   resilience  health-plane phase changes, fault events, regroup replay
               (resilience/supervisor.py; resilience/runtime.py, the
-              live plane, is ROADMAP item 16 in the port)
+              live plane of launch/procs.py's supervised runs)
   checkpoint  TrainState saves (train/loop.py)
   meter       comm-accounting counter snapshots (obs/meters.py readings)
   meta        the run_metadata event: topology, wire format, parameter
@@ -291,8 +291,9 @@ def merge_streams(base: str, *, keep_streams: bool = True,
     """Merge every per-process stream of `base` (``{base}.e*p*.jsonl``)
     into the single run trace at `base`, sorted by timestamp. Returns the
     merged path, or None when no streams exist (run was not traced).
-    Called by tools/launch_procs.py after the group exits — the only
-    race-free merge point — and by single-process runs on themselves."""
+    Called by the process launcher (launch/procs.py) after the group
+    exits — the only race-free merge point — and by single-process runs
+    on themselves."""
     paths = sorted(_glob.glob(f"{_glob.escape(base)}.e*p*.jsonl"))
     if not paths:
         return None

@@ -24,11 +24,18 @@ cost. With a tracer each event is a `fault_event` span, each checkpoint a
 `checkpoint_save` span, and the tracer is handed to the executor and the
 controller.
 
-Not ported yet: the multi-process replay (`placement`) and the live health
-watchdog (`health`), ROADMAP item 16; the autotune path (`autotune_every`
-> 0: probing, `retune`, regrouping by skew, and the reference's
-`oracle_notify` switch, which only a self-tuning run turns off), ROADMAP
-item 18. Each raises NotImplementedError.
+Across processes (`placement`, launch/distributed.py::ProcessPlacement)
+the same loop runs on each process's replica rows: the carry is placed, a
+rejoin reseeds the fetched carry on the host and puts it back (the same
+bytes on every process), and the final params are broadcast from their
+owner, so a faulted N-process run is the one-process run bit for bit.
+`health` (resilience/runtime.py::HealthMonitor) hears of every cycle, so a
+supervised worker's watchdog moves only while the group makes progress.
+
+Not ported yet: the autotune path (`autotune_every` > 0: probing,
+`retune`, regrouping by skew, and the reference's `oracle_notify` switch,
+which only a self-tuning run turns off), ROADMAP item 18. It raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -38,7 +45,8 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch.core.executor import MacroCycleExecutor, Strategy, dispatch_planned_cycle
+from repro_torch.core.executor import (MacroCycleExecutor, Strategy, dispatch_planned_cycle,
+                                       resolve_executor)
 from repro_torch.core.schedule import Mode, split_mode, split_ov
 from repro_torch.core.simulator import SimResult
 from repro_torch.resilience.faults import FaultPlan
@@ -100,16 +108,13 @@ def run_with_faults(strategy: Strategy, params0, data_fn: Callable,
     restored. An event before `start_step` is refused: the past is in the
     checkpoint already. `tracer` takes the `fault_event` and
     `checkpoint_save` spans and goes to the executor and the controller
-    unless they have one."""
+    unless they have one. `placement` and `health` go to the executor
+    (unless it has its own); the module docstring says what they do."""
     cfg = strategy.cfg
     if cfg is None:
         raise ValueError("run_with_faults needs a replica-axis strategy "
                          "with a DasoConfig (daso / hier_daso / local_sgd / "
                          "gossip / easgd / downpour)")
-    if placement is not None or health is not None:
-        raise NotImplementedError("multi-process fault replay (placement) and the "
-                                  "live health monitor are not ported yet "
-                                  "(ROADMAP item 16)")
     if autotune_every > 0:
         raise NotImplementedError("the supervisor's autotune path is not ported yet "
                                   "(ROADMAP item 18)")
@@ -127,7 +132,9 @@ def run_with_faults(strategy: Strategy, params0, data_fn: Callable,
             "future events — the past is already in the checkpoint")
     plan.validate(n_replicas, alive0=[m > 0.0 for m in mask])
 
-    ex = executor or MacroCycleExecutor(strategy)
+    ex, placement = resolve_executor(strategy, executor, placement)
+    if health is not None and ex.health is None:
+        ex.health = health
     if tracer is not None and not ex.tracer.enabled:
         ex.tracer = tracer
     if (strategy.controller is not None and ex.tracer.enabled
@@ -140,6 +147,8 @@ def run_with_faults(strategy: Strategy, params0, data_fn: Callable,
         strategy.set_membership(mask)
     slot = [strategy.init_carry(params0) if carry is None else carry]
     del carry
+    if placement is not None:
+        slot.append(placement.put_carry(slot.pop()))
     slowdowns = [1.0] * n_replicas
     dcn_scale = 1.0
     # the innermost inner group of more than one replica, for the inner
@@ -178,8 +187,13 @@ def run_with_faults(strategy: Strategy, params0, data_fn: Callable,
             mask[ev.replica] = 0.0
             membership_event(rec, step)
         elif ev.kind == "rejoin":
-            # reseed BEFORE the mask flips: the donors are the survivors
-            slot.append(reseed_carry(slot.pop(), tuple(mask), [ev.replica]))
+            # reseed BEFORE the mask flips: the donors are the survivors;
+            # across processes on the gathered host carry, then placed again
+            if placement is not None:
+                slot.append(placement.put_carry(reseed_carry(
+                    placement.fetch(slot.pop()), tuple(mask), [ev.replica])))
+            else:
+                slot.append(reseed_carry(slot.pop(), tuple(mask), [ev.replica]))
             mask[ev.replica] = 1.0
             membership_event(rec, step)
         elif ev.kind == "straggle":
@@ -248,7 +262,7 @@ def run_with_faults(strategy: Strategy, params0, data_fn: Callable,
                               sync_fraction=strategy.sync_fraction(),
                               controller=strategy.controller,
                               executor_stats=ex.stats, step_seconds=seconds,
-                              carry=carry, cycles=cycles)
+                              carry=carry, cycles=cycles, placement=placement)
     report.invalidations = ex.stats.invalidations
     report.simulated_time_s = sim_time
     return report

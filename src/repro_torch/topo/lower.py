@@ -13,7 +13,8 @@ A spec lowers to:
       variants run each syncing level's group mean.
 
 The reference also lowers a spec to a JAX mesh with one axis per level;
-the port's mesh is ROADMAP item 16. The 2-level special case lowers to the
+the port instead gives each process a block of the spec's replica axis
+(`launch/mesh.py`, `launch/distributed.py::ProcessPlacement`). The 2-level special case lowers to the
 unmodified legacy objects (`DasoController`, `DasoStrategy`), so it gives
 the legacy run bit for bit.
 

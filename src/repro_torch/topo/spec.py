@@ -11,8 +11,10 @@ Guide survey (arXiv 1810.11787) both observe that real clusters have more
 than the two tiers the original DASO paper models. The port lowers a spec
 onto the DASO control plane (step variants, sync schedule;
 `repro_torch.topo.lower`) and resolves fault plans' node paths against it
-(`repro_torch.resilience.faults`); the mesh and the comm model that the
-reference also lowers from it are later ports (ROADMAP item 16).
+(`repro_torch.resilience.faults`), and the multi-process runtime places
+its replica axis over processes, each owning whole subtrees
+(`repro_torch.launch.mesh`, `launch/distributed.py`). The reference's
+device mesh has no counterpart: the port has no device mesh to lower to.
 
 Spec grammar (one level per segment, segments joined by ``x``/``×``/``,``,
 innermost first)::
@@ -227,8 +229,9 @@ class TopologySpec:
 
     def mesh_axis_names(self) -> Tuple[str, ...]:
         """Mesh axes of the lowered mesh, outermost level first (the
-        conventional major-to-minor device order); plain names here, the
-        mesh itself is ROADMAP item 16."""
+        conventional major-to-minor device order); plain names here: the
+        port places processes by replica blocks (`launch/mesh.py`), not
+        on a device mesh."""
         return tuple(lvl.name for lvl in reversed(self.levels))
 
     def mesh_shape(self) -> Tuple[int, ...]:

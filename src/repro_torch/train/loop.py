@@ -19,6 +19,15 @@ one with the uninterrupted run's numbers bit for bit, and the returned loss
 trace is the whole run's. A TrainState keeps the strategy's membership mask
 (elastic membership, resilience/), and a resume sets it again.
 
+Across processes (`distributed=True`, launch/distributed.py): the run is
+placed over the process group that `launch.distributed.initialize` joined,
+each process holding its block of replica rows of the topology
+(`topology` is required); every cross-replica reduction runs the
+order-fixed chain (`DasoConfig.deterministic_reduce`), process 0 alone
+logs and writes checkpoints (gathered from every process), a resume keeps
+each process's rows, and the numbers are the one-process run's bit for
+bit. `health` (resilience/runtime.py::HealthMonitor) hears of each cycle.
+
 Runs on CUDA unless `device="cpu"`, and raises without CUDA.
 """
 from __future__ import annotations
@@ -81,6 +90,11 @@ class TrainLoopConfig:
     ckpt_dir: Optional[str] = None
     resume_from: Optional[str] = None
     device: str = "cuda"
+    # the multi-process runtime (launch/distributed.py): place the run over
+    # the process group that `launch.distributed.initialize` joined, one
+    # block of replica rows per process; needs `topology`. With one process
+    # this is the oracle the N-process run gives bit for bit
+    distributed: bool = False
 
 
 # strategies that take a topology spec for sizing only (replica count, world
@@ -129,7 +143,10 @@ def build_strategy(loss_fn: Callable, cfg: TrainLoopConfig, optimizer: Optimizer
         total_steps=cfg.n_steps,
         wire_format=cfg.wire_format,
         exchange_impl=cfg.exchange_impl,
-        overlap=cfg.overlap)
+        overlap=cfg.overlap,
+        # a distributed run takes the chain of adds for the loss's replica
+        # mean too, as the reference's does
+        deterministic_reduce=cfg.distributed)
     if spec is not None and cfg.strategy not in _FLAT_TOPOLOGY_STRATEGIES:
         return build_topology_strategy(loss_fn, optimizer, spec, dcfg,
                                        loss_window=cfg.loss_window)
@@ -151,6 +168,30 @@ def ckpt_step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step:08d}")
 
 
+def make_placement(cfg: TrainLoopConfig):
+    """The run's `ProcessPlacement` over the joined process group (one
+    process without one), or None unless `cfg.distributed`."""
+    if not cfg.distributed:
+        return None
+    spec = resolve_topology(cfg)
+    if spec is None:
+        raise ValueError("distributed runs place the replica axis of the topology; "
+                         "set TrainLoopConfig.topology (--topology)")
+    from repro_torch.launch.distributed import ProcessPlacement
+    return ProcessPlacement(spec, device=cfg.device)
+
+
+def save_placed_train_state(placement, path: str, state: TrainState) -> None:
+    """Save a TrainState whose carry holds this process's rows: gathered on
+    every process (collective), written by process 0 alone. Without a
+    placement, `save_train_state`."""
+    if placement is not None:
+        state.carry = placement.fetch(state.carry)
+        if not placement.is_coordinator:
+            return
+    save_train_state(path, state)
+
+
 def wire_summary(dcfg: DasoConfig, params) -> str:
     """The wire tier of the cycling and blocking exchanges, and the bytes one
     exchange of one replica's params puts on the wire at each."""
@@ -164,7 +205,8 @@ def wire_summary(dcfg: DasoConfig, params) -> str:
 def run_training(loss_fn: Callable, params0, data_fn: Callable,
                  cfg: TrainLoopConfig, *, optimizer: Optional[Optimizer] = None,
                  lr_fn: Optional[Callable] = None,
-                 log: Optional[Callable] = print, tracer=None) -> SimResult:
+                 log: Optional[Callable] = print, tracer=None,
+                 health=None) -> SimResult:
     """data_fn(step) -> batch on cfg.device. For the daso strategy the batch
     carries the leading replica axis; for sync it is flat. params0 must
     already be on cfg.device. On resume (`cfg.resume_from`) the returned
@@ -175,11 +217,20 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
     cycle, overlap and checkpoint spans and the controller's decision
     events (launch/train.py wires it from --trace-out). The per-step path
     is left untraced, as in the reference: it is the numbers' oracle, not
-    a surface to measure."""
+    a surface to measure.
+
+    `cfg.distributed` places the run over the process group (the module
+    docstring); `result.carry` is then this process's rows. `health`
+    (resilience.runtime.HealthMonitor) hears of each macro cycle, for
+    supervised multi-process runs (launch/train.py wires it)."""
     device = resolve_device(cfg.device)
     if cfg.executor not in ("macro", "per_step"):
         raise ValueError(f"unknown executor {cfg.executor!r}; "
                          "expected 'macro' or 'per_step'")
+    if health is not None and cfg.executor != "macro":
+        raise ValueError("live supervision (health monitor) reports progress from "
+                         "the macro executor's cycles; run supervised jobs with "
+                         "executor='macro'")
     for x in leaves(params0):
         if x.device.type != device.type:
             raise ValueError(f"run_training on {device}, params on {x.device}")
@@ -189,6 +240,11 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
     if tracer is not None and strategy.controller is not None:
         strategy.controller.tracer = tracer
     overlap = cfg.overlap if cfg.strategy != "sync" else "off"
+    placement = make_placement(cfg)
+    if placement is not None:
+        strategy.set_placement(placement)
+        if not placement.is_coordinator:
+            log = None  # one process speaks for the group
 
     # the loaded carry, handed over by `loaded.pop()` in the call, so that no
     # frame here keeps it alive once the executor has stepped past it
@@ -197,7 +253,7 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
         # fallback: a crash mid-save leaves the newest snapshot torn; resume
         # from the newest intact sibling instead
         ts = load_train_state(cfg.resume_from, device=device, expect_overlap=overlap,
-                              fallback=True)
+                              fallback=True, placement=placement)
         if ts.strategy != cfg.strategy:
             raise ValueError(f"checkpoint was written by strategy {ts.strategy!r}, "
                              f"run requests {cfg.strategy!r}")
@@ -205,6 +261,8 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
         # held to this run's carry, built on the meta device (no memory), so
         # a shape that differs raises and empty containers come back
         like = strategy.init_carry(tree_map(lambda x: x.to("meta"), params0))
+        if placement is not None:
+            like = placement.put_carry(like)
         loaded.append(fit_tree(like, ts.carry, "carry/", what="this run's carry"))
         if ts.controller is not None and strategy.controller is not None:
             strategy.controller.load_state_dict(ts.controller)
@@ -217,7 +275,7 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
     ckpt_cb = None
     if cfg.ckpt_every and cfg.ckpt_dir:
         def ckpt_cb(step, cur_carry, seg_losses):
-            save_train_state(ckpt_step_dir(cfg.ckpt_dir, step), TrainState(
+            save_placed_train_state(placement, ckpt_step_dir(cfg.ckpt_dir, step), TrainState(
                 step=step, carry=cur_carry,
                 controller=(strategy.controller.state_dict()
                             if strategy.controller is not None else None),
@@ -232,11 +290,11 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
         result = run_per_step_training(
             strategy, params0, data_fn, lr_fn, cfg.n_steps, start_step=start_step,
             carry=loaded.pop() if loaded else None, ckpt_every=cfg.ckpt_every,
-            ckpt_cb=ckpt_cb)
+            ckpt_cb=ckpt_cb, placement=placement)
     else:
         executor = MacroCycleExecutor(strategy, max_cycle_len=cfg.max_cycle_len,
                                       serial_exchange=cfg.overlap_serial_exchange,
-                                      tracer=tracer)
+                                      tracer=tracer, placement=placement, health=health)
         result = run_compiled_training(
             strategy, params0, data_fn, lr_fn, cfg.n_steps, executor=executor,
             start_step=start_step, carry=loaded.pop() if loaded else None,

@@ -588,9 +588,30 @@ def test_deterministic_resume_matches_uninterrupted(executor_kind, tmp_path):
         [h[1] for h in fresh.controller.history]
 
 
-def test_supervisor_refuses_what_is_not_ported():
+def test_supervisor_refuses_what_is_not_ported(tmp_path):
+    """Item 18's autotune path is refused. Item 16's `placement` and
+    `health` are taken: a one-process placement gives the unplaced run's
+    numbers bit for bit, and the health monitor hears of the last cycle."""
+    from repro_torch.launch.distributed import ProcessPlacement
+    from repro_torch.resilience import runtime
+
+    events = [{"step": 3, "kind": "crash", "replica": 1},
+              {"step": 6, "kind": "rejoin", "replica": 1}]
+    plain, _ = _supervise("port", 8, events)
+    health = runtime.HealthMonitor(runtime.HealthConfig(run_dir=str(tmp_path)),
+                                   proc_id=0).start()
+    try:
+        placed, ex = _supervise("port", 8, events, health=health,
+                                placement=ProcessPlacement(
+                                    TopologySpec.load("chip:4 x pod:4"), device="cpu"))
+    finally:
+        health.close()
+    assert ex.placement is not None and ex.health is health
+    assert placed.result.losses == plain.result.losses
+    for a, b in zip(leaves(placed.result.params), leaves(plain.result.params), strict=True):
+        assert torch.equal(a, b)
+    assert runtime.read_heartbeat(str(tmp_path), 0, 0)["step"] == 8
     params0, _ = _mlp(1, 4)
-    for kw, item in ((dict(placement=object()), "item 16"), (dict(health=object()), "item 16"),
-                     (dict(autotune_every=4), "item 18")):
-        with pytest.raises(NotImplementedError, match=item):
-            run_with_faults(_strategy("port", 8), _t(params0), None, None, 8, FaultPlan(), **kw)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        run_with_faults(_strategy("port", 8), _t(params0), None, None, 8, FaultPlan(),
+                        autotune_every=4)
