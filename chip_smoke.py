@@ -141,6 +141,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                (params, momentum, in-flight and pending of every replica)
                and the history bit for bit between the two, K2 / K5 / K6
                launches as the pod level's modes imply
+  train_macro_overlap_fused, train_macro_overlap_per_leaf
+               16 steps of the train cell under one_cycle on the paper's wires
+               (f32 cycling, bf16 blocking), macro, fused and then per-leaf:
+               the per-leaf run's losses and every row of its final carry
+               (all four slots) bit for bit the fused run's, K2 / K3 as the
+               modes imply (x 11 leaves per-leaf); steady cycle ms, legs, the
+               contiguous copies
   train_baselines_gossip, train_baselines_gossip_per_step,
   train_baselines_easgd, train_baselines_downpour
                run_training with the baselines at the train cell's size,
@@ -165,10 +172,30 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                membership timeline and simulated clock of a CPU rehearsal of
                the plan, K2 at P_eff = 12.0 during the crash (DASO), one
                fault_event span per event and what trace_faults lists
+  train_autotune, train_autotune_int8_overlap, train_autotune_empty
+               the train_macro_topo cell through run_with_faults with a probe
+               round every cycle on the simulated clock (sim_exchange_s):
+               replicas 1 and 3 straggle x3 at step 4 and the network between
+               the pods falls to 0.25 at step 8 (AUTOTUNE_EVENTS; the
+               controller learns of it only from the probe). Held: a
+               schedule-changing retune within 3 cycles of the degradation, B
+               stretched past b_max, a regrouping that pairs 1 and 3, an
+               invalidation, and the retunes, reshuffles, controller events
+               and history, membership timeline and simulated clock of a CPU
+               rehearsal of the plan; the int8 + one_cycle variant likewise
+               (K5 / K6 on this path); the same cell with an empty plan and a
+               probe every cycle gives train_macro_topo's losses and final
+               carry rows bit for bit
   launch_faults
                repro_torch.launch.train.main --tiny --steps 12 --fault-plan
                --metrics-out on the card: the "resilience" record's keys and
                events, K2 / K3 as the modes imply
+  launch_autotune
+               repro_torch.launch.train.main --tiny --topology ... --autotune
+               on the card prints the startup probe's us per level, retuned,
+               b and the periods; then with --fault-plan AUTOTUNE_EVENTS
+               --autotune-every 2 one line per retune, one of them changing
+               the schedule and one regrouping; K2 / K3 as the modes imply
   train_procs, train_procs_int8_overlap
                the multi-process runtime: python -m repro_torch.launch.procs
                runs the launcher's train cell at full width, 2 of 16 layers,
@@ -186,6 +213,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                and GB/s, ms per step by cycle shape beside the one-process
                run's, and (overlap) the gather's ms beside the local steps
                against the wait after them
+  train_procs_per_leaf
+               train_procs's configuration over 2 processes with
+               --exchange-impl per_leaf: losses, final params and every carry
+               row bit for bit the fused 2-process run's; gathers per process
+               the fused run's x 11 (one per leaf) with the same bytes; K2 / K3
+               x 11. Prints ms per gather (D2H, gloo, H2D) and GB/s beside the
+               fused gather's
   live_kill    python -m repro_torch.launch.procs --procs 2 --kill 1:6 at
                --tiny on the same topology, --ckpt-every 1: the survivor
                regroups onto one process over every replica, resumes from
@@ -202,6 +236,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                every replica) bit for bit the train phase's, the same K2 and
                K3 launches; dispatches per step, programs built, fallback
                steps, ms per step by cycle shape, peak memory
+  train_macro_per_leaf
+               the train_macro cell with exchange_impl="per_leaf": its losses
+               and every row of its final carry (params, momentum, in-flight;
+               row digests) bit for bit train_macro's, K2 once per receive
+               step and floating leaf and K3 once per blocking step and
+               floating leaf (11 leaves); ms per step by cycle shape beside
+               train_macro's, the contiguous copies the launches needed (count,
+               bytes), the peaks
   train_faults_empty
                run_with_faults with an empty plan on the train cell:
                train_macro's losses and final carry bit for bit
@@ -230,6 +272,7 @@ line {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
+import ast
 import collections
 import ctypes
 import dataclasses
@@ -270,6 +313,7 @@ from repro_torch.kernels.comm_kernels import (bf16_pack_fwd, bf16_unpack_fwd,  #
                                               launch_cast, launch_eq1_merge,
                                               quantize_int8_fwd, ring_config)
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+from repro_torch.launch.distributed import row_digests  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, attention_row_ratio  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan_fwd  # noqa: E402
 from repro_torch.kernels.ssm_scan import scan_config, ssm_scan_fwd  # noqa: E402
@@ -282,6 +326,9 @@ from repro_torch.optim.schedules import constant_lr  # noqa: E402
 from repro_torch.resilience import FaultPlan, membership, run_with_faults  # noqa: E402
 from repro_torch.resilience import supervisor  # noqa: E402
 from repro_torch.serve.engine import Engine, make_decode_fn, make_prefill_fn  # noqa: E402
+from repro_torch.topo import probe as topo_probe  # noqa: E402
+from repro_torch.topo.lower import daso_config_from, make_controller  # noqa: E402
+from repro_torch.topo.spec import TopologySpec  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 from repro_torch.train.loop import TrainLoopConfig, build_strategy, run_training  # noqa: E402
 from repro_torch.train.step import make_lm_loss  # noqa: E402
@@ -1432,7 +1479,8 @@ def cycle_rows(res):
 
 
 def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
-                    strategy="daso", plan=None, supervise=None, lr=TRAIN_LR):
+                    strategy="daso", plan=None, supervise=None, lr=TRAIN_LR,
+                    steps=TRAIN_STEPS):
     """run_training with `strategy` (DASO by default) at llama3.2-1b's
     published widths, 4 layers, f32, R = 4; the counts are set to 0 just
     before and read just after. Returns (result, its row, launch counts, the
@@ -1443,7 +1491,7 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
     run_training. With a fault `plan` the run goes through
     `resilience.run_with_faults` on the macro executor instead (the strategy
     as run_training builds it, `supervise` its extra keyword arguments), and
-    the result is the ResilienceReport."""
+    the result is the ResilienceReport. `steps` cuts the run short."""
     cfg = train_config(TRAIN_LAYERS)
     params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(x.numel() for x in leaves(params0))
@@ -1454,7 +1502,7 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
         def data(step):
             on_batch(step)
             return make_batch(step)
-    loop_cfg = TrainLoopConfig(strategy=strategy, n_steps=TRAIN_STEPS, n_replicas=TRAIN_R,
+    loop_cfg = TrainLoopConfig(strategy=strategy, n_steps=steps, n_replicas=TRAIN_R,
                                local_world=TRAIN_LOCAL_WORLD, b_max=TRAIN_B_MAX,
                                lr=lr, device="cuda", **loop_options)
     sync()
@@ -1469,7 +1517,7 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
                            tracer=tracer)
     else:
         strat = build_strategy(make_lm_loss(cfg), loop_cfg, sgd(momentum=0.9, weight_decay=1e-4))
-        report = run_with_faults(strat, params0, data, constant_lr(lr), TRAIN_STEPS,
+        report = run_with_faults(strat, params0, data, constant_lr(lr), steps,
                                  plan, executor=MacroCycleExecutor(strat), tracer=tracer,
                                  **(supervise or {}))
         res = report.result
@@ -1497,7 +1545,7 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
            "dtype": "float32", "params_per_replica": n_params,
            "replicas": TRAIN_R, "local_world": TRAIN_LOCAL_WORLD, "b_max": TRAIN_B_MAX,
            "lr": lr, "optimizer": "sgd(0.9, 1e-4)", "seq_len": TRAIN_SEQ,
-           "seqs_per_replica": TRAIN_PER, "steps": TRAIN_STEPS,
+           "seqs_per_replica": TRAIN_PER, "steps": steps,
            "mode_counts": {m: modes.count(m) for m in sorted(set(modes))},
            "controller": type(res.controller).__name__,
            "level_sync_counts": res.controller.level_sync_counts(),
@@ -2026,7 +2074,8 @@ def phase_train_macro(trained):
     """The train cell through the macro-cycle executor: its final carry
     (params and momentum of every replica) bit for bit the per-step carry
     in `trained`, which stays on the card for the arena phase. Returns its
-    launches and losses."""
+    launches, losses, the digest of every row of its final carry (all three
+    slots), its ms per step by cycle shape, its peak and wall."""
     res, row, launches, modes, params0 = run_train_phase(
         "train_macro", {"executor": "macro"}, TRAIN_WHY)
     check_launches(row, launches, train_launches(modes))
@@ -2038,10 +2087,12 @@ def phase_train_macro(trained):
         emit({**row, "failed": "carry"})
         raise AssertionError("train_macro: the carry differs from the per-step carry")
     emit(row)
-    losses = res.losses
+    out = {"launches": launches, "losses": res.losses, "digests": row_digests(res.carry),
+           "cycle_ms": row["cycle_ms"], "max_memory_allocated": row["max_memory_allocated"],
+           "wall_s": row["wall_s"]}
     del res, params0, params_r, opt_r
     torch.cuda.empty_cache()
-    return {"launches": launches, "losses": losses}
+    return out
 
 
 # The topology cells: 4 replicas in 2 pods of 2 hosts (R = 4, P = 16, the
@@ -2145,7 +2196,8 @@ def phase_train_macro_topo(per_step):
     """The 3-level topology through the macro-cycle executor, traced: the
     per-step run's history tokens, its final carry (params and momentum of
     every replica) bit for bit, the same launches; the cycle spans' host
-    syncs add to `level_sync_counts()["host"]` (`trace_faults`)."""
+    syncs add to `level_sync_counts()["host"]` (`trace_faults`). Returns its
+    launches, losses and the digest of every row of its final carry."""
     with run_trace("train_macro_topo") as (tracer, events):
         res, row, launches, modes, params0 = run_train_phase(
             "train_macro_topo", {"executor": "macro", "topology": TOPO_SPEC}, TRAIN_WHY,
@@ -2167,9 +2219,10 @@ def phase_train_macro_topo(per_step):
         emit({**row, "failed": faults})
         raise AssertionError(f"train_macro_topo: {faults}")
     emit(row)
+    out = {"launches": launches, "losses": res.losses, "digests": row_digests(res.carry)}
     del res, params0
     torch.cuda.empty_cache()
-    return launches
+    return out
 
 
 def phase_train_topo_2level(trained, macro):
@@ -2456,10 +2509,12 @@ def frozen_row_checks(n_slots):
     return cb, results
 
 
-def cpu_rehearsal(strategy, options):
-    """The same plan through run_with_faults on the CPU at the launcher's
-    --tiny size (2 layers, d_model 128): the membership timeline and the
-    simulated clock, which depend on the schedule only."""
+def cpu_rehearsal(strategy, options, events=FAULT_EVENTS, **supervise):
+    """The same plan (`events`, FAULT_EVENTS by default) through
+    run_with_faults on the CPU at the launcher's --tiny size (2 layers,
+    d_model 128), with the card run's extra keyword arguments `supervise`:
+    the membership timeline, the simulated clock and the autotune records,
+    which depend on the schedule only."""
     cfg = get_config(ARCH).replace(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
                                    head_dim=32, d_ff=256, vocab_size=256)
     params0 = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -2474,8 +2529,8 @@ def cpu_rehearsal(strategy, options):
         local_world=TRAIN_LOCAL_WORLD, b_max=TRAIN_B_MAX, lr=TRAIN_LR, device="cpu",
         **options), sgd(momentum=0.9, weight_decay=1e-4))
     rep = run_with_faults(strat, params0, data, constant_lr(TRAIN_LR), TRAIN_STEPS,
-                          FaultPlan.from_dicts(FAULT_EVENTS), t_compute_s=SIM_T_COMPUTE,
-                          exchange_cost_fn=sim_exchange_s)
+                          FaultPlan.from_dicts(events), t_compute_s=SIM_T_COMPUTE,
+                          exchange_cost_fn=sim_exchange_s, **supervise)
     return rep
 
 
@@ -2728,7 +2783,8 @@ def phase_train_procs(name, extra, want_launches):
     one-process run, as the modes imply. Prints the peaks per process, the
     gathers (bytes per exchange by dtype, ms per gather, GB/s), ms per step
     by cycle shape beside the oracle's and the launches per process.
-    Returns {path: launches}."""
+    Returns ({path: launches}, the two-process run: its losses, final
+    params digest, carry row digests and each process's gathers)."""
     gc.collect()
     torch.cuda.empty_cache()
     sync()
@@ -2789,7 +2845,9 @@ def phase_train_procs(name, extra, want_launches):
         emit({**row, "failed": faults})
         raise AssertionError(f"{name}: {faults}")
     emit(row)
-    return {f"{name}.p{r['proc']}": r["launches"] for r in reps2}
+    return ({f"{name}.p{r['proc']}": r["launches"] for r in reps2},
+            {"losses": m2["losses"], "params_digest": reps2[0]["params_digest"],
+             "carry_digest": digests2, "gathers": row["gathers"]})
 
 
 def phase_live_kill():
@@ -2864,6 +2922,451 @@ def phase_live_kill():
         raise AssertionError(f"live_kill: {faults}")
     emit(row)
     return launches
+
+# -- the per-leaf exchange and the autotune plane -------------------------------------
+
+# the short one_cycle pair on the paper's wires (f32 cycling, bf16 blocking):
+# 16 steps (warm-up 1, cool-down 1) hold per-leaf against fused through ov_start,
+# three overlap cycles and the blocking phases at a quarter of the cell's wall
+OV_PER_LEAF_STEPS = 16
+
+
+def per_leaf_launches(want, n_leaves):
+    """The launches of a fused path's `want` with K2 and K3 once per
+    floating leaf instead of once per arena (the per-leaf exchange)."""
+    return {**want, "eq1_merge": want["eq1_merge"] * n_leaves,
+            "bf16_pack": want["bf16_pack"] * n_leaves}
+
+
+def overlap_launches(modes):
+    """One f32 arena on the paper's wires under one_cycle: K2 once per
+    ov_sync (the merge), K3 once per blocking step; the cycling exchange
+    is f32 and launches nothing."""
+    return {"flash_attention_fwd": 0, "eq1_merge": modes.count("ov_sync"),
+            "bf16_pack": modes.count("blocking"), "bf16_unpack": 0, "quantize_int8": 0,
+            "dequantize_int8": 0, "ssm_scan": 0, "rglru_scan": 0}
+
+
+def n_floating_leaves(params0):
+    return sum(x.is_floating_point() for x in leaves(params0))
+
+
+def phase_train_macro_per_leaf(trained, macro):
+    """The train_macro cell with exchange_impl="per_leaf": its losses and
+    every row of its final carry (params, momentum and in-flight of every
+    replica; row digests) bit for bit train_macro's, its params and
+    momentum bit for bit the per-step carry in `trained`; K2 once per
+    receive step and floating leaf, K3 once per blocking step and floating
+    leaf. Prints ms per step by cycle shape beside train_macro's, the
+    contiguous copies the per-leaf launches needed (count and bytes) and
+    the peaks. Returns its launches."""
+    t0 = time.perf_counter()
+    ops.CONTIGUOUS_COPIES.reset()
+    res, row, launches, modes, params0 = run_train_phase(
+        "train_macro_per_leaf", {"executor": "macro", "exchange_impl": "per_leaf"}, TRAIN_WHY)
+    n_leaves = n_floating_leaves(params0)
+    params_r, opt_r, _ = res.carry
+    row.update(
+        floating_leaves=n_leaves, contiguous_copies=ops.CONTIGUOUS_COPIES.copies,
+        contiguous_copy_bytes=ops.CONTIGUOUS_COPIES.bytes,
+        fused_cycle_ms=macro["cycle_ms"], fused_wall_s=macro["wall_s"],
+        fused_max_memory_allocated=macro["max_memory_allocated"],
+        losses_identical_to_train_macro=res.losses == macro["losses"],
+        carry_rows_identical_to_train_macro=row_digests(res.carry) == macro["digests"],
+        carry_identical_to_per_step=all(
+            same_bits(a, b) for a, b in zip(leaves((params_r, opt_r)),
+                                            leaves(trained["carry"]), strict=True)))
+    check_launches(row, launches, per_leaf_launches(train_launches(modes), n_leaves))
+    faults = [what for what in ("losses_identical_to_train_macro",
+                                "carry_rows_identical_to_train_macro",
+                                "carry_identical_to_per_step") if not row[what]]
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"train_macro_per_leaf: {faults}")
+    del res, params0, params_r, opt_r
+    torch.cuda.empty_cache()
+    emit({**row, "phase_wall_s": time.perf_counter() - t0})
+    return launches
+
+
+def phase_train_overlap_per_leaf():
+    """A short one_cycle run (OV_PER_LEAF_STEPS steps) of the train cell on
+    the paper's wires, fused and then per-leaf, through the macro executor
+    (each overlap cycle's exchange on the executor's stream): the per-leaf
+    run's losses and every row of its final carry (all four slots) bit for
+    bit the fused run's; K2 / K3 as the modes imply, once per floating leaf
+    per-leaf. Returns both runs' launches."""
+    t0 = time.perf_counter()
+    out, want = {}, None
+    for impl in ("fused", "per_leaf"):
+        name = f"train_macro_overlap_{impl}"
+        ops.CONTIGUOUS_COPIES.reset()
+        res, row, launches, modes, params0 = run_train_phase(
+            name, {"executor": "macro", "overlap": "one_cycle", "exchange_impl": impl},
+            INT8_OVERLAP_WHY, steps=OV_PER_LEAF_STEPS)
+        n_leaves = n_floating_leaves(params0)
+        st = res.executor_stats
+        row.update(steady_cycle_ms=steady_overlap_cycles(res),
+                   legs_ms={k: 1e3 * getattr(st, k) for k in OVERLAP_LEGS},
+                   contiguous_copies=ops.CONTIGUOUS_COPIES.copies,
+                   contiguous_copy_bytes=ops.CONTIGUOUS_COPIES.bytes)
+        expected = overlap_launches(modes)
+        if impl == "per_leaf":
+            expected = per_leaf_launches(expected, n_leaves)
+        row["launches_expected"] = expected
+        faults = [] if launches == expected else ["launches"]
+        if st.overlap_cycles == 0:
+            faults.append("no overlap cycle")
+        if want is None:
+            want = (res.losses, row_digests(res.carry), row["cycle_ms"],
+                    row["max_memory_allocated"])
+        else:
+            row.update(fused_cycle_ms=want[2], fused_max_memory_allocated=want[3],
+                       losses_identical_to_fused=res.losses == want[0],
+                       carry_rows_identical_to_fused=row_digests(res.carry) == want[1])
+            faults += [what for what in ("losses_identical_to_fused",
+                                         "carry_rows_identical_to_fused") if not row[what]]
+        if faults:
+            emit({**row, "failed": faults})
+            raise AssertionError(f"{name}: {faults}")
+        out[name] = launches
+        del res, params0
+        torch.cuda.empty_cache()
+        if impl == "per_leaf":  # the pair's wall on the second row
+            row["phase_wall_s"] = time.perf_counter() - t0
+        emit(row)
+    return out
+
+
+def phase_train_procs_per_leaf(fused):
+    """train_procs's configuration over two processes with --exchange-impl
+    per_leaf: the losses, the final params and every carry row bit for bit
+    the fused two-process run of train_procs (`fused`); one gather per leaf
+    (gathers = the fused run's x the leaves) and the fused run's bytes;
+    each process's K2 / K3 once per floating leaf. Prints the gathers per
+    exchange, bytes, ms per gather (D2H, gloo, H2D) and GB/s beside the
+    fused run's. Returns {path: launches}."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    name, extra = "train_procs_per_leaf", ["--exchange-impl", "per_leaf"]
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    try:
+        m, reps, wall, ck = procs_run(tmp, name, 2, extra)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_leaves = len(reps[0]["params_digest"])
+    modes = [outer_mode(x) for x in reps[0]["modes"]]
+    digests = {}
+    for rep in reps:
+        digests.update(rep["carry_digest"])
+    gathers = [gather_row(r) for r in reps]
+    want = per_leaf_launches(train_launches(modes), n_leaves)
+    row = {"phase": name, "arch": ARCH, "entry": "python -m repro_torch.launch.procs",
+           "argv": PROCS_ARGS + extra, "transport": "gloo", "procs": 2,
+           "reduced": {"n_layers": [get_config(ARCH).n_layers, PROCS_LAYERS],
+                       "why": PROCS_WHY},
+           "floating_leaves": n_leaves, "wall_s": wall,
+           "child_wall_s": [r["wall_s"] for r in reps],
+           "max_memory_allocated": [r["max_memory_allocated"] for r in reps],
+           "gathers": gathers, "fused_gathers": fused["gathers"],
+           # the fused run gathers once per exchange
+           "gathers_per_exchange": [g["calls"] / f["calls"]
+                                    for g, f in zip(gathers, fused["gathers"])],
+           "payload_bytes_per_exchange": [
+               [g["payload_bytes_per_exchange"] * g["calls"] / f["calls"],
+                f["payload_bytes_per_exchange"]] for g, f in zip(gathers, fused["gathers"])],
+           "ms_per_exchange": [[g["ms_per_gather"] * g["calls"] / f["calls"],
+                                f["ms_per_gather"]]
+                               for g, f in zip(gathers, fused["gathers"])],
+           "cycle_ms": [report_cycle_ms(r) for r in reps],
+           "launches": {f"p{r['proc']}": r["launches"] for r in reps},
+           "launches_expected": want,
+           "losses_identical_to_fused": m["losses"] == fused["losses"],
+           "params_identical_to_fused": reps[0]["params_digest"] == fused["params_digest"],
+           "carry_rows_identical_to_fused": digests == fused["carry_digest"]}
+    faults = [what for what, bad in (
+        ("losses", not row["losses_identical_to_fused"]),
+        ("final params", not row["params_identical_to_fused"]),
+        ("carry rows", not digests or not row["carry_rows_identical_to_fused"]),
+        ("checkpoint", not ck),
+        ("gathers", any(g["calls"] != f["calls"] * n_leaves
+                        for g, f in zip(gathers, fused["gathers"]))),
+        ("bytes", any(g["payload_bytes_per_exchange"] * g["calls"]
+                      != f["payload_bytes_per_exchange"] * f["calls"]
+                      for g, f in zip(gathers, fused["gathers"]))),
+        ("launches", any({k: r["launches"][k] for k in PROCS_COMM}
+                         != {k: want[k] for k in PROCS_COMM} for r in reps))) if bad]
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"{name}: {faults}")
+    emit({**row, "phase_wall_s": time.perf_counter() - t0})
+    return {f"{name}.p{r['proc']}": r["launches"] for r in reps}
+
+
+# train_autotune: the topology cell through the supervisor with a probe round
+# every cycle; replicas 1 and 3 (one in each host pair) straggle x3 from step
+# 4, so the probe regroups them together, and the network between the pods
+# falls to a quarter of its bandwidth at step 8, which only the probe tells
+# the controller (oracle_notify is off under autotune)
+AUTOTUNE_EVENTS = [{"step": 4, "kind": "straggle", "replica": 1, "factor": 3.0},
+                   {"step": 4, "kind": "straggle", "replica": 3, "factor": 3.0},
+                   {"step": 8, "kind": "degrade_dcn", "factor": 0.25}]
+AUTOTUNE_DEGRADE, AUTOTUNE_WITHIN = 8, 3
+AUTOTUNE_SUPERVISE = {"autotune_every": 1, "t_compute_s": SIM_T_COMPUTE,
+                      "exchange_cost_fn": sim_exchange_s}
+
+
+@contextmanager
+def group_perms():
+    """Yields each permutation the supervisor sets
+    (`DasoStrategy.set_group_permutation`), in call order."""
+    fn, perms = DasoStrategy.set_group_permutation, []
+
+    def spy(self, perm):
+        perms.append(None if perm is None else list(perm))
+        return fn(self, perm)
+
+    DasoStrategy.set_group_permutation = spy
+    try:
+        yield perms
+    finally:
+        DasoStrategy.set_group_permutation = fn
+
+
+def autotune_record(report):
+    """What a CPU rehearsal of the plan must give too: the autotune records,
+    the membership timeline, the simulated clock, the controller's events
+    and history (the schedule alone decides them)."""
+    ctl = report.result.controller
+    return {"retunes": [{k: r[k] for k in ("step", "cycle", "measured_s", "nominal_s",
+                                           "schedule_changed", "reshuffled")}
+                        for r in report.retunes],
+            "reshuffles": report.reshuffles,
+            "membership_timeline": report.membership_timeline,
+            "simulated_time_s": report.simulated_time_s,
+            "events": [list(e) for e in ctl.events],
+            "history": [list(h) for h in ctl.history],
+            "inner_periods": getattr(ctl, "inner_periods", {})}
+
+
+def degradation_cycle(report):
+    """The index of the first cycle that starts at or after step
+    AUTOTUNE_DEGRADE (the run starts at step 0; the plan's events cut the
+    cycles), or None when no cycle does."""
+    start = 0
+    for i, (shape, _) in enumerate(report.result.cycles):
+        if start >= AUTOTUNE_DEGRADE:
+            return i
+        start += len(shape)
+    return None
+
+
+def autotune_faults(report, perms):
+    """The autotune path's holds: a schedule-changing retune within
+    AUTOTUNE_WITHIN cycles of the degradation's cycle (`degradation_cycle`,
+    whether or not a retune is recorded there), with B stretched past b_max;
+    a regrouping that puts replicas 1 and 3 in one host pair; at least one
+    invalidation."""
+    sched = [r for r in report.retunes if r["schedule_changed"]]
+    degrade_cycle = degradation_cycle(report)
+    hist = report.result.controller.history
+    return [what for what, bad in (
+        ("no retune after the degradation", not sched or sched[0]["step"] < AUTOTUNE_DEGRADE),
+        ("retune late", not sched or degrade_cycle is None
+         or sched[0]["cycle"] - degrade_cycle > AUTOTUNE_WITHIN),
+        ("b not stretched", not any(b > TRAIN_B_MAX for t, _, b, _ in hist
+                                    if t >= AUTOTUNE_DEGRADE)),
+        ("no regrouping of {1, 3}", report.reshuffles < 1 or not perms or perms[-1] is None
+         or {1, 3} not in [set(perms[-1][i:i + 2]) for i in (0, 2)]),
+        ("no invalidation", report.invalidations < 1)) if bad]
+
+
+def phase_train_autotune(topo_macro):
+    """The train_macro_topo cell through run_with_faults with a probe round
+    every cycle (exchange_cost_fn = sim_exchange_s) on AUTOTUNE_EVENTS: a
+    schedule-changing retune within 3 cycles of the degradation with B
+    stretched, a regrouping of {1, 3}, an invalidation, and the retunes,
+    reshuffles, controller events and history, membership timeline and
+    simulated clock of a CPU rehearsal of the plan; the loss falls. Then the
+    same cell with an empty plan and autotune every cycle: the untuned
+    train_macro_topo run's losses and final carry rows (`topo_macro`) bit
+    for bit. Then the int8 + one_cycle variant of the plan (K5 / K6 on this
+    path), held as the first and to its own rehearsal. Returns the three
+    runs' launches."""
+    t0 = time.perf_counter()
+    plan = FaultPlan.from_dicts(AUTOTUNE_EVENTS)
+    out = {}
+    for name, options, why in (("train_autotune", {}, TRAIN_WHY),
+                               ("train_autotune_int8_overlap", INT8_OVERLAP,
+                                INT8_OVERLAP_WHY)):
+        with group_perms() as perms:
+            report, row, launches, modes, params0 = run_train_phase(
+                name, {"executor": "macro", "topology": TOPO_SPEC, **options}, why,
+                plan=plan, supervise=AUTOTUNE_SUPERVISE)
+        want_launches = (int8_overlap_launches(modes) if options
+                         else train_launches(modes))
+        got = autotune_record(report)
+        rehearsal = autotune_record(cpu_rehearsal(
+            "daso", {"topology": TOPO_SPEC, **options}, AUTOTUNE_EVENTS, autotune_every=1))
+        row.update(fault_events=AUTOTUNE_EVENTS, group_perms=perms,
+                   degradation_cycle=degradation_cycle(report),
+                   invalidations=report.invalidations, wasted_wait_s=report.wasted_wait_s,
+                   b_by_step=[h[2] for h in report.result.controller.history],
+                   launches_expected=want_launches,
+                   **{k: v for k, v in got.items() if k != "history"},
+                   rehearsal_identical={k: got[k] == rehearsal[k] for k in got})
+        faults = autotune_faults(report, perms) + [
+            f"{k} differs from the CPU rehearsal" for k, ok in
+            row["rehearsal_identical"].items() if not ok]
+        if launches != want_launches:
+            faults.append("launches")
+        if faults:
+            emit({**row, "failed": faults, "rehearsal": rehearsal})
+            raise AssertionError(f"{name}: {faults}")
+        emit(row)
+        out[name] = launches
+        del report, params0
+        torch.cuda.empty_cache()
+    report, row, launches, modes, params0 = run_train_phase(
+        "train_autotune_empty", {"executor": "macro", "topology": TOPO_SPEC}, TRAIN_WHY,
+        plan=FaultPlan(), supervise=AUTOTUNE_SUPERVISE)
+    row.update(retunes=report.retunes, reshuffles=report.reshuffles,
+               invalidations=report.invalidations,
+               losses_identical_to_train_macro_topo=report.result.losses
+               == topo_macro["losses"],
+               carry_rows_identical_to_train_macro_topo=row_digests(report.result.carry)
+               == topo_macro["digests"])
+    faults = [what for what, bad in (
+        ("retuned on a healthy plan", report.retunes or report.reshuffles
+         or report.invalidations),
+        ("losses", not row["losses_identical_to_train_macro_topo"]),
+        ("carry rows", not row["carry_rows_identical_to_train_macro_topo"]),
+        ("launches", launches != topo_macro["launches"])) if bad]
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"train_autotune_empty: {faults}")
+    out["train_autotune_empty"] = launches
+    del report, params0
+    torch.cuda.empty_cache()
+    emit({**row, "phase_wall_s": time.perf_counter() - t0})  # the three runs' wall
+    return out
+
+
+PROBE_LINE = re.compile(r"\[train\] autotune probe: measured (\{.*\}) us/sync -> "
+                        r"retuned=(\w+) b=(\d+) inner_periods=(\{.*\})")
+RETUNE_LINE = re.compile(r"\[train\]\s+step\s+(\d+) retune\s+cycle=(\d+) changed=(\w+) "
+                         r"reshuffled=(\w+)")
+LAUNCH_AUTOTUNE_STEPS = 16
+
+
+def launch_main(argv):
+    """`repro_torch.launch.train.main(argv)` on the card with its standard
+    output captured (and echoed). Returns (result, output, launches)."""
+    import io
+    from contextlib import redirect_stdout
+
+    from repro_torch.launch import train as launch_train
+
+    buf = io.StringIO()
+    sync()
+    zero_counts()
+    with redirect_stdout(buf):
+        res = launch_train.main(argv)
+    sync()
+    launches = counts()
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    return res, text, launches
+
+
+@contextmanager
+def probe_results():
+    """Yields each ProbeResult `topo_probe.active_probe` returns, in call
+    order (the launcher's startup probe calls it through the module)."""
+    fn, results = topo_probe.active_probe, []
+
+    def spy(*args, **kwargs):
+        results.append(fn(*args, **kwargs))
+        return results[-1]
+
+    topo_probe.active_probe = spy
+    try:
+        yield results
+    finally:
+        topo_probe.active_probe = fn
+
+
+def probe_line_faults(probe, results):
+    """The startup probe's printed line against its ProbeResult: the us per
+    level are the probe's costs rounded as printed, and retuned, b and
+    inner_periods are what `retune` of those costs gives on a fresh
+    controller of TOPO_SPEC at the launcher's b_max, so the run's schedule
+    follows from the costs it printed."""
+    if probe is None or len(results) != 1:
+        return ["probe line or result missing"], None
+    pr = results[0]
+    spec = TopologySpec.parse(TOPO_SPEC)
+    fresh = make_controller(spec, daso_config_from(spec, b_max=TRAIN_B_MAX))
+    changed = fresh.retune(pr.costs, annotated=topo_probe.annotated_level_costs(
+        spec, pr.param_bytes))
+    want = {"probe_us_per_sync": {k: round(v * 1e6, 1) for k, v in pr.costs.items()},
+            "retuned": str(changed), "b": fresh.b, "inner_periods": str(fresh.inner_periods)}
+    got = {"probe_us_per_sync": ast.literal_eval(probe.group(1)), "retuned": probe.group(2),
+           "b": int(probe.group(3)), "inner_periods": probe.group(4)}
+    return [f"printed {k} is not the retune of the probed costs"
+            for k in want if got[k] != want[k]], want
+
+
+def phase_launch_autotune():
+    """The launcher's --autotune on the card: `main(--tiny --topology
+    TOPO_SPEC --autotune)` prints the startup probe's us per level, retuned,
+    b and inner_periods (the probe times `level_group_mean` on the card),
+    and those are what `retune` of the probed costs gives on a fresh
+    controller (`probe_line_faults`);
+    then `--fault-plan AUTOTUNE_EVENTS --autotune --autotune-every 2` prints
+    one line per retune, with one that changed the schedule and one that
+    regrouped. K2 / K3 as the modes imply in both. Returns the launches."""
+    t0 = time.perf_counter()
+    base = ["--tiny", "--steps", str(LAUNCH_AUTOTUNE_STEPS), "--topology", TOPO_SPEC,
+            "--b-max", str(TRAIN_B_MAX)]
+    with probe_results() as results:
+        res, text, launches = launch_main(base + ["--autotune"])
+    probe = PROBE_LINE.search(text)
+    line_faults, retune_of_costs = probe_line_faults(probe, results)
+    modes = [outer_mode(h[1]) for h in res.controller.history]
+    row = {"phase": "launch_autotune", "entry": "repro_torch.launch.train.main",
+           "argv": base + ["--autotune"], "device": str(leaves(res.params)[0].device),
+           "probe_line": probe.group(0) if probe else None,
+           "probe_us_per_sync": ast.literal_eval(probe.group(1)) if probe else None,
+           "retuned": probe.group(2) if probe else None,
+           "b": int(probe.group(3)) if probe else None,
+           "inner_periods": probe.group(4) if probe else None,
+           "retune_of_probed_costs": retune_of_costs,
+           "launches": launches, "final_loss": res.final_loss}
+    faults = line_faults + [what for what, bad in (
+        ("no probe line", probe is None),
+        ("device", not row["device"].startswith("cuda")),
+        ("launches", launches != train_launches(modes))) if bad]
+    plan_argv = base + ["--fault-plan", json.dumps({"events": AUTOTUNE_EVENTS}),
+                        "--autotune", "--autotune-every", "2"]
+    res2, text2, launches2 = launch_main(plan_argv)
+    lines = RETUNE_LINE.findall(text2)
+    modes2 = [outer_mode(h[1]) for h in res2.controller.history]
+    row.update(plan_argv=plan_argv, retune_lines=[list(x) for x in lines],
+               plan_launches=launches2, plan_final_loss=res2.final_loss)
+    faults += [what for what, bad in (
+        ("no schedule-changing retune line", not any(x[2] == "True" for x in lines)),
+        ("no regrouping line", not any(x[3] == "True" for x in lines)),
+        ("plan launches", launches2 != train_launches(modes2))) if bad]
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"launch_autotune: {faults}")
+    emit({**row, "phase_wall_s": time.perf_counter() - t0})
+    del res, res2
+    torch.cuda.empty_cache()
+    return {"launch_autotune": launches, "launch_autotune_plan": launches2}
 
 
 def max_abs_err(a, b, chunk=1 << 27):
@@ -3227,19 +3730,24 @@ def main():
     del int8_per_step["carry"]
     launch_trace_launches = phase_launch_trace()
     topo = phase_train_topo()
-    topo_macro_launches = phase_train_macro_topo(topo)
+    topo_macro = phase_train_macro_topo(topo)
     del topo["carry"]
     topo_int8_launches = phase_train_topo_int8_overlap()
+    overlap_per_leaf_launches = phase_train_overlap_per_leaf()
     baselines_launches = phase_train_baselines()
     faults_launches = phase_train_faults()
+    autotune_launches = phase_train_autotune(topo_macro)
     launch_faults_launches = phase_launch_faults()
-    procs_launches = phase_train_procs("train_procs", [], train_launches)
+    launch_autotune_launches = phase_launch_autotune()
+    procs_launches, procs_fused = phase_train_procs("train_procs", [], train_launches)
+    procs_launches.update(phase_train_procs_per_leaf(procs_fused))
     procs_launches.update(phase_train_procs(
         "train_procs_int8_overlap", ["--wire-format", "int8", "--overlap", "one_cycle",
-                                     "--dispatch", "overlap"], int8_overlap_launches))
+                                     "--dispatch", "overlap"], int8_overlap_launches)[0])
     live_kill_launches = phase_live_kill()
     trained = phase_train()
     macro = phase_train_macro(trained)
+    macro_per_leaf_launches = phase_train_macro_per_leaf(trained, macro)
     empty_launches = phase_train_faults_empty(trained, macro)
     topo_2level_launches = phase_train_topo_2level(trained, macro)
     arena_parts = phase_arena(trained)
@@ -3249,10 +3757,12 @@ def main():
         "train_macro_int8_overlap": int8_macro["launches"],
         "train_trace": trace_launches, "launch_trace": launch_trace_launches,
         "train_resume": resume_launches, "train_topo": topo["launches"],
-        "train_macro_topo": topo_macro_launches, "train_topo_2level": topo_2level_launches,
+        "train_macro_topo": topo_macro["launches"], "train_topo_2level": topo_2level_launches,
         **topo_int8_launches, **baselines_launches, **faults_launches,
         "launch_faults": launch_faults_launches, "train_faults_empty": empty_launches,
-        **procs_launches, "live_kill": live_kill_launches},
+        **procs_launches, "live_kill": live_kill_launches,
+        "train_macro_per_leaf": macro_per_leaf_launches, **overlap_per_leaf_launches,
+        **autotune_launches, **launch_autotune_launches},
         arena_parts,
         [scan_line] + rgemma_lines, reports)
     print(card_line(), flush=True)

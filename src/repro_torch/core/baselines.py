@@ -42,7 +42,9 @@ aliasing (`checkpoint/io.py::_carry_layout`), and a resume restores it.
 The exchanges run through the kernels: gossip's int8 partner through K5 /
 K6, its bf16 partner through K3 (then a plain upcast, as the reference's
 `astype`); EASGD's and DOWNPOUR's means and every blocking step as DASO's
-(`core/daso.py::replica_mean`).
+(`core/daso.py::replica_mean`), fused or leaf by leaf as
+`DasoConfig.exchange_impl` says. Gossip's partner copy is always fused, as
+the reference's `gossip_mix` takes no impl.
 
 Across processes (`launch/distributed.py::ProcessPlacement`) each builder
 takes `placement`: the carry holds this process's rows, EASGD's and
@@ -235,7 +237,7 @@ def gossip_train_step(loss_fn, optimizer, cfg, *, mode: str, shift: int = 1,
                                 int8_block=blk, **px)
         elif mode == Mode.BLOCKING:
             params = blocking_sync(params, wire_format=cfg.wire_format_for(blocking=True),
-                                   int8_block=blk, **px)
+                                   impl=cfg.exchange_impl, int8_block=blk, **px)
         return params, opt_state, _step_metrics(cfg, mask, n_active, loss_r, aux_r,
                                                 placement)
 
@@ -266,13 +268,13 @@ def easgd_train_step(loss_fn, optimizer, cfg, *, mode: str, alpha: float,
         params, opt_state, loss_r, aux_r = lstep(params, opt_state, batch, lr)
         if mode == Mode.ELASTIC:
             m = replica_mean(params, wire_format=cfg.wire_format_for(blocking=False),
-                             int8_block=blk, **px)
+                             impl=cfg.exchange_impl, int8_block=blk, **px)
             params = freeze_inactive(_lerp(params, center, alpha), params, lmask)
             center = _lerp(center, _row(m), beta)
             del m
         elif mode == Mode.BLOCKING:
             params = blocking_sync(params, wire_format=cfg.wire_format_for(blocking=True),
-                                   int8_block=blk, **px)
+                                   impl=cfg.exchange_impl, int8_block=blk, **px)
             center = params
         return params, opt_state, center, _step_metrics(cfg, mask, n_active,
                                                         loss_r, aux_r, placement)
@@ -307,7 +309,7 @@ def downpour_train_step(loss_fn, optimizer, cfg, *, mode: str,
         if mode == Mode.PUSH:
             delta = tree_map(lambda p, a: p.float() - a.float(), params, anchor)
             dmean = _row(replica_mean(delta, wire_format=cfg.wire_format_for(blocking=False),
-                                      int8_block=blk, **px))
+                                      impl=cfg.exchange_impl, int8_block=blk, **px))
             del delta
 
             def apply(a, d):
@@ -322,7 +324,7 @@ def downpour_train_step(loss_fn, optimizer, cfg, *, mode: str,
             anchor = server
         elif mode == Mode.BLOCKING:
             params = blocking_sync(params, wire_format=cfg.wire_format_for(blocking=True),
-                                   int8_block=blk, **px)
+                                   impl=cfg.exchange_impl, int8_block=blk, **px)
             anchor = params
         return params, opt_state, anchor, _step_metrics(cfg, mask, n_active,
                                                         loss_r, aux_r, placement)

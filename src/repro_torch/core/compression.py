@@ -5,8 +5,8 @@ each tier, for the training summary and the benchmarks.
 Paper §3: parameters are cast to a 16-bit type for the blocking global
 syncs. The beyond-paper int8 tier carries 1 byte per element plus one f32
 scale per `int8_block` elements of each dtype arena. (The reference's
-per-leaf back-compat wrappers, `compress_bf16` and friends, are not on the
-port's path; ROADMAP item 7.)
+per-leaf back-compat wrappers, `compress_bf16` and friends, have no caller
+in either package and are not ported.)
 """
 from __future__ import annotations
 

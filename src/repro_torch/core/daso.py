@@ -42,9 +42,19 @@ The exchange math runs through the hand-written kernels: Eq. (1) through
 K2, the bf16 wire cast through K3, the int8 tier through K5 / K6
 (`kernels/ops.py`, which takes their plain versions for CPU tensors). The
 inner-level group mean is plain torch, as the reference's is jnp: on the
-f32 wire it launches no kernel, on the bf16 wire its cast is K3. Not ported
-yet, and raising NotImplementedError: the per-leaf exchange
-(`exchange_impl="per_leaf"`, ROADMAP item 7).
+f32 wire it launches no kernel, on the bf16 wire its cast is K3.
+
+`DasoConfig.exchange_impl = "per_leaf"` runs the outermost exchange leaf by
+leaf instead (`replica_mean_per_leaf`, `global_receive_per_leaf`; f32 and
+bf16 wires): one K3 launch per floating leaf on the bf16 wire, one K2 launch
+per floating leaf of a merge, and across processes one gather per leaf.
+Elementwise, it gives the fused exchange's numbers bit for bit. A leaf that
+is not contiguous (a view of a merged or group-synced arena, a mean
+broadcast back over the replicas) is copied before its launch or gather,
+as `flatbuf.pack` copies the whole arena; `kernels/ops.py::contiguous`
+counts those bytes. Integer leaves keep the fused rule (the mean in f32, rounded back),
+where the reference's per-leaf mean gives 0. The inner-level group mean
+stays fused: the reference has no per-leaf one.
 
 Across processes (`launch/distributed.py::ProcessPlacement`): every builder
 and cross-row operation takes `placement` (None: the one-process path as
@@ -123,9 +133,6 @@ class DasoConfig:
         if self.wire_format == "int8" and self.exchange_impl == "per_leaf":
             raise ValueError("int8 wire format requires the fused arena "
                              "exchange (exchange_impl='fused')")
-        if self.exchange_impl == "per_leaf":
-            raise NotImplementedError("the per-leaf exchange is not ported yet "
-                                      "(ROADMAP item 7)")
 
     def wire_format_for(self, *, blocking: bool) -> str:
         """The wire tier of a global exchange: `wire_format` if set, else
@@ -178,14 +185,58 @@ def _arena_mean(arena, wire_format: str, *, int8_block: int = 256, mask=None,
     return flatbuf.masked_axis0_mean(w, mask).to(dtype)
 
 
-def replica_mean(tree, *, wire_format: str = "f32", int8_block: int = 256,
-                 mask=None, placement=None):
+def _leaf_mean(x, wire_format: str, mask, placement):
+    """One leaf's mean over the replica axis as a (1, ...) tensor in its
+    dtype: the fused `_arena_mean` on the f32 / bf16 wire, for one leaf. A
+    floating leaf is cast through K3 on the bf16 wire; under `placement`
+    its payload is gathered (one collective per leaf). An integer leaf takes
+    the fused rule: the ints gathered, the mean in f32, rounded back."""
+    dtype = x.dtype
+    if not x.is_floating_point():
+        if placement is not None:
+            x = placement.gather_rows(ops.contiguous(x))
+        return torch.round(flatbuf.masked_axis0_mean(x.float(), mask)).to(dtype)
+    if wire_format == "bf16" or placement is not None:
+        x = ops.contiguous(x)
+    w = flatbuf.encode_wire(x, wire_format)
+    return flatbuf.masked_axis0_mean(w, mask, placement).to(dtype)
+
+
+def replica_mean_per_leaf(tree, *, wire_format: str = "f32", mask=None,
+                          placement=None):
+    """The per-leaf exchange (`repro/core/daso.py::replica_mean_per_leaf`):
+    one reduction per leaf, each broadcast back over the replica axis (this
+    process's rows, under `placement`), f32 and bf16 wires only. Bit for bit
+    the fused `replica_mean`."""
+    if wire_format not in ("f32", "bf16"):
+        raise ValueError("int8 wire format requires the fused arena "
+                         "exchange (impl='fused')")
+
+    def leaf(x):
+        return _leaf_mean(x, wire_format, mask, placement).expand(x.shape)
+
+    return tree_map(leaf, tree)
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in EXCHANGE_IMPLS:
+        raise ValueError(f"unknown exchange impl {impl!r}; expected one of "
+                         f"{EXCHANGE_IMPLS}")
+
+
+def replica_mean(tree, *, wire_format: str = "f32", impl: str = "fused",
+                 int8_block: int = 256, mask=None, placement=None):
     """Mean over the leading replica axis, broadcast back to (R, ...): one
-    reduction per arena, with the wire tier applied to the whole arena.
-    `mask` (a normalized membership tuple, or None for all active) takes
-    the mean over the active replicas only. Under `placement` the tree
-    holds this process's rows, and the mean comes back broadcast to them."""
+    reduction per arena, with the wire tier applied to the whole arena
+    (`impl="per_leaf"`: one per leaf, `replica_mean_per_leaf`). `mask` (a
+    normalized membership tuple, or None for all active) takes the mean
+    over the active replicas only. Under `placement` the tree holds this
+    process's rows, and the mean comes back broadcast to them."""
     flatbuf._check_wire_format(wire_format)
+    _check_impl(impl)
+    if impl == "per_leaf":
+        return replica_mean_per_leaf(tree, wire_format=wire_format, mask=mask,
+                                     placement=placement)
     layout = flatbuf.build_layout(tree, batch_dims=1)
     arenas = flatbuf.pack(tree, layout)
     means = {k: _arena_mean(arenas.pop(k), wire_format, int8_block=int8_block,
@@ -349,18 +400,41 @@ def freeze_inactive(new_tree, old_tree, mask):
 
 # -- DASO primitive operations -------------------------------------------------
 
-def global_send(params, *, wire_format: str = "f32", int8_block: int = 256,
-                mask=None, placement=None):
+def global_send(params, *, wire_format: str = "f32", impl: str = "fused",
+                int8_block: int = 256, mask=None, placement=None):
     """Snapshot + start the global exchange: the in-flight buffer is the
     replica mean of the current params (over the active replicas under
     `mask`), one copy per replica (per row of this process's, under
     `placement`)."""
-    return replica_mean(params, wire_format=wire_format, int8_block=int8_block,
-                        mask=mask, placement=placement)
+    return replica_mean(params, wire_format=wire_format, impl=impl,
+                        int8_block=int8_block, mask=mask, placement=placement)
+
+
+def global_receive_per_leaf(params, inflight, *, staleness: int, global_world,
+                            extra_staleness: int = 0, mask=None):
+    """Eq. (1) leaf by leaf (`repro/core/daso.py::global_receive_per_leaf`):
+    ONE K2 launch per floating leaf, on contiguous copies of leaves that are
+    views; a dropped replica's rows keep `params` (`mask`, the entries of
+    the rows given). Bit for bit the fused merge."""
+    kw = dict(staleness=staleness, global_world=global_world,
+              extra_staleness=extra_staleness)
+    dead = [] if mask is None else [i for i, m in enumerate(mask) if not m]
+
+    def leaf(a, b):
+        if not a.is_floating_point():
+            out = eq1_merge_ref(a, b, **kw)
+        else:
+            out = ops.eq1_merge(ops.contiguous(a), ops.contiguous(b), **kw)
+        for r in dead:
+            out[r].copy_(a[r])
+        return out
+
+    return tree_map(leaf, params, inflight)
 
 
 def global_receive(params, inflight, *, staleness: int, global_world,
-                   extra_staleness: int = 0, mask=None, placement=None):
+                   impl: str = "fused", extra_staleness: int = 0, mask=None,
+                   placement=None):
     """Paper Eq. (1): merge the stale global average into the local params.
     S = batches waited, P = the global world size: a float under elastic
     membership, the surviving world's P_eff = P * n_active / R. A dropped
@@ -368,13 +442,17 @@ def global_receive(params, inflight, *, staleness: int, global_world,
 
     Both trees are packed and each floating arena is merged by ONE K2
     launch; the leaves of the result are views of the merged arena, into
-    which a dropped replica's row is copied back from the packed params.
+    which a dropped replica's row is copied back from the packed params
+    (`impl="per_leaf"`: one launch per leaf, `global_receive_per_leaf`).
     Row by row, so under `placement` it runs on this process's rows and
     gathers nothing."""
+    _check_impl(impl)
     kw = dict(staleness=staleness, global_world=global_world,
               extra_staleness=extra_staleness)
     if placement is not None:
         mask = placement.local_mask(mask)
+    if impl == "per_leaf":
+        return global_receive_per_leaf(params, inflight, mask=mask, **kw)
     dead = [] if mask is None else [i for i, m in enumerate(mask) if not m]
     layout = flatbuf.build_layout(params, batch_dims=1)
     locals_ = flatbuf.pack(params, layout)
@@ -390,13 +468,13 @@ def global_receive(params, inflight, *, staleness: int, global_world,
     return flatbuf.unpack(out, layout)
 
 
-def blocking_sync(params, *, wire_format: str = "bf16", int8_block: int = 256,
-                  mask=None, placement=None):
+def blocking_sync(params, *, wire_format: str = "bf16", impl: str = "fused",
+                  int8_block: int = 256, mask=None, placement=None):
     """Synchronous global average (warm-up / cool-down), with the paper's
     16-bit transfer packaging (or the tier in `wire_format`). `mask` takes
     the average over the active replicas and keeps the dropped rows."""
-    synced = replica_mean(params, wire_format=wire_format, int8_block=int8_block,
-                          mask=mask, placement=placement)
+    synced = replica_mean(params, wire_format=wire_format, impl=impl,
+                          int8_block=int8_block, mask=mask, placement=placement)
     return freeze_inactive(synced, params, _local(mask, placement))
 
 
@@ -581,14 +659,15 @@ def daso_train_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
     runs with P_eff = P * n_active / R, a dropped replica's params and
     optimizer rows stay frozen, and the loss averages the active
     replicas. `placement` runs the variant on this process's rows (the
-    module docstring)."""
+    module docstring). The outer exchange runs fused or leaf by leaf, as
+    `cfg.exchange_impl` says."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     mask, n_active, p_eff = _membership_of(cfg, membership)
     inner = _inner_sync_fn(cfg, inner_syncs, group_perm, mask, placement)
     lstep = local_step(loss_fn, optimizer, n_micro, _local(mask, placement))
     blk = cfg.int8_block
-    px = dict(mask=mask, placement=placement)
+    px = dict(mask=mask, placement=placement, impl=cfg.exchange_impl)
 
     def step(params, opt_state, inflight, batch, lr):
         if mode in ("receive", "send_receive"):
@@ -633,14 +712,15 @@ def daso_overlap_step(loss_fn: Callable, optimizer: Optimizer, cfg: DasoConfig,
     The merge lands after the step's local update, where off-mode
     `receive` merges before it: the exchange result arrives at the cycle's
     end. Inner syncs run between the local update and the buffers' update,
-    as in `daso_train_step`, and `membership` is baked in as there."""
+    as in `daso_train_step`, and `membership` and `cfg.exchange_impl`
+    are baked in as there."""
     if mode not in OV_MODES:
         raise ValueError(f"unknown overlap mode {mode!r}; expected one of {OV_MODES}")
     mask, n_active, p_eff = _membership_of(cfg, membership)
     inner = _inner_sync_fn(cfg, inner_syncs, group_perm, mask, placement)
     lstep = local_step(loss_fn, optimizer, n_micro, _local(mask, placement))
     blk = cfg.int8_block
-    px = dict(mask=mask, placement=placement)
+    px = dict(mask=mask, placement=placement, impl=cfg.exchange_impl)
 
     def step(params, opt_state, inflight, pending, batch, lr):
         params, opt_state, loss_r, aux_r = lstep(params, opt_state, batch, lr)
@@ -678,7 +758,9 @@ def daso_overlap_compute_step(loss_fn: Callable, optimizer: Optimizer,
     reduce over the replicas, are dropped. Inner-level syncs stay: they run
     on the current stream beside the exchange, and read only the params
     this step made (the exchange reads the pending snapshot, which no step
-    writes). `membership` freezes the dropped rows as in `daso_train_step`."""
+    writes). `membership` freezes the dropped rows as in `daso_train_step`.
+    It has no outer exchange, so `cfg.exchange_impl` does not reach it: the
+    inner syncs are fused under either impl, as in the reference."""
     mask = flatbuf.normalize_membership(membership, cfg.n_replicas)
     inner = _inner_sync_fn(cfg, inner_syncs, group_perm, mask, placement)
     lstep = local_step(loss_fn, optimizer, n_micro, _local(mask, placement))

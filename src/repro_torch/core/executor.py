@@ -372,18 +372,23 @@ class DasoStrategy(Strategy):
 
     def overlap_exchange_fn(self):
         """pending -> inflight: the one outer exchange of an overlap cycle,
-        at the cycling phase's wire tier, over the active replicas."""
+        at the cycling phase's wire tier, over the active replicas, fused or
+        leaf by leaf (`DasoConfig.exchange_impl`; leaf by leaf, its launches
+        and, across processes, its gathers run in order on whichever stream
+        or thread the executor runs the exchange)."""
         cfg, mask, placement = self.cfg, self._membership, self.placement
 
         def exchange(pending):
             return global_send(pending, wire_format=cfg.wire_format_for(blocking=False),
-                               int8_block=cfg.int8_block, mask=mask, placement=placement)
+                               impl=cfg.exchange_impl, int8_block=cfg.int8_block,
+                               mask=mask, placement=placement)
 
         return exchange
 
     def overlap_merge_fn(self, staleness: int, extra_staleness: int):
         """(params, inflight, loss_per_replica (L, R)) -> (merged params,
-        per-step loss (L,)): Eq. (1) through K2 with S = staleness +
+        per-step loss (L,)): Eq. (1) through K2 (per arena or per leaf, as
+        `DasoConfig.exchange_impl` says) with S = staleness +
         extra_staleness and the world P_eff of the active replicas, and the
         loss reduction the compute steps deferred, row by row as the
         per-step path reduces it. Placed, the loss is None: the cycle's fetch
@@ -396,7 +401,8 @@ class DasoStrategy(Strategy):
         def merge(params, inflight, loss_r):
             params = global_receive(params, inflight, staleness=staleness,
                                     extra_staleness=extra_staleness,
-                                    global_world=p_eff, mask=mask, placement=placement)
+                                    global_world=p_eff, impl=cfg.exchange_impl,
+                                    mask=mask, placement=placement)
             if placement is not None:
                 return params, None
             return params, _cross_replica_loss(cfg, mask, n_active, loss_r, axis=1)

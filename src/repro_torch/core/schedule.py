@@ -25,8 +25,10 @@ the reference's keys, so the two packages' schedules compare directly.
 With a `tracer` attached, each plateau decision is a `bw_change` instant
 (obs/trace.py). The resilience supervisor's hooks (`notify_membership_change`,
 `notify_dcn_scale`) add `membership_change` / `dcn_scale` instants and
-`events` records. `retune` and its `retune` event are a later port (ROADMAP
-item 18).
+`events` records. The online autotune's `retune` feeds measured per-level
+sync costs back into the schedule (topo/probe.py): the outermost level's
+effective network scale here, and the inner levels' periods in
+`HierDasoController`; a change adds a `retune` instant and event.
 """
 from __future__ import annotations
 
@@ -310,6 +312,36 @@ class DasoController:
         self._trace("dcn_scale", reason=reason, step=step, scale=scale,
                     b_from=b0, b_to=self._b)
 
+    def retune(self, level_costs: Dict[str, float], *,
+               annotated: Optional[Dict[str, float]] = None,
+               step: int = -1, rel_tol: float = 0.05) -> bool:
+        """Feed one round of measured per-level sync costs (seconds per
+        sync, ``"_outer"`` for the outermost level, as topo/probe.py gives
+        them) back into the schedule. This controller owns the outermost
+        level only: with the nominal ``"_outer"`` cost in `annotated`, the
+        nominal over the measured cost is the network's effective scale (a
+        link at half its bandwidth measures twice the cost), and a scale
+        more than `rel_tol` away from the one in force goes through
+        `notify_dcn_scale`'s stretch rule.
+
+        Costs equal to the annotations are a strict no-op: no state change,
+        no event, no trace. Returns True when the schedule changed; the
+        caller then invalidates its executor, as after a membership
+        change."""
+        t_meas = level_costs.get("_outer")
+        t_nom = (annotated or {}).get("_outer")
+        if not t_meas or not t_nom or t_meas <= 0 or t_nom <= 0:
+            return False
+        scale = t_nom / t_meas
+        if abs(scale - self._dcn_scale) <= rel_tol * self._dcn_scale:
+            return False
+        b0, w0 = self._b, self._w
+        self.notify_dcn_scale(scale, step=step)
+        self.events.append((step, "retune", float(scale)))
+        self._trace("retune", step=step, scale=scale, b_from=b0, b_to=self._b,
+                    bw_changed=(self._b, self._w) != (b0, w0))
+        return True
+
     # -- checkpoint state --------------------------------------------------
     _STATE_FIELDS = ("_b", "_w", "_last_send", "_inflight_since",
                      "_recv_staleness", "_ov_last", "_best",
@@ -372,7 +404,7 @@ class HierDasoController(DasoController):
     The outermost level keeps the inherited plateau-driven schedule. With
     no intermediate levels this class behaves as its base: the same mode
     strings, history and cycle shapes. `pinned_periods` names the levels
-    whose period the spec pinned, which a retune would leave alone."""
+    whose period the spec pinned, which a retune leaves alone."""
     inner_periods: Dict[str, int] = field(default_factory=dict)
     pinned_periods: Tuple[str, ...] = ()
 
@@ -404,16 +436,50 @@ class HierDasoController(DasoController):
         self.history[-1] = (s, mode, b, w)
         return mode, stale
 
-    def retune(self, level_costs, *, annotated=None, step: int = -1,
-               rel_tol: float = 0.05) -> bool:
-        """Re-derive the periods from measured per-level sync costs: the
-        reference's online autotune, not ported yet."""
-        raise NotImplementedError("retune (online autotune of the per-level "
-                                  "periods) is not ported yet (ROADMAP item 18)")
+    def retune(self, level_costs: Dict[str, float], *,
+               annotated: Optional[Dict[str, float]] = None,
+               step: int = -1, rel_tol: float = 0.05) -> bool:
+        """The N-level retune: the base class takes the outermost level
+        (the effective network scale), then every measured intermediate
+        level gets its period from the cost ratio
+
+            B_l = clamp(round(b_max * t_l / t_outer), 1, b_max)
+
+        the lowering rule of `topo/lower.py::derive_inner_periods` with
+        measured seconds in place of annotated bandwidths (bandwidth is
+        bytes over time, so the ratios are one quantity). Levels pinned with
+        ``%period`` and levels missing from `level_costs` keep their period,
+        so costs equal to the annotations give the lowered schedule: a
+        no-op. A change of periods adds a `retune_periods` event (its value
+        the number of levels that moved) and a `retune` instant. Returns
+        True when anything changed; the caller must then drop its built
+        cycles (`MacroCycleExecutor.invalidate`), as the planner's cycle
+        shapes change with the periods."""
+        changed = super().retune(level_costs, annotated=annotated, step=step,
+                                 rel_tol=rel_tol)
+        t_outer = level_costs.get("_outer")
+        if not t_outer or t_outer <= 0:
+            return changed
+        b_max = max(1, self.cfg.b_max)
+        new = dict(self.inner_periods)
+        for name in self.inner_periods:
+            t_l = level_costs.get(name)
+            if name in self.pinned_periods or not t_l or t_l <= 0:
+                continue
+            new[name] = max(1, min(b_max, round(b_max * t_l / t_outer)))
+        if new != self.inner_periods:
+            old = dict(self.inner_periods)
+            self.inner_periods = new
+            self.events.append((step, "retune_periods",
+                                float(sum(1 for n in new if new[n] != old[n]))))
+            self._trace("retune", step=step, periods_from=old,
+                        periods_to=dict(new), bw_changed=False)
+            changed = True
+        return changed
 
     def state_dict(self) -> dict:
-        """The base state plus the effective per-level periods (the
-        reference's key, TrainState version 3)."""
+        """The base state plus the effective per-level periods, which a
+        retune changes (the reference's key, TrainState version 3)."""
         sd = super().state_dict()
         sd["inner_periods"] = dict(self.inner_periods)
         return sd

@@ -96,6 +96,30 @@ def launch_counts() -> dict:
             "rglru_scan": rglru.rglru_scan_fwd.launches}
 
 
+class CopyMeter:
+    """Copies made to hand a kernel or a gather a contiguous tensor: how
+    many, and their bytes."""
+
+    def __init__(self):
+        self.copies = self.bytes = 0
+
+    def reset(self) -> None:
+        self.copies = self.bytes = 0
+
+
+CONTIGUOUS_COPIES = CopyMeter()
+
+
+def contiguous(x: torch.Tensor) -> torch.Tensor:
+    """`x` itself when contiguous, else a contiguous copy, counted in
+    `CONTIGUOUS_COPIES` (the wrappers refuse strided views)."""
+    if x.is_contiguous():
+        return x
+    CONTIGUOUS_COPIES.copies += 1
+    CONTIGUOUS_COPIES.bytes += x.numel() * x.element_size()
+    return x.contiguous()
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q (B,Hq,Sq,D); k,v (B,Hk,Sk,D) -> (B,Hq,Sq,D) in q's dtype.
 

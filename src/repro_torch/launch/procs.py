@@ -22,6 +22,10 @@ count}``; with one card the processes share it.
   # the same run in one process: the oracle the two-process run gives bit
   # for bit
   python -m repro_torch.launch.procs --procs 1 -- ...the same arguments...
+  # every launcher flag passes through, e.g. the per-leaf exchange (one
+  # gather per leaf, the same numbers) or a fault plan under --autotune
+  python -m repro_torch.launch.procs --procs 2 -- ...the same arguments... \
+      --exchange-impl per_leaf
 
 Exit status: 0 iff every child exited 0. The first failure ends the rest
 of the group (a peer waiting in a collective would otherwise wait for its

@@ -49,6 +49,23 @@ step per dispatch.
   PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
       --steps 40 --trace-out runs/trace.jsonl --metrics-out runs/m.json
 
+  # the per-leaf exchange: one K3 / K2 launch (and across processes one
+  # gather) per leaf instead of per arena, the fused run's numbers bit for
+  # bit; the [train] line names it as wire=auto/per_leaf
+  PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
+      --steps 40 --exchange-impl per_leaf
+
+  # self-tuning: a probe of each level's sync on the device at startup,
+  # then retune (prints the probe's us per level, retuned, b and the
+  # periods); with --fault-plan a probe round every --autotune-every
+  # cycles on the simulated clock, with one line per retune
+  PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
+      --topology "chip:4 x host:2@50e9 x pod:2@25e9" --steps 40 --autotune
+  PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
+      --topology "chip:4 x host:2@50e9 x pod:2@25e9" --steps 40 --autotune \
+      --autotune-every 2 --fault-plan '{"events": [{"step": 8, "kind":
+      "degrade_dcn", "factor": 0.25}]}'
+
   # the multi-process runtime (launch/distributed.py): two processes, one
   # pod of the topology each, through the process launcher; the same run
   # with --procs 1 gives the same losses and checkpoint bit for bit
@@ -68,9 +85,9 @@ mode a relaunched epoch reads its regroup file and resumes from the newest
 intact TrainState with the dead replicas' crash replayed.
 
 Either package loads the other's checkpoints (`checkpoint/io.py`), and
-reads the other's traces. The reference's other flags (the per-leaf
-exchange, autotune) are not ported yet: each is refused with the ROADMAP
-item that will port it.
+reads the other's traces. The launcher takes every flag of the reference's,
+with its defaults and choices, and adds `--device`, `--layers`, `--dtype`
+and `--proc-report`.
 """
 import argparse
 import dataclasses
@@ -98,29 +115,14 @@ from repro_torch.optim.optimizers import sgd
 from repro_torch.optim.schedules import warmup_linear_scaled
 from repro_torch.resilience import FaultPlan, run_with_faults
 from repro_torch.resilience import runtime as live
+from repro_torch.resilience.supervisor import OVERLAP_RESHUFFLE
 from repro_torch.topo import TopologySpec, derive_inner_periods
 from repro_torch.train.loop import (TrainLoopConfig, build_strategy, ckpt_step_dir,
                                     make_placement, run_training, save_placed_train_state)
 from repro_torch.train.step import make_lm_loss
 from repro_torch.tree import leaves, tree_map
 
-# flags of the reference launcher that wait for a later part of the port,
-# with the ROADMAP item that ports them
-LATER_FLAGS = {"--exchange-impl": 7, "--autotune": 18, "--autotune-every": 18}
-
-
-def refuse_later_flags(argv) -> None:
-    """Raise on any flag of `LATER_FLAGS`, naming its ROADMAP item."""
-    for tok in argv:
-        flag = tok.split("=", 1)[0]
-        if flag in LATER_FLAGS:
-            raise SystemExit(f"train: {flag} is not ported yet "
-                             f"(ROADMAP item {LATER_FLAGS[flag]})")
-
-
 def parse_args(argv=None):
-    argv = sys.argv[1:] if argv is None else argv
-    refuse_later_flags(argv)
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--strategy", default="daso", choices=list_strategies())
@@ -132,6 +134,10 @@ def parse_args(argv=None):
                     help="wire tier of the global exchange; default derives "
                          "bf16 / f32 per phase, int8 is the block-scaled tier "
                          "(K5 / K6)")
+    ap.add_argument("--exchange-impl", default="fused", choices=["fused", "per_leaf"],
+                    help="fused = one exchange per dtype arena; per_leaf = one per "
+                         "leaf (the reference's legacy path: a K3 / K2 launch and, "
+                         "across processes, a gather per leaf; f32 / bf16 wires)")
     ap.add_argument("--overlap", default="off", choices=["off", "one_cycle"],
                     help="double-buffered overlap of the global exchange: each "
                          "exchange merged one cycle stale (daso only); the macro "
@@ -183,6 +189,18 @@ def parse_args(argv=None):
                          "restore_dcn events) through the resilience supervisor "
                          "on the macro executor; replica-axis strategies, "
                          "--overlap off")
+    ap.add_argument("--autotune", action="store_true",
+                    help="self-tuning topology (topo/probe.py): time each level's "
+                         "sync on the device at startup and retune the lowered "
+                         "schedule (controller.retune: periods from the measured "
+                         "costs, the outer network's effective scale). With "
+                         "--fault-plan a probe round every --autotune-every cycles "
+                         "on the simulated clock, also regrouping the inner groups "
+                         "by straggler skew. Costs equal to the spec's annotations "
+                         "change nothing")
+    ap.add_argument("--autotune-every", type=int, default=8, metavar="K",
+                    help="probe cadence in macro cycles for --autotune under "
+                         "--fault-plan (default 8)")
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a JSONL run trace (obs/trace.py): the macro "
@@ -327,13 +345,19 @@ def run_fault_plan(args, loss_fn, params0, data_fn, loop_cfg, lr_fn, spec, trace
     report = run_with_faults(strategy, params0, data_fn, lr_fn, args.steps, plan,
                              executor=executor, ckpt_every=args.ckpt_every,
                              ckpt_cb=ckpt_cb, start_step=start_step, carry=carry,
-                             membership=membership, tracer=tracer)
+                             membership=membership, tracer=tracer,
+                             autotune_every=(loop_cfg.autotune_every
+                                             if loop_cfg.autotune else 0))
     del carry
     if prior_losses:
         report.result.losses = prior_losses + report.result.losses
     say(f"[train] fault plan: {len(plan.events)} events, "
         f"{report.invalidations} cycle-cache invalidations, "
         f"simulated_time={report.simulated_time_s:.2f}s")
+    for rt in report.retunes:
+        say(f"[train]   step {rt['step']:>5} retune       "
+            f"cycle={rt['cycle']} changed={rt['schedule_changed']} "
+            f"reshuffled={rt['reshuffled']}")
     for ev in report.applied:
         say(f"[train]   step {ev['step']:>5} {ev['kind']:<12} "
             f"replica={ev.get('replica')} "
@@ -378,6 +402,10 @@ def start_distributed(args):
                          "it runs the overlap exchange's gather beside the cycle's "
                          "local steps, and the blocking schedule has no such "
                          "exchange. Use --dispatch serial (the default).")
+    if (args.autotune and args.fault_plan and cfg.dispatch == "overlap"
+            and cfg.num_processes > 1):
+        # only a --fault-plan run probes every few cycles and can regroup
+        raise SystemExit(f"train: --autotune: {OVERLAP_RESHUFFLE}")
     spec = TopologySpec.load(args.topology)
     try:
         validate_process_topology(spec, cfg.num_processes)
@@ -464,10 +492,11 @@ def main(argv=None):
         # on the topology R and the data were sized from
         topology=spec.to_str() if spec is not None else None,
         executor=args.executor, max_cycle_len=args.max_cycle_len,
-        wire_format=args.wire_format, overlap=args.overlap,
-        overlap_serial_exchange=args.overlap_serial_exchange,
+        wire_format=args.wire_format, exchange_impl=args.exchange_impl,
+        overlap=args.overlap, overlap_serial_exchange=args.overlap_serial_exchange,
         ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt, resume_from=args.resume,
-        device=str(device), distributed=args.distributed)
+        device=str(device), distributed=args.distributed, autotune=args.autotune,
+        autotune_every=args.autotune_every)
     lr_fn = warmup_linear_scaled(args.lr / (R * args.local_world), R * args.local_world,
                                  max(1, args.steps // 10))
     if args.trace_out and tracer is None:
@@ -481,7 +510,8 @@ def main(argv=None):
             n_replicas=R, local_world=args.local_world,
             b_max=(spec.outer.period if spec is not None and spec.outer.period is not None
                    else args.b_max),
-            wire_format=args.wire_format, exchange_impl="fused", overlap=args.overlap,
+            wire_format=args.wire_format, exchange_impl=args.exchange_impl,
+            overlap=args.overlap,
             param_bytes=sum(x.numel() * x.element_size() for x in leaves(params0)),
             procs=dist_cfg.num_processes if dist_cfg is not None else 1,
             seed=args.seed, tiny=bool(args.tiny))

@@ -51,8 +51,8 @@ class LevelMeter:
     against operand bytes. `measured_sync_s` is filled in from the trace
     by tools/trace_report.py, or live by the self-tuning loop — filled
     rows are exactly the passive-probe samples `topo/probe.py::
-    fit_level_costs` fits a retune from (ROADMAP item 18;
-    `level_cost_samples` below does the conversion); unfilled it is None
+    fit_level_costs` fits a retune from (`level_cost_samples` below
+    does the conversion); unfilled it is None
     and `implied_gbps` has nothing to divide."""
     level: str                     # "_outer" or an inner level name
     syncs: int                     # exchanges at this level in the window
@@ -148,7 +148,7 @@ def level_bytes_report(params, counts: Dict[str, int], cfg, *,
 def level_cost_samples(rows: Sequence[LevelMeter]) -> List[tuple]:
     """Convert meter rows with a measured sync time into the
     ``(level, seconds)`` sample pairs `topo/probe.py::fit_level_costs`
-    consumes (ROADMAP item 18) — the passive-probe path: trace_report fills
+    consumes — the passive-probe path: trace_report fills
     `measured_sync_s` from tracer sync spans, this turns the filled rows
     into retune input. Rows without a measurement are skipped.
 

@@ -220,8 +220,7 @@ def heartbeat_skew(before: dict, after: dict, *,
 
     This is the live-runtime skew source for the straggler-aware group
     reshuffle: the launcher maps process ids to the replicas they own and
-    hands the slowdown vector to the reference's `topo/probe.py::skew_permutation`
-    (ROADMAP item 18 in the port)
+    hands the slowdown vector to `topo/probe.py::skew_permutation`
     (simulated runs use the fault plan's injected slowdowns directly —
     resilience/supervisor.py)."""
     rates = {}

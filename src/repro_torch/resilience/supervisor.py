@@ -32,10 +32,16 @@ owner, so a faulted N-process run is the one-process run bit for bit.
 `health` (resilience/runtime.py::HealthMonitor) hears of every cycle, so a
 supervised worker's watchdog moves only while the group makes progress.
 
-Not ported yet: the autotune path (`autotune_every` > 0: probing,
-`retune`, regrouping by skew, and the reference's `oracle_notify` switch,
-which only a self-tuning run turns off), ROADMAP item 18. It raises
-NotImplementedError.
+Self-tuning (`autotune_every` = K > 0): every K cycles the supervisor
+probes one exchange at the network's current state on the simulated clock
+(`exchange_cost_fn`, charged to it: a probe is not free), sets it against
+the nominal cost and feeds both to `controller.retune`; with `reshuffle` it
+also sorts the replicas' slowdowns into a regrouping
+(`topo/probe.py::skew_permutation`, `DasoStrategy.set_group_permutation`)
+when the innermost group is smaller than R. Any change invalidates the
+executor's programs. Under autotune the degraded network is found by the
+probe, so `oracle_notify` (the fault events' direct word to the
+controller) defaults to off; each probe round is an `autotune_probe` span.
 """
 from __future__ import annotations
 
@@ -53,6 +59,12 @@ from repro_torch.resilience.faults import FaultPlan
 from repro_torch.resilience.membership import reseed_carry
 from repro_torch.topo import probe as probe_mod
 
+OVERLAP_RESHUFFLE = (
+    "autotune with reshuffling regroups the inner syncs, and a regrouped "
+    "group can span processes: under dispatch 'overlap' its gather would run "
+    "while the overlap exchange's gather is in flight. Use --dispatch serial "
+    "(run_with_faults also takes reshuffle=False)")
+
 # outermost-level actions that cross the network between nodes, each charged
 # one exchange on the simulated clock (a hierarchical token counts by its
 # outer action: inner-level syncs ride faster links)
@@ -67,7 +79,8 @@ class ResilienceReport:
     invalidations: int = 0
     simulated_time_s: float = 0.0
     membership_timeline: List = field(default_factory=list)  # (step, mask)
-    # the autotune path's records (ROADMAP item 18): empty, 0 here
+    # the autotune path: one record per probe round that changed the
+    # schedule or the grouping, and the number of regroupings
     retunes: List[Dict] = field(default_factory=list)
     reshuffles: int = 0
     # straggler wait an inner-group barrier wastes on the simulated clock
@@ -89,8 +102,9 @@ def run_with_faults(strategy: Strategy, params0, data_fn: Callable,
                     topo=None, ckpt_every: int = 0,
                     ckpt_cb: Optional[Callable] = None, placement=None,
                     start_step: int = 0, carry=None, membership=None,
-                    health=None, tracer=None,
-                    autotune_every: int = 0) -> ResilienceReport:
+                    health=None, tracer=None, autotune_every: int = 0,
+                    oracle_notify: Optional[bool] = None,
+                    reshuffle: bool = True) -> ResilienceReport:
     """Run `n_steps` on the macro-cycle executor while replaying `plan`.
 
     `strategy` must have a replica axis (daso / hier_daso / local_sgd /
@@ -109,15 +123,20 @@ def run_with_faults(strategy: Strategy, params0, data_fn: Callable,
     checkpoint already. `tracer` takes the `fault_event` and
     `checkpoint_save` spans and goes to the executor and the controller
     unless they have one. `placement` and `health` go to the executor
-    (unless it has its own); the module docstring says what they do."""
+    (unless it has its own); the module docstring says what they do.
+
+    `autotune_every` = K > 0 runs a probe round every K cycles (the module
+    docstring), `reshuffle` lets it regroup the replicas. `oracle_notify`
+    says whether degrade_dcn / restore_dcn events tell the controller
+    directly; None means yes unless autotune is on. A multi-process run
+    under dispatch "overlap" refuses a reshuffling autotune: a regrouped
+    inner sync could cross processes while the exchange's gather is in
+    flight (dispatch "serial" takes it)."""
     cfg = strategy.cfg
     if cfg is None:
         raise ValueError("run_with_faults needs a replica-axis strategy "
                          "with a DasoConfig (daso / hier_daso / local_sgd / "
                          "gossip / easgd / downpour)")
-    if autotune_every > 0:
-        raise NotImplementedError("the supervisor's autotune path is not ported yet "
-                                  "(ROADMAP item 18)")
     n_replicas = cfg.n_replicas
     if topo is None:
         topo = getattr(strategy, "topo", None)
@@ -133,6 +152,9 @@ def run_with_faults(strategy: Strategy, params0, data_fn: Callable,
     plan.validate(n_replicas, alive0=[m > 0.0 for m in mask])
 
     ex, placement = resolve_executor(strategy, executor, placement)
+    if (autotune_every > 0 and reshuffle and placement is not None
+            and placement.n_procs > 1 and placement.dispatch == "overlap"):
+        raise ValueError(OVERLAP_RESHUFFLE)
     if health is not None and ex.health is None:
         ex.health = health
     if tracer is not None and not ex.tracer.enabled:
@@ -151,6 +173,13 @@ def run_with_faults(strategy: Strategy, params0, data_fn: Callable,
         slot.append(placement.put_carry(slot.pop()))
     slowdowns = [1.0] * n_replicas
     dcn_scale = 1.0
+    if oracle_notify is None:
+        oracle_notify = autotune_every <= 0
+    # the probe's measurement: the exchange's cost at the network's current
+    # state; without a cost model, the normalized cost 1 / scale (the same
+    # inferred scale, at no simulated price)
+    probe_cost = (exchange_cost_fn if exchange_cost_fn is not None
+                  else (lambda n, s: 1.0 / max(s, 1e-9)))
     # the innermost inner group of more than one replica, for the inner
     # barrier's wasted wait (no inner level: the only barrier is global)
     inner_group = n_replicas
@@ -202,12 +231,45 @@ def run_with_faults(strategy: Strategy, params0, data_fn: Callable,
             slowdowns[ev.replica] = 1.0
         elif ev.kind in ("degrade_dcn", "restore_dcn"):
             dcn_scale = ev.factor if ev.kind == "degrade_dcn" else 1.0
-            if strategy.controller is not None:
+            if oracle_notify and strategy.controller is not None:
                 strategy.controller.notify_dcn_scale(dcn_scale, step=step)
         rec["handle_s"] = time.perf_counter() - t0
         report.applied.append(rec)
 
+    def autotune(step, cycle_idx):
+        """One probe round: the exchange's cost at the network's current
+        state against the nominal one, through `retune`, and the regrouping
+        by skew."""
+        nonlocal sim_time
+        ctl = strategy.controller
+        if ctl is None:
+            return
+        n_active = int(sum(1 for m in mask if m > 0.0))
+        measured = probe_cost(n_active, dcn_scale)
+        nominal = probe_cost(n_active, 1.0)
+        if exchange_cost_fn is not None:
+            sim_time += measured  # the probe's own exchange
+        with ex.tracer.span("autotune_probe", cat="resilience", step=step,
+                            cycle=cycle_idx, measured_s=measured, nominal_s=nominal):
+            changed = ctl.retune({"_outer": measured}, annotated={"_outer": nominal},
+                                 step=step)
+            reshuffled = False
+            if (reshuffle and hasattr(strategy, "set_group_permutation")
+                    and inner_group < n_replicas):
+                perm = probe_mod.skew_permutation(slowdowns)
+                if perm != strategy.group_perm:
+                    strategy.set_group_permutation(perm)
+                    reshuffled = True
+                    report.reshuffles += 1
+        if changed or reshuffled:
+            ex.invalidate()
+            report.retunes.append({"step": step, "cycle": cycle_idx,
+                                   "measured_s": measured, "nominal_s": nominal,
+                                   "schedule_changed": bool(changed),
+                                   "reshuffled": reshuffled})
+
     step = start_step
+    cycle_idx = 0
     while step < n_steps:
         for ev in plan.events_at(step):
             # the span covers the carry surgery and the invalidation; the
@@ -216,6 +278,8 @@ def run_with_faults(strategy: Strategy, params0, data_fn: Callable,
             with ex.tracer.span("fault_event", cat="resilience", kind=ev.kind,
                                 step=step, replica=ev.replica, factor=ev.factor):
                 apply_event(ev, step)
+        if autotune_every > 0 and cycle_idx % autotune_every == 0:
+            autotune(step, cycle_idx)
         # cut the cycle at the next event: events land between cycles
         max_len = min(ex.max_cycle_len, n_steps - step)
         boundary = plan.next_boundary_after(step)
@@ -249,6 +313,7 @@ def run_with_faults(strategy: Strategy, params0, data_fn: Callable,
         cycles.append((cycle_plan.shape, dt))
         seconds.extend([dt / len(cycle_plan)] * len(cycle_plan))
         step += len(cycle_plan)
+        cycle_idx += 1
         if next_ckpt is not None and ckpt_cb is not None and step >= next_ckpt:
             if ex.exchange_stream is not None:
                 torch.cuda.current_stream().wait_stream(ex.exchange_stream)

@@ -50,8 +50,8 @@ def derive_inner_periods(spec: TopologySpec, *, b_max: int = 4,
 
     `bandwidths` overrides the spec's annotations with measurements (level
     name -> bytes/s, outermost included); levels it does not name keep
-    their annotated value. (Its caller in the reference, the runtime probe,
-    is ROADMAP item 18.)
+    their annotated value: `topo/probe.py::derive_retuned_periods` passes
+    the probe's measurements this way.
 
     >>> from repro_torch.topo.spec import TopologySpec
     >>> s = TopologySpec.parse("chip:4 x host:2@50e9 x pod:2@25e9")

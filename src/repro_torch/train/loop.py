@@ -28,6 +28,10 @@ logs and writes checkpoints (gathered from every process), a resume keeps
 each process's rows, and the numbers are the one-process run's bit for
 bit. `health` (resilience/runtime.py::HealthMonitor) hears of each cycle.
 
+`exchange_impl="per_leaf"` runs the outer exchange leaf by leaf
+(core/daso.py); `autotune` probes each level's sync on the device before
+the first step and retunes the schedule (`startup_probe`).
+
 Runs on CUDA unless `device="cpu"`, and raises without CUDA.
 """
 from __future__ import annotations
@@ -48,6 +52,7 @@ from repro_torch.device import resolve_device
 from repro_torch.optim.optimizers import Optimizer, sgd
 from repro_torch.optim.schedules import constant_lr
 from repro_torch.topo import TopologySpec, build_topology_strategy
+from repro_torch.topo import probe as topo_probe
 from repro_torch.tree import leaves, tree_map
 
 
@@ -77,6 +82,8 @@ class TrainLoopConfig:
     # wire tier of the global exchange: None derives bf16 / f32 per phase,
     # "f32" | "bf16" | "int8" forces one tier for both
     wire_format: Optional[str] = None
+    # "per_leaf": the outer exchange leaf by leaf (one K3 / K2 launch and,
+    # across processes, one gather per leaf), bit for bit the fused one
     exchange_impl: str = "fused"
     # "one_cycle": the double-buffered overlap schedule (core/daso.py
     # daso_overlap_step), each exchange merged one cycle stale
@@ -95,6 +102,14 @@ class TrainLoopConfig:
     # block of replica rows per process; needs `topology`. With one process
     # this is the oracle the N-process run gives bit for bit
     distributed: bool = False
+    # self-tuning (topo/probe.py): time one real sync per level on the
+    # device at startup and retune the lowered schedule against the spec's
+    # annotations (`controller.retune`; costs equal to them change
+    # nothing). `autotune_every` is the probe cadence in cycles of the
+    # supervised fault path (resilience/supervisor.py); this loop probes
+    # once
+    autotune: bool = False
+    autotune_every: int = 8
 
 
 # strategies that take a topology spec for sizing only (replica count, world
@@ -202,6 +217,35 @@ def wire_summary(dcfg: DasoConfig, params) -> str:
             f"bytes_per_exchange={nbytes[0]}/{nbytes[1]} overlap={dcfg.overlap}")
 
 
+def startup_probe(cfg: TrainLoopConfig, strategy, device, log) -> None:
+    """`cfg.autotune`'s probe before the first step: `active_probe` on
+    `device`, then `retune` against `annotated_level_costs` of the probe's
+    payload. Without a topology there is nothing to probe; under
+    `cfg.distributed` it is skipped, as in the reference: wall-clock probes
+    of separate processes could disagree and split the schedule (the
+    supervised path's cost model is deterministic)."""
+    spec = resolve_topology(cfg)
+    if spec is None or strategy.controller is None:
+        if log is not None:
+            log("[train] autotune: no topology spec to probe; "
+                "schedule left as configured")
+        return
+    if cfg.distributed:
+        if log is not None:
+            log("[train] autotune: startup wall-clock probe skipped "
+                "under --distributed (see docs/tuning.md)")
+        return
+    pr = topo_probe.active_probe(spec, device=device)
+    changed = strategy.controller.retune(
+        pr.costs, annotated=topo_probe.annotated_level_costs(spec, pr.param_bytes))
+    if log is not None:
+        periods = getattr(strategy.controller, "inner_periods", {})
+        log(f"[train] autotune probe: measured "
+            f"{ {k: round(v * 1e6, 1) for k, v in pr.costs.items()} }"
+            f" us/sync -> retuned={changed} b={strategy.controller.b}"
+            f" inner_periods={periods}")
+
+
 def run_training(loss_fn: Callable, params0, data_fn: Callable,
                  cfg: TrainLoopConfig, *, optimizer: Optional[Optimizer] = None,
                  lr_fn: Optional[Callable] = None,
@@ -239,6 +283,8 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
     strategy = build_strategy(loss_fn, cfg, optimizer)
     if tracer is not None and strategy.controller is not None:
         strategy.controller.tracer = tracer
+    if cfg.autotune:
+        startup_probe(cfg, strategy, device, log)
     overlap = cfg.overlap if cfg.strategy != "sync" else "off"
     placement = make_placement(cfg)
     if placement is not None:
@@ -305,7 +351,9 @@ def run_training(loss_fn: Callable, params0, data_fn: Callable,
         stats = result.executor_stats
         disp = (f" dispatches={stats.dispatches}/{cfg.n_steps}"
                 if stats is not None else "")
-        wire = "" if cfg.strategy == "sync" else " " + wire_summary(strategy.cfg, params0)
+        wire = ("" if cfg.strategy == "sync" else
+                f" wire={cfg.wire_format or 'auto'}/{cfg.exchange_impl} "
+                + wire_summary(strategy.cfg, params0))
         log(f"[train] strategy={cfg.strategy} steps={cfg.n_steps} "
             f"final_loss={result.final_loss:.4f} "
             f"sync_frac={result.sync_fraction:.3f} wall={time.time() - t0:.1f}s"

@@ -8,6 +8,11 @@ llama3.2-1b-family model with R = 4 replicas:
     per-leaf forms (`impl="per_leaf"`) and a per-leaf oracle built here
     from the port's plain pieces; the reference's per-leaf mean of integer
     leaves (zeros) kept visible beside the port's;
+  * the port's own per-leaf exchange (`impl="per_leaf"`, item 7): bit for
+    bit the fused one (f32 and bf16 wires and leaves, with a mask, on views
+    of an arena, with its contiguous copies counted) and the reference's
+    per-leaf forms, and one step of each mode bit for bit the fused step;
+    int8 refused with the reference's ValueError;
   * one step of each of the six modes, and `sync_train_step`: params,
     optimizer state and loss within 1e-5 (f32; the two frameworks sum in
     different orders inside the model);
@@ -34,6 +39,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.convert import params_from_jax, state_from_jax
 from repro_torch.core import daso, flatbuf, schedule
 from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.kernels import ops
 from repro_torch.kernels.ref import eq1_merge_ref
 from repro_torch.optim.optimizers import sgd
 from repro_torch.train.step import make_lm_loss
@@ -158,11 +164,20 @@ def test_masked_level_group_mean_bit_exact(problem, wire, mask):
 
 
 def test_unported_options_raise_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        daso.DasoConfig(n_replicas=4, global_world=16, exchange_impl="per_leaf")
+    """The per-leaf exchange (item 7) is taken on the f32 and bf16 wires;
+    with int8 it is refused with the reference's ValueError, in the config
+    and in the exchange functions."""
+    for wf in (None, "f32", "bf16"):
+        assert daso.DasoConfig(n_replicas=4, global_world=16, exchange_impl="per_leaf",
+                               wire_format=wf).exchange_impl == "per_leaf"
     with pytest.raises(ValueError, match="fused"):  # as the reference refuses it
         daso.DasoConfig(n_replicas=4, global_world=16, exchange_impl="per_leaf",
                         wire_format="int8")
+    x = {"w": torch.ones(4, 3)}
+    with pytest.raises(ValueError, match="fused"):
+        daso.replica_mean(x, wire_format="int8", impl="per_leaf")
+    with pytest.raises(ValueError, match="exchange impl"):
+        daso.global_receive(x, x, staleness=1, global_world=16, impl="leafwise")
     cfg = daso.DasoConfig(n_replicas=4, global_world=16)
     assert cfg.exchange_kernels and cfg.wire_format_for(blocking=True) == "bf16"
 
@@ -253,6 +268,78 @@ def test_per_leaf_mean_of_integer_leaves_zeroes_in_the_reference():
     got = daso.replica_mean({"i": torch.from_numpy(i)})["i"]
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want_fused)
+
+
+# -- the port's per-leaf exchange (impl="per_leaf") -------------------------------
+
+MASKS = [None, (1.0, 1.0, 0.0, 1.0)]
+
+
+@pytest.mark.parametrize("mask", MASKS, ids=["all", "masked"])
+@pytest.mark.parametrize("tree", ["params", "params_bf16"])
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+def test_per_leaf_exchange_is_the_fused_exchange_bit_for_bit(problem, wire, tree, mask):
+    """`replica_mean`, `global_send`, `blocking_sync` and `global_receive`
+    leaf by leaf (one K3 / K2 plain-version call per leaf) against the fused
+    ones (one per arena), bit for bit, with and without a mask; the leaves
+    given are views of one arena (a fused merge's output), so each is copied
+    before its call and the copies are counted."""
+    t = _port(_tree_of(problem, tree))
+    # broadcast means: views with a stride-0 replica axis
+    inflight = daso.replica_mean(_port(_tree_of(problem, tree.replace("params", "inflight"))))
+    params = daso.global_receive(t, daso.replica_mean(t), staleness=1, global_world=16)
+    assert not any(x.is_contiguous() for x in leaves(params))
+    for name in ("replica_mean", "global_send", "blocking_sync"):
+        _assert_same_bits(getattr(daso, name)(params, wire_format=wire, mask=mask,
+                                              impl="per_leaf"),
+                          getattr(daso, name)(params, wire_format=wire, mask=mask))
+    ops.CONTIGUOUS_COPIES.reset()
+    kw = dict(staleness=3, global_world=12.0, extra_staleness=1, mask=mask)
+    got = daso.global_receive(params, inflight, impl="per_leaf", **kw)
+    _assert_same_bits(got, daso.global_receive(params, inflight, **kw))
+    n = len(leaves(params))
+    assert ops.CONTIGUOUS_COPIES.copies == 2 * n
+    assert ops.CONTIGUOUS_COPIES.bytes == 2 * sum(x.numel() * x.element_size()
+                                                 for x in leaves(params))
+
+
+@pytest.mark.parametrize("mask", MASKS, ids=["all", "masked"])
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+def test_per_leaf_exchange_matches_the_reference_per_leaf(problem, wire, mask):
+    """The port's per-leaf exchange against the reference's impl="per_leaf"
+    forms on the same carry (normal f32 values: away from the integer and
+    subnormal hazards of ROADMAP §3), bit for bit."""
+    params, _, inflight = problem["jax"]
+    jp, jf = jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, inflight)
+    tp, tf = _port(params), _port(inflight)
+    for name in ("replica_mean", "global_send", "blocking_sync"):
+        got = getattr(daso, name)(tp, wire_format=wire, mask=mask, impl="per_leaf")
+        _assert_same_bits(got, _port(_np_tree(getattr(jdaso, name)(
+            jp, wire_format=wire, mask=mask, impl="per_leaf"))))
+    kw = dict(staleness=2, global_world=16 * 3 / 4 if mask else 16)
+    got = daso.global_receive(tp, tf, impl="per_leaf", mask=mask, **kw)
+    _assert_same_bits(got, _port(_np_tree(jdaso.global_receive(
+        jp, jf, impl="per_leaf", mask=mask, **kw))))
+
+
+@pytest.mark.parametrize("mode", jdaso.MODES)
+def test_per_leaf_step_of_each_mode_is_the_fused_step(problem, mode):
+    """One step of each mode with exchange_impl="per_leaf": the fused
+    step's params, optimizer state, in-flight buffer and metrics bit for
+    bit (bf16 blocking wire, f32 cycling wire)."""
+    params, opt, inflight = problem["jax"]
+    batch = {k: torch.from_numpy(v) for k, v in problem["batch"].items()}
+    out = []
+    for impl in ("fused", "per_leaf"):
+        cfg = daso.DasoConfig(n_replicas=R, global_world=R * 4, b_max=4, exchange_impl=impl)
+        step = daso.daso_train_step(make_lm_loss(problem["tcfg"]), sgd(0.9, 1e-4), cfg,
+                                    mode=mode, staleness=2)
+        out.append(step(_port(params), _port(opt), _port(inflight), batch, 0.05))
+    for a, b in zip(out[0][:3], out[1][:3]):
+        _assert_same_bits(a, b)
+    assert sorted(out[0][3]) == sorted(out[1][3])
+    for k in out[0][3]:
+        assert torch.equal(out[0][3][k], out[1][3][k])
 
 
 # -- one step of each mode ------------------------------------------------------

@@ -4,7 +4,8 @@ localhost: `put_carry` / `fetch` / `row` round trips, `gather_rows` bit for
 bit on every wire dtype, and every cross-row operation and DASO / baseline
 step variant placed over two processes against the same call on one
 process, bit for bit, with the gathers each issues (the exchange steps
-gather, local steps and process-local inner syncs do not).
+gather, local steps and process-local inner syncs do not; the per-leaf
+exchange gathers once per leaf and gives the fused numbers).
 
 The group runs once per module (`group` fixture, two subprocesses that run
 this file as a script, each bounded by a timeout); each case is checked on
@@ -83,10 +84,11 @@ def _cases():
                                                               full).items()}
 
     def step_case(mode, *, wire=None, membership=None, inner=(), perm=None,
-                  overlap=False, want_gathers):
+                  overlap=False, impl="fused", want_gathers):
         def run(pl, g):
             cfg = DasoConfig(n_replicas=R, global_world=4 * R, b_max=4,
-                             wire_format=wire, overlap="one_cycle" if overlap else "off")
+                             wire_format=wire, overlap="one_cycle" if overlap else "off",
+                             exchange_impl=impl)
             params, opt, inflight, batch = problem(g)
             kw = dict(mode=mode, staleness=2, membership=membership, inner_syncs=inner,
                       group_perm=perm)
@@ -141,16 +143,19 @@ def _cases():
         return all(same(pl.row(placed, i), tree_map(lambda x: x[i], p))
                    for i in range(R)), {}
 
-    def mean_case(wire, membership=None):
+    def mean_case(wire, membership=None, impl="fused"):
+        """The placed mean against the one-process fused one: one gather per
+        dtype arena (3), or per leaf (4) under impl="per_leaf"."""
         def run(pl, g):
             t = rand_tree(g, ("float32", "bfloat16", "int32"))
             mask = normalize_membership(membership, R)
             want = daso.replica_mean(t, wire_format=wire, mask=mask)
             before = exchange_calls(pl)
             got = daso.replica_mean(pl.put_carry(t), wire_format=wire, mask=mask,
-                                    placement=pl)
+                                    placement=pl, impl=impl)
             n = exchange_calls(pl) - before
-            return same(rows(pl, want), got) and n == 3, {"gathers": n}
+            return same(rows(pl, want), got) and n == (4 if impl == "per_leaf" else 3), \
+                {"gathers": n}
         return run
 
     def group_case(gsize, *, wire="f32", membership=None, perm=None, want_gathers):
@@ -216,6 +221,14 @@ def _cases():
     for wire in ("f32", "bf16", "int8"):
         cases[f"replica_mean_{wire}"] = mean_case(wire)
     cases["replica_mean_int8_masked"] = mean_case("int8", (1, 0, 0, 1))
+    # the per-leaf exchange: one gather per leaf (the problem's params: 2)
+    cases["replica_mean_per_leaf_f32"] = mean_case("f32", impl="per_leaf")
+    cases["replica_mean_per_leaf_bf16_masked"] = mean_case("bf16", (1, 0, 1, 1),
+                                                           impl="per_leaf")
+    for mode in ("send", "blocking"):
+        cases[f"daso_{mode}_per_leaf"] = step_case(mode, impl="per_leaf", want_gathers=2)
+    cases["overlap_ov_sync_per_leaf"] = step_case("ov_sync", overlap=True, impl="per_leaf",
+                                                  want_gathers=2)
     cases["group_mean_in_process"] = group_case(2, want_gathers=0)
     cases["group_mean_in_process_bf16_masked"] = group_case(
         2, wire="bf16", membership=(0, 0, 1, 1), want_gathers=0)
@@ -262,7 +275,9 @@ CASE_NAMES = sorted([
     "overlap_local_int8", "overlap_ov_start_int8", "overlap_ov_sync_int8",
     "overlap_blocking_int8",
     "replica_mean_f32", "replica_mean_bf16", "replica_mean_int8",
-    "replica_mean_int8_masked",
+    "replica_mean_int8_masked", "replica_mean_per_leaf_f32",
+    "replica_mean_per_leaf_bf16_masked", "daso_send_per_leaf", "daso_blocking_per_leaf",
+    "overlap_ov_sync_per_leaf",
     "group_mean_in_process", "group_mean_in_process_bf16_masked", "group_mean_whole_axis",
     "group_mean_regrouped_masked",
     "gossip_shift1_int8", "gossip_shift2_int8", "gossip_shift3_int8", "gossip_bf16_masked",
@@ -349,6 +364,10 @@ def test_initialize_retries_transient_connect_race(monkeypatch):
     (["--procs", "3"], "divide"),
     (["--procs", "4", "--wire-format", "int8", "--overlap", "one_cycle",
       "--dispatch", "overlap"], "'host'"),
+    # a fault plan's reshuffling autotune could put an inner group across
+    # the processes
+    (["--wire-format", "int8", "--overlap", "one_cycle", "--dispatch", "overlap",
+      "--autotune", "--fault-plan", '{"events": []}'], "--dispatch serial"),
 ])
 def test_launcher_refuses_before_the_group_comes_up(monkeypatch, extra, match):
     from repro_torch.launch import distributed as dmod

@@ -22,7 +22,10 @@ tests/test_overlap.py), and against the port's own per-step path:
   * the port's fused exchange on a 5-leaf model against JAX's per-leaf
     exchange (`exchange_impl="per_leaf"`, the reference's oracle) on both
     executors, overlap off and one_cycle: losses within rtol 1e-4, the
-    same mode history.
+    same mode history; the port's per-leaf exchange against its fused one
+    bit for bit (both executors, overlap off and one_cycle) and against
+    JAX's per-leaf one within those tolerances, and a per-leaf run resumed
+    from a TrainState bit for bit.
 
 The problem is tests/conftest.py's MLP made with numpy: params {"w1",
 "w2"}, batches drawn per step from a seeded generator, the same arrays
@@ -233,8 +236,8 @@ def _multi_leaf_problem(seed, R=2, per=8, d=6):
     return params0, batch, jloss, tloss
 
 
-def _run_multi_leaf(framework, executor_kind, overlap, n_steps=40):
-    """JAX with its per-leaf exchange, the port with its fused one."""
+def _run_multi_leaf(framework, executor_kind, overlap, n_steps=40, impl="fused"):
+    """JAX with its per-leaf exchange, the port with `impl`."""
     params0, batch, jloss, tloss = _multi_leaf_problem(7)
     kw = dict(n_replicas=2, global_world=8, b_max=4, warmup_steps=4, cooldown_steps=4,
               total_steps=n_steps, overlap=overlap)
@@ -248,7 +251,7 @@ def _run_multi_leaf(framework, executor_kind, overlap, n_steps=40):
                 jax_constant_lr(0.1), n_steps)
         return (jax_run_per_step(*args) if executor_kind == "per_step"
                 else jexecutor.run_compiled_training(*args))
-    cfg = daso.DasoConfig(**kw)
+    cfg = daso.DasoConfig(exchange_impl=impl, **kw)
     strat = executor.make_strategy("daso", tloss, sgd(momentum=0.9, weight_decay=1e-4), cfg,
                                    controller=schedule.DasoController(cfg, loss_window=10))
     args = (strat, {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else
@@ -257,6 +260,59 @@ def _run_multi_leaf(framework, executor_kind, overlap, n_steps=40):
             _data(lambda t, f: batch(t), False, "torch"), constant_lr(0.1), n_steps)
     return (run_per_step_training(*args) if executor_kind == "per_step"
             else executor.run_compiled_training(*args))
+
+
+@pytest.mark.parametrize("overlap", ["off", "one_cycle"])
+@pytest.mark.parametrize("executor_kind", ["macro", "per_step"])
+def test_per_leaf_training_is_the_fused_training_bit_for_bit(executor_kind, overlap):
+    """The port's per-leaf exchange (`exchange_impl="per_leaf"`) on the
+    5-leaf model: the fused run's losses, metrics, whole carry and params
+    bit for bit, on both executors and under one_cycle (the macro
+    executor's overlap exchange and merge leaf by leaf)."""
+    per_leaf = _run_multi_leaf("torch", executor_kind, overlap, impl="per_leaf")
+    _assert_bit_exact(per_leaf, _run_multi_leaf("torch", executor_kind, overlap))
+    if overlap == "one_cycle" and executor_kind == "macro":
+        assert per_leaf.executor_stats.overlap_cycles > 0
+
+
+@pytest.mark.parametrize("overlap", ["off", "one_cycle"])
+def test_per_leaf_training_matches_jax_per_leaf_training(overlap):
+    """Both packages' per-leaf exchanges on the macro executor: losses
+    within rtol 1e-4, params within the reference's tolerances, the same
+    mode history."""
+    got = _run_multi_leaf("torch", "macro", overlap, impl="per_leaf")
+    jres = _run_multi_leaf("jax", "macro", overlap)
+    np.testing.assert_allclose(np.asarray(got.losses, np.float32),
+                               np.asarray(jres.losses, np.float32), rtol=1e-4)
+    for a, b in zip(leaves(got.params), jax.tree.leaves(jres.params), strict=True):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=PARAM_RTOL, atol=PARAM_ATOL)
+    assert [h[1:] for h in got.controller.history] == \
+        [h[1:] for h in jres.controller.history]
+
+
+def test_per_leaf_resume_is_bit_exact(tmp_path):
+    """A per-leaf one_cycle run through `run_training` with TrainStates, resumed
+    from the middle one: the uninterrupted run's losses and carry bit for
+    bit (the carry's in-flight and pending slots hold the per-leaf mean's
+    broadcast views when saved)."""
+    from repro_torch.train.loop import TrainLoopConfig, run_training
+
+    params0, batch = _problem(4)
+    base = dict(strategy="daso", n_steps=32, n_replicas=2, loss_window=10, device="cpu",
+                exchange_impl="per_leaf", overlap="one_cycle")
+
+    def run(**kw):
+        return run_training(_loss, {k: torch.from_numpy(v) for k, v in params0.items()},
+                            _data(batch, False, "torch"), TrainLoopConfig(**base, **kw),
+                            log=None)
+    fresh = run()
+    run(ckpt_every=8, ckpt_dir=str(tmp_path))
+    from repro_torch.checkpoint import io
+    states = io.list_train_state_dirs(str(tmp_path))
+    resumed = run(resume_from=states[len(states) // 2])
+    assert resumed.losses == fresh.losses
+    for a, b in zip(leaves(resumed.carry), leaves(fresh.carry), strict=True):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("overlap", ["off", "one_cycle"])

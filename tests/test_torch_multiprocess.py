@@ -106,6 +106,46 @@ def test_two_process_gossip_bit_exact(tmp_path):
                         "--topology", "chip:4 x pod:4", "--steps", "12"])
 
 
+def test_two_process_per_leaf_is_the_one_process_fused_run(tmp_path):
+    """--exchange-impl per_leaf over two processes, under one_cycle with
+    --dispatch overlap: the one-process fused run bit for bit, with one
+    gather per leaf where the fused run has one per arena, the same bytes in
+    all, and each ov_sync's gathers on the helper thread beside the local
+    steps, one after the other."""
+    args = ["--topology", TOPOLOGY, "--steps", "12", "--overlap", "one_cycle",
+            "--dispatch", "overlap"]
+    fused = run_group(tmp_path, "fused", 1, args)
+    per_leaf = run_group(tmp_path, "per_leaf", 2, args + ["--exchange-impl", "per_leaf"])
+    assert_same_run(fused, per_leaf)
+    n_leaves = len(np.load(fused / "ck" / "arrays.npz").files) - 1  # less __save_id__
+    want = reports(fused)[0]["placement"]["exchange"]
+    assert want["calls"] > 0
+    for rep in reports(per_leaf):
+        ex = rep["placement"]["exchange"]
+        assert ex["calls"] == want["calls"] * n_leaves
+        assert 2 * ex["payload_bytes"] == want["payload_bytes"]
+        assert ex["received_bytes"] == ex["payload_bytes"]
+        n_sync = sum(m.startswith("ov_sync") for m in rep["modes"])
+        assert n_sync > 0 and ex["beside_compute_calls"] == n_sync * n_leaves
+
+
+def test_two_process_reshuffled_autotune_bit_exact(tmp_path):
+    """--autotune under a fault plan whose stragglers (replicas 1 and 3, one
+    in each process) make the probe regroup the host pairs across the
+    processes: under --dispatch serial the regrouped inner syncs gather,
+    and the two-process run is the one-process run bit for bit."""
+    plan = json.dumps({"events": [{"step": 4, "kind": "straggle", "replica": 1,
+                                   "factor": 3.0},
+                                  {"step": 4, "kind": "straggle", "replica": 3,
+                                   "factor": 3.0}]})
+    one, many = contract(tmp_path, ["--topology", TOPOLOGY, "--steps", "12", "--fault-plan",
+                                    plan, "--autotune", "--autotune-every", "1"])
+    m = json.loads((tmp_path / "p2" / "m.json").read_text())
+    assert m["resilience"]["reshuffles"] == 1
+    for rep in many:  # the regrouped host syncs crossed the processes
+        assert rep["placement"]["exchange"]["calls"] > one[0]["placement"]["exchange"]["calls"]
+
+
 def _python_m_launch(procs, args, timeout=60):
     env = dict(os.environ)
     src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")

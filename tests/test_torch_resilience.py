@@ -27,8 +27,9 @@ of tests/test_resilience.py, held against the JAX package on the CPU:
   * `finalize_params` skipping dead rows; the supervisor without faults
     bit for bit the plain executor; a faulted run resumed from its
     mid-crash TrainState bit for bit the uninterrupted one; the resume of
-    tests/test_resilience.py on both executors; the unported options'
-    refusals (items 16, 18).
+    tests/test_resilience.py on both executors; the placement and health
+    monitor (item 16), and the autotune path on a healthy plan (item 18;
+    tests/test_torch_tuning.py holds the rest).
 
 The legs that need HLO (the one-collective contract under a mask) are
 ROADMAP item 21. Inputs are made from a seed with numpy."""
@@ -589,8 +590,8 @@ def test_deterministic_resume_matches_uninterrupted(executor_kind, tmp_path):
 
 
 def test_supervisor_refuses_what_is_not_ported(tmp_path):
-    """Item 18's autotune path is refused. Item 16's `placement` and
-    `health` are taken: a one-process placement gives the unplaced run's
+    """Item 18's autotune path runs, a no-op on this plan. Item 16's
+    `placement` and `health` are taken: a one-process placement gives the unplaced run's
     numbers bit for bit, and the health monitor hears of the last cycle."""
     from repro_torch.launch.distributed import ProcessPlacement
     from repro_torch.resilience import runtime
@@ -611,7 +612,8 @@ def test_supervisor_refuses_what_is_not_ported(tmp_path):
     for a, b in zip(leaves(placed.result.params), leaves(plain.result.params), strict=True):
         assert torch.equal(a, b)
     assert runtime.read_heartbeat(str(tmp_path), 0, 0)["step"] == 8
-    params0, _ = _mlp(1, 4)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        run_with_faults(_strategy("port", 8), _t(params0), None, None, 8, FaultPlan(),
-                        autotune_every=4)
+    # item 18's autotune path runs: a probe round on a healthy plan changes
+    # nothing, so the numbers are the plain run's
+    tuned, _ = _supervise("port", 8, events, autotune_every=4)
+    assert tuned.retunes == [] and tuned.reshuffles == 0
+    assert tuned.result.losses == plain.result.losses

@@ -16,7 +16,9 @@ on the CPU:
     plain `quantize_int8_block_ref`, the port's CPU path), with f32, bf16
     and int32 leaves, with and without masks;
   * one step of every EASGD and DOWNPOUR mode against the reference's, from
-    the same carry, with and without a mask;
+    the same carry, with and without a mask; every baseline's exchange steps
+    with the per-leaf exchange bit for bit the fused ones, and EASGD /
+    DOWNPOUR runs on both packages' per-leaf exchanges;
   * the periodic schedule's shape, gossip's rotating shift;
   * checkpoint resume bit for bit for every strategy (gossip's `_n_ex`
     included), a reference TrainState of each baseline resumed by the port
@@ -317,6 +319,49 @@ def test_baseline_step_matches_the_reference(name, mode, mask):
         for slot in range(2):  # params, momentum: the dead row frozen
             for a, c in zip(leaves(got[slot]), jax.tree.leaves(carry[slot]), strict=True):
                 np.testing.assert_array_equal(a[1].numpy(), c[1])
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+@pytest.mark.parametrize("mask", [None, (1.0, 0.0, 1.0, 1.0)], ids=["all", "masked"])
+@pytest.mark.parametrize("name,mode", [("easgd", "elastic"), ("easgd", "blocking"),
+                                       ("downpour", "push"), ("downpour", "blocking"),
+                                       ("gossip", "gossip"), ("gossip", "blocking")])
+def test_per_leaf_baseline_step_is_the_fused_step(name, mode, mask, wire):
+    """One exchange step of each baseline with exchange_impl="per_leaf":
+    the fused step's carry and metrics bit for bit (EASGD's and DOWNPOUR's
+    means and every blocking step leaf by leaf; gossip's partner copy stays
+    fused, as the reference's takes no impl)."""
+    R = 4
+    carry, b = _carry_np(3, R)
+    kw = {"easgd": dict(alpha=0.1), "downpour": dict(push_scale=0.5),
+          "gossip": dict(shift=1)}[name]
+    out = []
+    for impl in ("fused", "per_leaf"):
+        cfg = daso.DasoConfig(n_replicas=R, global_world=4 * R, wire_format=wire,
+                              exchange_impl=impl)
+        step = getattr(baselines, f"{name}_train_step")(_loss, sgd(momentum=0.9), cfg,
+                                                       mode=mode, membership=mask, **kw)
+        slots = carry[:2] if name == "gossip" else carry
+        out.append(step(*jax.tree.map(torch.from_numpy, slots),
+                        jax.tree.map(torch.from_numpy, b),
+                        torch.tensor(0.1, dtype=torch.float32)))
+    for a, c in zip(leaves(out[0][:-1]), leaves(out[1][:-1]), strict=True):
+        assert torch.equal(a, c)
+    assert {k: v.tolist() for k, v in out[0][-1].items()} == \
+        {k: v.tolist() for k, v in out[1][-1].items()}
+
+
+@pytest.mark.parametrize("name,wire", [("easgd", None), ("downpour", "bf16")])
+def test_per_leaf_baseline_matches_the_reference(name, wire):
+    """EASGD and DOWNPOUR with both packages' per-leaf exchanges: the
+    reference's mode history, losses and params within its tolerances."""
+    tres, jres = _run_both(name, 24, wire_format=wire, exchange_impl="per_leaf")
+    assert [h[1:] for h in tres.controller.history] == \
+        [h[1:] for h in jres.controller.history]
+    np.testing.assert_allclose(tres.losses, jres.losses, rtol=LOSS_RTOL, atol=LOSS_ATOL)
+    for a, b in zip(leaves(tres.params), jax.tree.leaves(jres.params), strict=True):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=PARAM_RTOL,
+                                   atol=PARAM_ATOL)
 
 
 @pytest.mark.parametrize("mask", [None, (1.0, 0.0, 1.0, 1.0)], ids=["all", "masked"])

@@ -17,8 +17,8 @@ and the group mean) held against the JAX package on the CPU:
   * the masked group mean (elastic membership) bit for bit the
     reference's over the same cases, and `build_topology_strategy` taking a
     membership mask;
-  * the refusals: retune (item 18), the int8 wire, a group size that does
-    not divide R, `hier_daso` without a spec.
+  * the refusals: the int8 wire, a group size that does not divide R,
+    `hier_daso` without a spec; retune answering as the reference's.
 Inputs are made from a seed with numpy."""
 import dataclasses
 import itertools
@@ -403,8 +403,10 @@ def test_group_mean_refusals():
     for g in (1, 5):
         with pytest.raises(ValueError, match="outside 2..4"):
             daso.daso_train_step(None, None, cfg, mode="local", inner_syncs=(("host", g),))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        _hier_controllers()[1].retune({"_outer": 1.0, "host": 0.5})
+    # retune (item 18) works: the same answer and periods as the reference's
+    jc, tc = _hier_controllers()
+    assert tc.retune({"_outer": 1.0, "host": 0.5}) == jc.retune({"_outer": 1.0, "host": 0.5})
+    assert tc.inner_periods == jc.inner_periods == {"host": 2}
 
 
 def test_train_loop_topology_refusals_match_the_reference():

@@ -225,19 +225,41 @@ def test_launcher_trains_on_the_cpu(tmp_path):
     assert m["sync_fraction"] == res.sync_fraction
 
 
-@pytest.mark.parametrize("argv,err,match", [
-    (["--autotune"], SystemExit, "item 18"),
-    # item 16 is ported: a one-process --distributed run is taken
-    (["--distributed", "--topology", "chip:4 x pod:2"], None, None),
-    (["--exchange-impl", "per_leaf"], SystemExit, "item 7"),
+@pytest.mark.parametrize("argv,say", [
+    (["--autotune"], "[train] autotune: no topology spec to probe"),
+    (["--autotune", "--autotune-every", "3", "--topology", "chip:2 x host:2@50e9 x pod:2@25e9"],
+     "[train] autotune probe: measured"),
+    (["--distributed", "--topology", "chip:4 x pod:2"], "[train] strategy=daso"),
+    (["--exchange-impl", "per_leaf"], "wire=auto/per_leaf"),
 ])
-def test_launcher_refuses_unported_flags(argv, err, match):
-    if err is None:
-        res = launch_train.main(["--tiny", "--device", "cpu", "--steps", "2"] + argv)
-        assert len(res.losses) == 2 and res.placement.n_procs == 1
-        return
-    with pytest.raises(err, match=match):
-        launch_train.main(["--tiny", "--device", "cpu", "--steps", "2"] + argv)
+def test_launcher_refuses_unported_flags(argv, say, capsys):
+    """Every flag of the reference's launcher is ported (items 7, 16 and 18
+    were the last): each parses and runs, and prints its line."""
+    res = launch_train.main(["--tiny", "--device", "cpu", "--steps", "2", "--per-node-batch",
+                             "2", "--seq-len", "16"] + argv)
+    assert len(res.losses) == 2
+    assert say in capsys.readouterr().out
+    if "--distributed" in argv:
+        assert res.placement.n_procs == 1
+    assert launch_train.parse_args(argv).exchange_impl == (
+        "per_leaf" if "per_leaf" in argv else "fused")
+    assert not hasattr(launch_train, "LATER_FLAGS")
+
+
+def test_launcher_takes_every_reference_flag():
+    """The port's launcher has every flag of the reference's (and adds
+    --device, --layers, --dtype and --proc-report)."""
+    import re
+
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+
+    def flags(path):
+        with open(os.path.join(root, path)) as f:
+            return set(re.findall(r'add_argument\("(--[a-z-]+)"', f.read()))
+    ref, port = flags("repro/launch/train.py"), flags("repro_torch/launch/train.py")
+    assert "--autotune-every" in ref and "--exchange-impl" in ref
+    assert port - ref == {"--device", "--layers", "--dtype", "--proc-report"}
+    assert ref <= port
 
 
 FAULT_PLAN = json.dumps({"events": [{"step": 4, "kind": "crash", "replica": 2},
