@@ -4,6 +4,8 @@ sm_90a). Run from the repository root:
 
   python3 chip_smoke.py
 
+Every phase runs in strict f32 (`device.strict_f32`: TF32 off for cuBLAS
+and cuDNN, cuDNN's deterministic algorithms), set once at the start.
 Phases, each printing one JSON line; any failure raises and exits non-zero:
   build        compile every CUDA source of the port from src/repro_torch/csrc
                with nvcc (sm_90a), all at once, with ptxas's report (each
@@ -198,7 +200,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                the schedule and one regrouping; K2 / K3 as the modes imply
   train_procs, train_procs_int8_overlap
                the multi-process runtime: python -m repro_torch.launch.procs
-               runs the launcher's train cell at full width, 2 of 16 layers,
+               runs the launcher's train cell at full width, 1 of 16 layers,
                f32, on chip:4 x host:2@50e9 x pod:2@25e9 (the host syncs stay
                in a process, the pod exchange crosses processes over gloo),
                16 steps, --ckpt at the end, once with 1 process and once with
@@ -227,6 +229,44 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                losses and final params equal a one-process run of the same
                crash as a fault plan (resilience.run_with_faults) bit for
                bit; prints the supervisor's detect / regroup / resume s
+  resnet_data  SyntheticImages(1000, 224) and 4 steps' batches of 4 x 32
+               images, drawn on the host and copied to the card once;
+               prints the host seconds (prototypes, batches, copy)
+  resnet_check resnet50 at its published size (25,557,032 params, 161
+               leaves): one forward and backward of make_resnet_loss on 4
+               images on the card and on the CPU path, same params and
+               batch, TF32 off: in f32 the loss within 1e-4 relative and the
+               logits within 1e-3 of their largest magnitude; in f64 also
+               each gradient leaf within 1e-3 of its largest magnitude; each
+               f32 gradient leaf's error against the CPU's f64 within
+               max(1e-3, 2 x the CPU's f32 error on that leaf), with every
+               ReLU pinned to the f64 forward's mask (an f32 forward can flip
+               a ReLU whose input is within rounding of zero), and unpinned
+               where the card and the CPU flip the same ReLUs; each flipped
+               ReLU input within 1e-3 of its layer's largest
+  train_resnet, train_resnet_macro, train_resnet_sync
+               run_training on resnet50 at its published size (f32, TF32
+               off, deterministic cuDNN): DASO (R = 4 of local_world 4,
+               b_max 4, 32 images per replica, lr 0.02, 24 steps cycling
+               over the 4 data steps: 512 images, each seen 6 times) on the
+               per-step executor, then the macro executor, then sync on the
+               same 128 images a step. Held: the two DASO carries (params,
+               momentum, in-flight of every replica), losses and history bit
+               for bit; the mean loss of the last 4 steps below ln 1000
+               (fitting those 512 images, not learning the classes); send,
+               receive and local in the history; K2 per receive step, K3
+               per blocking step, K4 none, and no launch under sync, whose
+               loss falls; DASO's last-4 mean loss within 10 % of sync's on
+               the same images (benchmarks/figures.py's fig7 comparison).
+               Prints ms per step by mode and by cycle shape, peaks, wire
+               bytes per exchange
+  resnet_arena the per-step run's parameter arena (4 x 25,557,032 f32): a
+               wire_roundtrip launches K3 and K4 once each; K2 to K4 bit
+               for bit their plain versions there, with ms and bounds
+  launch_ablation
+               python -m repro_torch.launch.ablation --steps 24 on the card
+               (the CNN's entry point): exits 0, prints every run, and the
+               macro and per-step loss traces are equal
   train        run_training with DASO on llama3.2-1b at full width, 4 of its
                16 layers, f32, R = 4 replicas: 40 steps on the per-step
                executor, K2 and K3 launches held to the schedule's receive
@@ -267,8 +307,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                issue floor they give (fp32_issue_ms), TB/s, exps/s and host
                time per call; K6's library call is the broadcast product
                through views
-then the `kernels` line, the card's name and power limit, and as the last
-line {"ok": true, "device": {...}}.
+Every phase line carries "wall_seconds", its share of the run (the seconds
+since the previous phase line). Then a "timing" phase line, the `kernels`
+line, the total line (the whole run's seconds and each phase's), the card's
+name and power limit, and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -290,6 +332,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import ExitStack, contextmanager
 
+SCRIPT_T0 = time.perf_counter()
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 sys.path.insert(0, SRC)
 # The train phases come close to the card's memory and allocate whole
@@ -306,7 +349,8 @@ from repro_torch.core import compression, daso, flatbuf  # noqa: E402
 from repro_torch.core.executor import (DasoStrategy, MacroCycleExecutor,  # noqa: E402
                                        shape_sync_counts)
 from repro_torch.core.schedule import split_mode, split_ov  # noqa: E402
-from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
+from repro_torch.data.synthetic import SyntheticImages, SyntheticLM  # noqa: E402
+from repro_torch.device import strict_f32  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.comm_kernels import (bf16_pack_fwd, bf16_unpack_fwd,  # noqa: E402
                                               dequantize_int8_fwd, eq1_merge_fwd,
@@ -317,6 +361,7 @@ from repro_torch.launch.distributed import row_digests  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, attention_row_ratio  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan_fwd  # noqa: E402
 from repro_torch.kernels.ssm_scan import scan_config, ssm_scan_fwd  # noqa: E402
+from repro_torch.models.cnn import init_resnet, resnet_apply  # noqa: E402
 from repro_torch.models.lm import forward, init_params  # noqa: E402
 from repro_torch.obs import meters  # noqa: E402
 from repro_torch.obs.trace import (Tracer, load_events, merge_streams,  # noqa: E402
@@ -329,9 +374,9 @@ from repro_torch.serve.engine import Engine, make_decode_fn, make_prefill_fn  # 
 from repro_torch.topo import probe as topo_probe  # noqa: E402
 from repro_torch.topo.lower import daso_config_from, make_controller  # noqa: E402
 from repro_torch.topo.spec import TopologySpec  # noqa: E402
-from repro_torch.tree import leaves  # noqa: E402
+from repro_torch.tree import leaves, tree_map  # noqa: E402
 from repro_torch.train.loop import TrainLoopConfig, build_strategy, run_training  # noqa: E402
-from repro_torch.train.step import make_lm_loss  # noqa: E402
+from repro_torch.train.step import make_lm_loss, make_resnet_loss  # noqa: E402
 
 ARCH = "llama3.2-1b"
 MAMBA_ARCH = "falcon-mamba-7b"
@@ -465,8 +510,29 @@ CHECKS = [
 ]
 
 
+# each phase line carries "wall_seconds", the seconds since the previous
+# phase line (the first: since the script started), so the phase lines
+# partition the run; the total line sums them
+PHASE_SECONDS = {"_last": SCRIPT_T0, "by_phase": {}}
+
+
 def emit(obj):
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj = {**obj, "wall_seconds": now - PHASE_SECONDS["_last"]}
+        PHASE_SECONDS["_last"] = now
+        by_phase = PHASE_SECONDS["by_phase"]
+        by_phase[obj["phase"]] = by_phase.get(obj["phase"], 0.0) + obj["wall_seconds"]
     print(json.dumps(obj), flush=True)
+
+
+def emit_total():
+    """The whole run's seconds and each phase's (phases that print several
+    lines summed), before the card line."""
+    by_phase = PHASE_SECONDS["by_phase"]
+    print(json.dumps({"total_wall_seconds": time.perf_counter() - SCRIPT_T0,
+                      "phase_seconds_sum": sum(by_phase.values()),
+                      "wall_seconds_by_phase": by_phase}), flush=True)
 
 
 def sync():
@@ -588,7 +654,7 @@ def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         out = list(pool.map(one, SOURCES))
-    emit({"phase": "build", "wall_seconds": time.perf_counter() - t0,
+    emit({"phase": "build", "nvcc_wall_seconds": time.perf_counter() - t0,
           "sources": [{k: v for k, v in o.items() if k != "report"} for o in out]})
     return {o["source"]: o["report"] for o in out}
 
@@ -2691,10 +2757,10 @@ def phase_launch_faults():
 
 # -- the multi-process runtime ------------------------------------------------------
 
-# train_procs: the 3-level train cell at 2 of 16 layers (PROCS_WHY), once in
+# train_procs: the 3-level train cell at 1 of 16 layers (PROCS_WHY), once in
 # one process and once in two (one pod each), both through the process
 # launcher; live_kill: a supervised two-process run at --tiny size
-PROCS_LAYERS, PROCS_STEPS, PROCS_TIMEOUT = 2, 16, 420
+PROCS_LAYERS, PROCS_STEPS, PROCS_TIMEOUT = 1, 16, 420
 PROCS_ARGS = ["--full", "--layers", str(PROCS_LAYERS), "--dtype", "float32",
               "--topology", TOPO_SPEC, "--steps", str(PROCS_STEPS),
               "--per-node-batch", str(TRAIN_PER), "--seq-len", str(TRAIN_SEQ),
@@ -2702,7 +2768,9 @@ PROCS_ARGS = ["--full", "--layers", str(PROCS_LAYERS), "--dtype", "float32",
 PROCS_WHY = ("memory: two processes share the one card, each holding params0, its 2 "
              "replicas' params and momentum, the in-flight mean and the gathered wire "
              "arena of all 4 replicas; at 4 layers the one-process train cell alone "
-             "peaks at 51.7 GB (PERF.md)")
+             "peaks at 51.7 GB (PERF.md). Time: every exchange gathers the arena over "
+             "gloo at 0.5 to 1 GB/s; 1 layer, not 2, keeps the script's wall in its "
+             "budget (PERF.md)")
 PROCS_COMM = ("eq1_merge", "bf16_pack", "bf16_unpack", "quantize_int8", "dequantize_int8")
 # 40 steps: at --tiny size a step takes milliseconds on the card, so the
 # survivor has passed the kill's step by the time the supervisor reads the
@@ -2775,8 +2843,8 @@ def report_cycle_ms(rep):
 
 
 def phase_train_procs(name, extra, want_launches):
-    """The train cell at 2 layers over two processes and over one, both
-    through `python -m repro_torch.launch.procs`: the losses, the final
+    """The train cell at PROCS_LAYERS layers over two processes and over
+    one, both through `python -m repro_torch.launch.procs`: the losses, the final
     params (process 0's checkpoint; each run's params digest) and every
     replica row of the final carry (the processes' digests of their own
     rows) bit for bit; each process's comm kernel launches those of the
@@ -2922,6 +2990,427 @@ def phase_live_kill():
         raise AssertionError(f"live_kill: {faults}")
     emit(row)
     return launches
+
+# -- the CNN: ResNet-50, the paper's own workload -----------------------------------
+
+# resnet50 at its published size (stage sizes (3, 4, 6, 3), width 64,
+# bottleneck, 1,000 classes, 224 x 224, f32, 25,557,032 params in 161
+# leaves), trained as benchmarks/figures.py::fig7_accuracy_parity trains it:
+# DASO with R = 4 nodes of local_world 4, b_max 4, loss_window 10, the
+# default sgd(0.9, 1e-4); 32 images per replica, so 128 a step; sync on the
+# same 128 images a step. The batches are drawn before any timed run.
+# Two cuts, both from lr sweeps of this cell on the card (PERF.md): fig7's lr
+# 0.05 diverges for DASO (the loss passes 9 by step 5), so lr 0.02; and the
+# 24 steps cycle over RESNET_DATA_STEPS steps' batches (512 images, 6
+# epochs), since on a fresh batch every step the loss stays above ln 1000
+# at every lr from 0.001 to 0.05 (1,000 classes, each seen ~3 times in 24
+# steps)
+RESNET_ARCH, RESNET_R, RESNET_PER, RESNET_STEPS, RESNET_LR = "resnet50", 4, 32, 24, 0.02
+RESNET_DATA_STEPS = 4
+# DASO's mean loss over the last 4 steps within 10 % of sync's on the same
+# images (the fig7 comparison of benchmarks/figures.py, on the loss)
+RESNET_PARITY_BAND = 0.1
+RESNET_PARAMS, RESNET_LEAVES, RESNET_CHECK_IMAGES = 25_557_032, 161, 4
+RESNET_LOOP = dict(n_steps=RESNET_STEPS, n_replicas=RESNET_R, local_world=4, b_max=4,
+                   lr=RESNET_LR, loss_window=10, device="cuda")
+# resnet_check, card against the CPU path: the loss within 1e-4 relative,
+# the logits (and, in f64, each gradient leaf) within 1e-3 of their largest
+# magnitude; each f32 gradient leaf's error against the CPU's f64 within
+# max(1e-3, 2 x the CPU's f32 error on that leaf), with every ReLU pinned to
+# the f64 forward's mask (and without, where the card and the CPU flip the
+# same ReLUs); each ReLU the f32 forward flips within 1e-3 of its layer's
+# largest input
+RESNET_LOSS_RTOL, RESNET_REL_TOL = 1e-4, 1e-3
+ABLATION_STEPS, ABLATION_TIMEOUT = 24, 600
+
+
+def resnet_data(cfg):
+    """SyntheticImages(1000, 224) and RESNET_DATA_STEPS steps' DASO batches,
+    drawn on the host (replica r of data step t draws step t * R + r, as
+    figures.py) and moved to the card in one copy: images (data steps, R,
+    32, 224, 224, 3), labels (data steps, R, 32); step t trains on data
+    step t % RESNET_DATA_STEPS. Prints the host seconds of the prototypes,
+    of the batches and of the copy."""
+    t0 = time.perf_counter()
+    src = SyntheticImages(cfg.n_classes, cfg.image_size, seed=0)
+    t1 = time.perf_counter()
+    # each (step, replica) draws from its own generator: threads give the
+    # serial loop's batches
+    with ThreadPoolExecutor(8) as pool:
+        flat = list(pool.map(lambda i: src.batch(RESNET_PER, i),
+                             range(RESNET_DATA_STEPS * RESNET_R)))
+    steps = [flat[t * RESNET_R:(t + 1) * RESNET_R] for t in range(RESNET_DATA_STEPS)]
+    del flat
+    images = torch.stack([torch.stack([b["images"] for b in s]) for s in steps])
+    labels = torch.stack([torch.stack([b["labels"] for b in s]) for s in steps])
+    t2 = time.perf_counter()
+    del steps
+    data = {"src": src, "images": images.to("cuda"), "labels": labels.to("cuda")}
+    sync()
+    emit({"phase": "resnet_data", "n_classes": cfg.n_classes, "image_size": cfg.image_size,
+          "data_steps": RESNET_DATA_STEPS, "images_per_step": RESNET_R * RESNET_PER,
+          "host_seconds": {"prototypes": t1 - t0, "batches": t2 - t1,
+                           "to_card": time.perf_counter() - t2},
+          "bytes_on_card": images.numel() * 4 + labels.numel() * 4})
+    return data
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want| (0 when both are zero)."""
+    scale = want.abs().max().item()
+    diff = (got - want).abs().max().item()
+    return diff / scale if scale else diff
+
+
+@contextmanager
+def relu_as(fn):
+    """torch.relu replaced by fn(x, relu) while the block runs: models/cnn.py
+    calls torch.relu at each of its ReLUs, in the same order on every pass."""
+    relu = torch.relu
+    torch.relu = lambda x: fn(x, relu)
+    try:
+        yield
+    finally:
+        torch.relu = relu
+
+
+def leaf_paths(tree, prefix=""):
+    """The leaves' paths in flatten order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree) for q in leaf_paths(tree[k], f"{prefix}.{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [q for i, v in enumerate(tree) for q in leaf_paths(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def resnet_pass(cfg, params, batch, device, dtype, masks=None):
+    """One forward (logits) and one forward and backward of make_resnet_loss
+    on `device` in `dtype`: (logits, loss, gradient leaves, ReLU inputs of
+    the backward's forward), on the host (logits and gradients in f64).
+    With `masks`, each ReLU is x * its mask (the gradient of a ReLU whose
+    input has that sign)."""
+    p, b = tree_map(lambda x: x.to(device, dtype) if x.is_floating_point() else x.to(device),
+                    (params, batch))
+    with torch.no_grad():
+        logits, _ = resnet_apply(p, b["bn_state"], b["images"], cfg, train=True)
+    seen, pinned = [], iter(masks or ())
+
+    def on_relu(x, relu):
+        seen.append(x.detach().cpu())
+        return x * next(pinned).to(x.device, x.dtype) if masks else relu(x)
+
+    with relu_as(on_relu):
+        (loss, _), grads = daso.value_and_grad(make_resnet_loss(cfg))({"net": p}, b)
+    return (logits.double().cpu(), loss.item(), [g.double().cpu() for g in leaves(grads)], seen)
+
+
+def relu_flips(pre, truth):
+    """ReLU inputs `pre` against the f64 run's `truth`: the flipped
+    positions of each ReLU, and the largest flipped |input| over its layer's
+    largest |input| in f64."""
+    where = [(x > 0) != (t > 0) for x, t in zip(pre, truth, strict=True)]
+    worst = max([(t[w].abs().max() / t.abs().max()).item()
+                 for w, t in zip(where, truth) if w.any()], default=0.0)
+    return where, worst
+
+
+def phase_resnet_check(data):
+    """One forward and backward of make_resnet_loss at resnet50's published
+    size on RESNET_CHECK_IMAGES images, on the card and on the CPU path with
+    the same params and batch. In f32 (TF32 off): the loss within 1e-4
+    relative and the logits within 1e-3 of their largest magnitude. In f64:
+    the loss, the logits and each gradient leaf within those tolerances.
+    The f32 gradients are held against the CPU's f64 ones leaf for leaf,
+    each card leaf within max(1e-3, 2 x the CPU's f32 error on that leaf).
+    An f32 forward can move a ReLU input within rounding of zero across the
+    kink, and a leaf's gradient, a small sum of large terms, moves with it
+    (by 7 % at a narrow width on the CPU, tests/test_torch_cnn.py); so that
+    rule is held with every ReLU pinned to the CPU's f64 forward's mask, and
+    also without where the card and the CPU flip the same ReLUs. Each
+    flipped ReLU input must lie within 1e-3 of its layer's largest. The
+    params and head are drawn on the CPU, as that test draws them at a
+    narrow width; the init's zero head makes every logit equal and every
+    gradient below it zero, so the head is random."""
+    cfg = get_config(RESNET_ARCH)
+    params, state = init_resnet(cfg, torch.Generator().manual_seed(1), "cpu")
+    g = torch.Generator().manual_seed(2)
+    params["head"] = {k: 0.01 * torch.randn(v.shape, generator=g)
+                      for k, v in params["head"].items()}
+    batch = {**data["src"].batch(RESNET_CHECK_IMAGES, 10 ** 6), "bn_state": state}
+    paths = leaf_paths(params)
+    n_params, n_leaves = sum(x.numel() for x in leaves(params)), len(paths)
+    seconds, runs = {}, {}
+    for device, who in (("cpu", "cpu"), ("cuda", "card")):
+        for dtype in (torch.float64, torch.float32):
+            t0 = time.perf_counter()
+            runs[who, dtype] = resnet_pass(cfg, params, batch, device, dtype)
+            seconds[f"{who}/{str(dtype)[6:]}"] = time.perf_counter() - t0
+    truth_pre = runs["cpu", torch.float64][3]
+    masks = [x > 0 for x in truth_pre]
+    pinned = {who: resnet_pass(cfg, params, batch, device, torch.float32, masks)[2]
+              for device, who in (("cpu", "cpu"), ("cuda", "card"))}
+    del params, state, batch
+    torch.cuda.empty_cache()
+    row = {"phase": "resnet_check", "arch": RESNET_ARCH, "tf32": False,
+           "images": RESNET_CHECK_IMAGES, "image_size": cfg.image_size,
+           "n_classes": cfg.n_classes, "params": n_params, "leaves": n_leaves,
+           "seconds": seconds,
+           "tolerance": {"loss_rtol": RESNET_LOSS_RTOL, "logits": RESNET_REL_TOL,
+                         "grads": RESNET_REL_TOL, "relu_flip": RESNET_REL_TOL,
+                         "f32_grads": "card <= max(1e-3, 2 x cpu) on each leaf"}}
+    faults = []
+    for dtype in (torch.float32, torch.float64):
+        (lc, sc, gc, _), (lh, sh, gh, _) = runs["card", dtype], runs["cpu", dtype]
+        name = str(dtype)[6:]
+        r = {"loss_card": sc, "loss_cpu": sh, "loss_rel_err": abs(sc - sh) / abs(sh),
+             "logits_rel_err": rel_err(lc, lh)}
+        if dtype == torch.float64:
+            errs = [rel_err(a, b) for a, b in zip(gc, gh, strict=True)]
+            r.update(grad_rel_err_max=max(errs), grad_worst_leaf=paths[errs.index(max(errs))])
+            faults += [f"{name} grads"] * (not r["grad_rel_err_max"] <= RESNET_REL_TOL)
+        faults += [f"{name} {k}" for k, tol in (("loss_rel_err", RESNET_LOSS_RTOL),
+                                                 ("logits_rel_err", RESNET_REL_TOL))
+                   if not r[k] <= tol]
+        row[name] = r
+    truth = runs["cpu", torch.float64][2]
+    flips = {who: relu_flips(runs[who, torch.float32][3], truth_pre) for who in ("card", "cpu")}
+    same_flips = all(torch.equal(a, b) for a, b in zip(flips["card"][0], flips["cpu"][0]))
+    f32 = row["float32"]
+    f32["relu_flips"] = {who: {"inputs": sum(int(w.sum()) for w in where),
+                               "layers": sum(bool(w.any()) for w in where),
+                               "largest_over_layer_max": worst}
+                         for who, (where, worst) in flips.items()}
+    f32["relu_flips_same_on_card_and_cpu"] = same_flips
+    faults += [f"float32 {who} relu flip far from zero" for who, (_, worst) in flips.items()
+               if not worst <= RESNET_REL_TOL]
+    for how, card, cpu, held in (("unpinned", runs["card", torch.float32][2],
+                                  runs["cpu", torch.float32][2], same_flips),
+                                 ("pinned", pinned["card"], pinned["cpu"], True)):
+        e_card = [rel_err(a, t) for a, t in zip(card, truth, strict=True)]
+        e_cpu = [rel_err(a, t) for a, t in zip(cpu, truth, strict=True)]
+        over = [paths[i] for i, (a, c) in enumerate(zip(e_card, e_cpu))
+                if not a <= max(RESNET_REL_TOL, 2 * c)]
+        f32[how] = {"grad_rel_err_vs_f64_card": max(e_card),
+                    "grad_worst_leaf_card": paths[e_card.index(max(e_card))],
+                    "grad_rel_err_vs_f64_cpu": max(e_cpu),
+                    "grad_worst_leaf_cpu": paths[e_cpu.index(max(e_cpu))],
+                    "cpu_leaves_above_tol": {paths[i]: e for i, e in enumerate(e_cpu)
+                                             if e > RESNET_REL_TOL},
+                    "card_leaves_above_max_tol_2x_cpu": over, "held": held}
+        faults += [f"float32 {how} grads: {over}"] * bool(held and over)
+    faults += ["params"] * ((n_params, n_leaves) != (RESNET_PARAMS, RESNET_LEAVES))
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"resnet_check: {faults}")
+    emit(row)
+
+
+def run_resnet_phase(name, data, params0, state, **loop):
+    """run_training on resnet50 at its published size, the counts set to 0
+    just before and read just after. DASO batches (R, 32, ...) with the
+    initial batch-norm state broadcast over the replicas (a stride-0
+    expand); sync batches the same 128 images flat. Returns (result, row,
+    launches, modes)."""
+    cfg = get_config(RESNET_ARCH)
+    strategy = loop.get("strategy", "daso")
+    if strategy == "sync":
+        def batch(step):
+            t = step % RESNET_DATA_STEPS
+            return {"images": data["images"][t].flatten(0, 1),
+                    "labels": data["labels"][t].flatten(), "bn_state": state}
+    else:
+        bn_r = tree_map(lambda x: x.expand((RESNET_R,) + x.shape), state)
+
+        def batch(step):
+            t = step % RESNET_DATA_STEPS
+            return {"images": data["images"][t], "labels": data["labels"][t],
+                    "bn_state": bn_r}
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    start, retries = torch.cuda.memory_allocated(), torch.cuda.memory_stats()["num_alloc_retries"]
+    zero_counts()
+    t0 = time.perf_counter()
+    loop_cfg = TrainLoopConfig(**{**RESNET_LOOP, **loop})
+    res = run_training(make_resnet_loss(cfg), {"net": params0}, batch, loop_cfg, log=None)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(x.numel() for x in leaves(params0))
+    modes = [h[1] for h in res.controller.history] if res.controller else ["sync"] * RESNET_STEPS
+    losses = res.losses
+    row = {"phase": name, "arch": RESNET_ARCH, "entry": "run_training", **loop,
+           "config": dataclasses.asdict(cfg), "dtype": "float32", "tf32": False,
+           "cudnn_deterministic": torch.backends.cudnn.deterministic,
+           "params_per_replica": n, "leaves": len(leaves(params0)),
+           "replicas": 1 if strategy == "sync" else RESNET_R,
+           "images_per_step": RESNET_R * RESNET_PER, "lr": loop_cfg.lr,
+           "optimizer": "sgd(0.9, 1e-4)", "steps": RESNET_STEPS,
+           "data_steps": RESNET_DATA_STEPS,
+           "mode_counts": {m: modes.count(m) for m in sorted(set(modes))},
+           "launches": launches, "sync_fraction": res.sync_fraction,
+           "wire_bytes_per_exchange": {"f32": 4 * n, "bf16": 2 * n},
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "last4_mean_loss": statistics.mean(losses[-4:]), "losses": losses,
+           "acc_last4": [m["acc"] for m in res.metrics[-4:]],
+           "wall_s": wall, "max_memory_allocated": peak,
+           "memory": {"allocated_at_start": start, "peak_above_start": peak - start,
+                      "max_memory_reserved": torch.cuda.max_memory_reserved(),
+                      "alloc_retries": torch.cuda.memory_stats()["num_alloc_retries"] - retries}}
+    stats = res.executor_stats
+    if stats is None:
+        by_mode = {}
+        for m, sec in zip(modes, res.step_seconds):
+            by_mode.setdefault(m, []).append(1e3 * sec)
+        row.update(step_ms_median={m: statistics.median(v) for m, v in by_mode.items()},
+                   step_ms_all=by_mode)
+    else:
+        row.update(executor_stats=dataclasses.asdict(stats),
+                   dispatches_per_step=stats.dispatches_per_step(),
+                   programs_built=stats.compiles, cycle_ms=cycle_rows(res))
+    if not all(math.isfinite(x) for x in losses):
+        emit({**row, "failed": "loss"})
+        raise AssertionError(f"{name}: losses {losses}")
+    return res, row, launches, [outer_mode(m) for m in modes]
+
+
+def phase_train_resnet(data):
+    """DASO on resnet50 at its published size through run_training on the
+    per-step executor, then the macro executor (the default), then sync.
+    Held: the two DASO carries (params, momentum and in-flight of every
+    replica) and losses bit for bit; the mean loss of the last 4 steps below
+    ln 1000; send, receive and local in the controller's history; K2 / K3 /
+    K4 launches as the modes imply (K2 per receive step, K3 per blocking
+    step, K4 none: the bf16 mean is cast back by torch) and none under sync,
+    whose loss falls. Then the arena phase on the per-step carry's
+    parameters (R, 25,557,032): a wire_roundtrip (K3 then K4, counted) and
+    K2 to K4 bit for bit their plain versions, timed there. Returns each
+    path's launches and the arena's kernel rows."""
+    cfg = get_config(RESNET_ARCH)
+    params0, state = init_resnet(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    out = {}
+    per_step, row, launches, modes = run_resnet_phase(
+        "train_resnet", data, params0, state, strategy="daso", executor="per_step")
+    want = train_launches(modes)
+    check_launches(row, launches, want)
+    row["loss_threshold_measures"] = (f"fitting {RESNET_DATA_STEPS * RESNET_R * RESNET_PER} "
+                                      f"images, each seen {RESNET_STEPS // RESNET_DATA_STEPS} "
+                                      "times")
+    faults = [what for what, bad in (
+        ("loss above ln 1000", not row["last4_mean_loss"] < math.log(cfg.n_classes)),
+        ("modes", not {"send", "receive", "local"} <= set(modes))) if bad]
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"train_resnet: {faults}")
+    emit(row)
+    daso_last4 = row["last4_mean_loss"]
+    out["train_resnet"] = launches
+    macro, row, launches, modes_m = run_resnet_phase(
+        "train_resnet_macro", data, params0, state, strategy="daso", executor="macro")
+    check_launches(row, launches, want)
+    row["carry_identical_to_per_step"] = all(
+        same_bits(a, b) for a, b in zip(leaves(macro.carry), leaves(per_step.carry),
+                                        strict=True))
+    row["losses_identical_to_per_step"] = macro.losses == per_step.losses
+    row["history_identical_to_per_step"] = (macro.controller.history
+                                            == per_step.controller.history)
+    faults = [k for k in ("carry_identical_to_per_step", "losses_identical_to_per_step",
+                          "history_identical_to_per_step") if not row[k]]
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"train_resnet_macro: {faults}")
+    emit(row)
+    out["train_resnet_macro"] = launches
+    del macro
+    sync_res, row, launches, _ = run_resnet_phase(
+        "train_resnet_sync", data, params0, state, strategy="sync")
+    check_launches(row, launches, train_launches([]))
+    row["daso_last4_over_sync"] = daso_last4 / row["last4_mean_loss"]
+    faults = [what for what, bad in (
+        ("the loss did not fall", not row["last4_mean_loss"] < row["first_loss"]),
+        ("DASO's last-4 loss outside 10 % of sync's",
+         not abs(row["daso_last4_over_sync"] - 1) <= RESNET_PARITY_BAND)) if bad]
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"train_resnet_sync: {faults}")
+    emit(row)
+    out["train_resnet_sync"] = launches
+    del sync_res
+    params_r = per_step.carry[0]
+    del per_step
+    arena = flatbuf.pack(params_r, flatbuf.build_layout(params_r, batch_dims=1))["float32"]
+    del params_r
+    launches, rows = resnet_arena(arena)
+    out["resnet_arena"] = launches
+    del arena, params0, state
+    torch.cuda.empty_cache()
+    return out, rows
+
+
+def resnet_arena(arena):
+    """K2 to K4 on the ResNet run's parameter arena: a counted
+    wire_roundtrip, each kernel bit for bit its plain version, and its ms,
+    plain ms, bound and library ms (the calls phase_timing times) there."""
+    sync()
+    zero_counts()
+    stale = flatbuf.wire_roundtrip(arena, "bf16")
+    sync()
+    launches = counts()
+    kw = dict(staleness=1, global_world=RESNET_R * RESNET_LOOP["local_world"])
+    wire = ops.bf16_pack(arena)
+    n = arena.numel()
+    p = float(kw["global_world"])
+    timed = {"eq1_merge": (lambda: ops.eq1_merge(arena, stale, **kw),
+                           lambda: ref.eq1_merge_ref(arena, stale, **kw),
+                           lambda: torch.lerp(arena, stale, p / (2.0 + p)), n * 12),
+             "bf16_pack": (lambda: ops.bf16_pack(arena), lambda: ref.bf16_pack_ref(arena),
+                           lambda: arena.to(torch.bfloat16), n * 6),
+             "bf16_unpack": (lambda: ops.bf16_unpack(wire), lambda: ref.bf16_unpack_ref(wire),
+                             lambda: wire.to(torch.float32), n * 6)}
+    rows = {}
+    for name, (kernel_fn, plain_fn, library_fn, nbytes) in timed.items():
+        bound, by = bytes_bound(nbytes)
+        rows[name] = {"shape": list(arena.shape), "bit_exact": same_bits(kernel_fn(), plain_fn()),
+                      "ms": cuda_ms(kernel_fn, 20, warmup=3),
+                      "plain_ms": cuda_ms(plain_fn, 10, warmup=2), "bound_ms": bound,
+                      "bound_by": by, "bytes": nbytes,
+                      "library_ms": cuda_ms(library_fn, 20, warmup=3)}
+    row = {"phase": "resnet_arena", "shape": list(arena.shape),
+           "wire_roundtrip_launches": launches, "kernels": rows}
+    if (launches["bf16_pack"], launches["bf16_unpack"]) != (1, 1) or not all(
+            r["bit_exact"] for r in rows.values()):
+        emit({**row, "failed": "launches or bits"})
+        raise AssertionError(f"resnet_arena: {row}")
+    emit(row)
+    return launches, rows
+
+
+DRIFT_LINE = re.compile(r"max \|loss trace drift\|\s+(\S+)")
+
+
+def phase_launch_ablation():
+    """`python -m repro_torch.launch.ablation --steps 24` on the card, the
+    user's entry point for the CNN: exits 0, every run's line printed, and
+    the macro and per-step loss traces equal (drift 0)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.ablation", "--steps",
+                        str(ABLATION_STEPS)], capture_output=True, text=True,
+                       timeout=ABLATION_TIMEOUT, env=env)
+    lines = [ln for ln in r.stdout.splitlines() if "final_loss=" in ln or "drift" in ln]
+    m = DRIFT_LINE.search(r.stdout)
+    row = {"phase": "launch_ablation", "argv": ["--steps", ABLATION_STEPS],
+           "exit_code": r.returncode, "wall_s": time.perf_counter() - t0, "lines": lines,
+           "drift": float(m.group(1)) if m else None}
+    faults = [what for what, bad in (
+        ("exit", r.returncode != 0), ("runs", len(lines) != 11),
+        ("drift", row["drift"] != 0.0)) if bad]
+    if faults:
+        emit({**row, "failed": faults, "output_tail": (r.stdout + r.stderr)[-4000:]})
+        raise AssertionError(f"launch_ablation: {faults}")
+    emit(row)
+
 
 # -- the per-leaf exchange and the autotune plane -------------------------------------
 
@@ -3601,7 +4090,7 @@ def rgemma_timing(check_rows, rglru_rows, rgemma_launches, reports):
 
 
 def phase_timing(check_rows, serve_launches, path_launches, arena_parts, model_lines,
-                 reports):
+                 reports, resnet_rows):
     """Times of each kernel, its plain version and the library call (K1 at
     the llama serving shape, K2 to K6 at the training arena; `model_lines`
     holds the lines of K7, K8 and K1 at head_dim 256 from `scan_timing` and
@@ -3609,7 +4098,8 @@ def phase_timing(check_rows, serve_launches, path_launches, arena_parts, model_l
     training path's launch counts: K2 and K3 report the train_macro phase's
     (the launcher's default executor), K5 and K6 the
     train_macro_int8_overlap phase's, and every comm kernel lists every
-    path's."""
+    path's. K2 to K4 also carry their rows at the ResNet run's parameter
+    arena (`resnet_rows`, from resnet_arena)."""
     q, k, v = qkv(4, 32, 8, PROMPT, PROMPT, 64, torch.bfloat16, seed=7)
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 50)
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v), 10)
@@ -3682,6 +4172,8 @@ def phase_timing(check_rows, serve_launches, path_launches, arena_parts, model_l
             "bytes": nbytes, "shape": list(arena.shape), "path": path})
         if library_fn is None:
             lines[-1]["library"] = no_library
+        if kern["name"] in resnet_rows:
+            lines[-1]["resnet_arena"] = resnet_rows[kern["name"]]
         if kern["name"] in RING_INSTANCES:  # the training arena is f32
             lines[-1].update(stream_extras(
                 reports["comm_kernels"], kern["name"],
@@ -3695,6 +4187,7 @@ def phase_timing(check_rows, serve_launches, path_launches, arena_parts, model_l
     next(line for line in lines if line["name"] == "quantize_int8").update(
         stochastic_ms=cuda_ms(lambda: ops.quantize_int8(arena, bits), 10, warmup=2),
         stochastic_bound_ms=bytes_bound(int8_bytes + n * 4)[0])
+    emit({"phase": "timing", "kernel_lines": len(lines + model_lines)})
     emit({"kernels": lines + model_lines})
 
 
@@ -3710,8 +4203,7 @@ def main():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    strict_f32("cuda")
     reports = phase_build()
     rows = phase_check()
     phase_comm_check()
@@ -3745,6 +4237,11 @@ def main():
         "train_procs_int8_overlap", ["--wire-format", "int8", "--overlap", "one_cycle",
                                      "--dispatch", "overlap"], int8_overlap_launches)[0])
     live_kill_launches = phase_live_kill()
+    resnet = resnet_data(get_config(RESNET_ARCH))
+    phase_resnet_check(resnet)
+    resnet_launches, resnet_rows = phase_train_resnet(resnet)
+    del resnet
+    phase_launch_ablation()
     trained = phase_train()
     macro = phase_train_macro(trained)
     macro_per_leaf_launches = phase_train_macro_per_leaf(trained, macro)
@@ -3762,9 +4259,10 @@ def main():
         "launch_faults": launch_faults_launches, "train_faults_empty": empty_launches,
         **procs_launches, "live_kill": live_kill_launches,
         "train_macro_per_leaf": macro_per_leaf_launches, **overlap_per_leaf_launches,
-        **autotune_launches, **launch_autotune_launches},
+        **autotune_launches, **launch_autotune_launches, **resnet_launches},
         arena_parts,
-        [scan_line] + rgemma_lines, reports)
+        [scan_line] + rgemma_lines, reports, resnet_rows)
+    emit_total()
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

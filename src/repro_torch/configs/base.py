@@ -5,7 +5,9 @@ CONFIG (the exact published shape). `get_reduced` derives a tiny
 same-family variant for CPU tests. The fields mirror the JAX package's
 `ArchConfig` for the layer kinds the port runs (causal, sliding-window and
 local attention with a dense SwiGLU FFN, the Mamba-1 mixer and the RG-LRU
-mixer); dtypes are `torch.dtype`s.
+mixer); dtypes are `torch.dtype`s. `resnet50`, the paper's own CNN, has
+its own `ResNetConfig` and `reduced()` (`configs/resnet50.py`), as in the
+reference's registry.
 """
 from __future__ import annotations
 
@@ -139,7 +141,8 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
     )
 
 
-ARCH_IDS = ("llama3.2-1b", "falcon-mamba-7b", "recurrentgemma-9b")
+ARCH_IDS = ("llama3.2-1b", "falcon-mamba-7b", "recurrentgemma-9b",
+            "resnet50")  # the paper's own benchmark model (CNN family)
 
 
 def _module(arch_id: str):
@@ -149,11 +152,29 @@ def _module(arch_id: str):
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 
 
-def get_config(arch_id: str) -> ArchConfig:
+def get_config(arch_id: str):
+    """The published config: an ArchConfig, or resnet50's ResNetConfig."""
     cfg = _module(arch_id).CONFIG
-    cfg.validate()
+    if isinstance(cfg, ArchConfig):
+        cfg.validate()
     return cfg
 
 
-def get_reduced(arch_id: str) -> ArchConfig:
+def get_reduced(arch_id: str):
+    mod = _module(arch_id)
+    if hasattr(mod, "reduced"):
+        return mod.reduced()
     return reduce_config(get_config(arch_id))
+
+
+def require_lm(arch_id: str, entry: str) -> None:
+    """Refuse a config that is not a decoder LM's `ArchConfig` (the CNN
+    family's `ResNetConfig`) at an LM entry point (launch.train,
+    launch.serve, profile_serve), naming the CNN's own (SystemExit). The
+    config's type decides, as the reference's launcher tests its shape."""
+    cfg = _module(arch_id).CONFIG
+    if not isinstance(cfg, ArchConfig):
+        raise SystemExit(
+            f"{entry}: {arch_id} is the {cfg.family.upper()} family, not a decoder LM; "
+            "train it with repro_torch.train.loop.run_training and "
+            "train.step.make_resnet_loss, or with python -m repro_torch.launch.ablation")

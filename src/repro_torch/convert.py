@@ -9,6 +9,10 @@ the same shape and dtype at the same path, whatever the tree (a DASO carry
 with its leading replica axis, an optimizer state). bf16 leaves arrive as
 numpy arrays of the ml_dtypes bfloat16 type, which torch cannot read; they go
 through f32, which is exact both ways.
+
+The port's ResNet keeps the reference's tree too (`models/cnn.py`: "stem",
+"stage{i}" lists of block dicts, "head"; HWIO convolution weights), and so
+do its batch-norm statistics.
 """
 from __future__ import annotations
 
@@ -38,4 +42,18 @@ def params_from_jax(tree, device="cpu"):
     missing = {"embed", "blocks", "rem", "final_norm"} - set(tree)
     if missing:
         raise ValueError(f"params_from_jax: not an LM params tree, missing {sorted(missing)}")
+    return state_from_jax(tree, device)
+
+
+def cnn_params_from_jax(tree, device="cpu"):
+    """JAX ResNet params -> the port's on `device`, leaf to leaf: the
+    network's tree (`init_resnet`'s params) or `{"net": tree}` as
+    `make_resnet_loss` reads it, with or without a leading replica axis on
+    every leaf (a DASO carry's params)."""
+    net = tree["net"] if set(tree) == {"net"} else tree
+    missing = {"stem", "head", "stage0"} - set(net)
+    extra = {k for k in net if k not in ("stem", "head") and not k.startswith("stage")}
+    if missing or extra:
+        raise ValueError(f"cnn_params_from_jax: not a ResNet params tree, missing "
+                         f"{sorted(missing)}, unexpected {sorted(extra)}")
     return state_from_jax(tree, device)

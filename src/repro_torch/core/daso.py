@@ -500,11 +500,12 @@ def replica_divergence(params, placement=None) -> torch.Tensor:
 
 def value_and_grad(loss_fn: Callable):
     """(params, batch) -> ((loss, aux), grads) by reverse mode through
-    torch.autograd on detached copies of the leaves; loss, aux and grads
-    come out detached. (torch.func's transforms flatten their inputs and
-    outputs with recursive closures that keep the gradients in reference
-    cycles until the garbage collector runs: at full width several GB per
-    step on the card.)"""
+    torch.autograd on detached copies of the leaves; loss, aux (a tree, e.g.
+    the ResNet loss's nested "bn_state") and grads come out detached.
+    (torch.func's transforms flatten their inputs and outputs with
+    recursive closures that keep the gradients in reference cycles until
+    the garbage collector runs: at full width several GB per step on the
+    card.)"""
     def fn(params, batch):
         flat, treedef = flatten(params)
         xs = [p.detach().requires_grad_() for p in flat]
@@ -512,7 +513,7 @@ def value_and_grad(loss_fn: Callable):
             loss, aux = loss_fn(unflatten(treedef, xs), batch)
             grads = torch.autograd.grad(loss, xs, allow_unused=True,
                                         materialize_grads=True)
-        aux = {k: v.detach() for k, v in aux.items()}
+        aux = tree_map(torch.Tensor.detach, aux)
         return (loss.detach(), aux), unflatten(treedef, list(grads))
 
     return fn
@@ -524,7 +525,12 @@ def microbatched_value_and_grad(loss_fn: Callable, n_micro: int):
     chunk in order, so one chunk's activations are live at a time. As the
     reference's scan: loss, aux and grads start at zeros, the chunks' values
     are added in chunk order, and the sums are scaled by 1 / n_micro, cast
-    back to each floating leaf's dtype (integer leaves stay sums)."""
+    back to each floating leaf's dtype (integer leaves stay sums).
+
+    Every batch leaf is chunked, as in the reference (`repro/core/daso.py:
+    526-528`), so a ResNet batch's "bn_state" would be cut across channels:
+    the reference then fails inside batch norm, and the port refuses such a
+    batch with a ValueError."""
     vg = value_and_grad(loss_fn)
     if n_micro <= 1:
         return vg
@@ -534,6 +540,11 @@ def microbatched_value_and_grad(loss_fn: Callable, n_micro: int):
                         tree)
 
     def fn(params, batch):
+        if isinstance(batch, dict) and "bn_state" in batch:
+            raise ValueError(
+                f"n_micro={n_micro} chunks every batch leaf along its leading axis, "
+                "bn_state included (as the reference does), which cuts the running "
+                "statistics across channels: a ResNet batch trains with n_micro=1")
         acc = None
         for i in range(n_micro):
             def chunk(x):
@@ -805,7 +816,7 @@ def _aux_mean(cfg: DasoConfig, mask, n_active: int, v) -> torch.Tensor:
 def _step_metrics(cfg: DasoConfig, mask, n_active: int, loss_r, aux_r,
                   placement=None) -> dict:
     """The loss the controller reads, the per-replica losses, and the mean
-    of every aux metric of rank <= 1 (over the active replicas, for a
+    of every aux tensor of rank <= 1 (over the active replicas, for a
     per-replica vector under a mask). Under `placement` only this process's
     per-replica values: the loss and the aux rows (`AUX_ROWS` + name),
     which `reduce_step_metrics` reduces once the cycle's fetch has gathered
@@ -813,13 +824,13 @@ def _step_metrics(cfg: DasoConfig, mask, n_active: int, loss_r, aux_r,
     if placement is not None:
         metrics = {"loss_per_replica": loss_r}
         for k, v in aux_r.items():
-            if v.dim() == 1:
+            if isinstance(v, torch.Tensor) and v.dim() == 1:
                 metrics[AUX_ROWS + k] = v
         return metrics
     metrics = {"loss": _cross_replica_loss(cfg, mask, n_active, loss_r),
                "loss_per_replica": loss_r}
     for k, v in aux_r.items():
-        if v.dim() <= 1:
+        if isinstance(v, torch.Tensor) and v.dim() <= 1:
             metrics[k] = _aux_mean(cfg, mask, n_active, v)
     return metrics
 
@@ -849,7 +860,7 @@ def sync_train_step(loss_fn: Callable, optimizer: Optimizer, n_micro: int = 1):
         new_params, new_opt = optimizer.update(grads, opt_state, params, lr)
         metrics = {"loss": loss}
         for k, v in aux.items():
-            if v.dim() == 0:
+            if isinstance(v, torch.Tensor) and v.dim() == 0:
                 metrics[k] = v
         return new_params, new_opt, metrics
 

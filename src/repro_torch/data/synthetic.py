@@ -1,8 +1,16 @@
-"""Deterministic synthetic token streams (the JAX package's
-`repro/data/synthetic.py::SyntheticLM`, same numpy generator, so both
-packages train on the same tokens): a Zipf unigram prior, first-order
-Markov chains and induction-style copies, so cross-entropy falls during
-training. Batches are int32 tensors on the device the caller asks for."""
+"""Deterministic synthetic datasets (the JAX package's
+`repro/data/synthetic.py`, the same numpy generators, so both packages
+train on the same tokens and images bit for bit).
+
+SyntheticLM emits token streams with learnable structure (a Zipf unigram
+prior, first-order Markov chains and induction-style copies), so
+cross-entropy falls during training; SyntheticImages emits class-dependent
+smooth random fields plus noise for the ResNet runs. Batches are tensors on
+the device the caller asks for.
+
+make_noniid_class_partition breaks the paper's iid assumption on purpose
+(each virtual node sees a skewed class marginal) for the ablation.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -60,3 +68,53 @@ class SyntheticLM:
         labels = toks[:, 1:].astype(np.int32)
         return {"tokens": torch.from_numpy(tokens).to(device),
                 "labels": torch.from_numpy(labels).to(device)}
+
+
+@dataclass
+class SyntheticImages:
+    n_classes: int
+    image_size: int = 32
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        # class prototypes: smooth random fields
+        base = rng.normal(size=(self.n_classes, self.image_size,
+                                self.image_size, 3)).astype(np.float32)
+        k = np.ones((5, 5)) / 25.0
+        for c in range(self.n_classes):
+            for ch in range(3):
+                base[c, :, :, ch] = _conv2d_same(base[c, :, :, ch], k)
+        self._protos = base * 3.0
+
+    def batch(self, batch_size: int, step: int, class_weights=None, device="cpu"):
+        """Returns dict(images (B,H,W,3) f32, labels (B,) int32) on `device`;
+        `class_weights` (n_classes,) draws the labels from that marginal."""
+        rng = np.random.default_rng((self.seed, step))
+        if class_weights is None:
+            labels = rng.integers(0, self.n_classes, size=batch_size)
+        else:
+            labels = rng.choice(self.n_classes, size=batch_size,
+                                p=class_weights)
+        noise = rng.normal(size=(batch_size, self.image_size,
+                                 self.image_size, 3)).astype(np.float32)
+        imgs = self._protos[labels] + noise
+        return {"images": torch.from_numpy(imgs).to(device),
+                "labels": torch.from_numpy(labels.astype(np.int32)).to(device)}
+
+
+def _conv2d_same(x, k):
+    from numpy.lib.stride_tricks import sliding_window_view
+    ph, pw = k.shape[0] // 2, k.shape[1] // 2
+    xp = np.pad(x, ((ph, ph), (pw, pw)), mode="reflect")
+    win = sliding_window_view(xp, k.shape)
+    return np.einsum("ijkl,kl->ij", win, k)
+
+
+def make_noniid_class_partition(n_classes: int, n_nodes: int,
+                                alpha: float = 0.3, seed: int = 0):
+    """Dirichlet class-skew per node (breaks iid): returns (n_nodes, n_classes)
+    class weight rows."""
+    rng = np.random.default_rng(seed)
+    w = rng.dirichlet(np.full(n_classes, alpha), size=n_nodes)
+    return w.astype(np.float64) / w.sum(axis=1, keepdims=True)

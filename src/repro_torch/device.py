@@ -14,3 +14,15 @@ def resolve_device(device) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def strict_f32(device) -> None:
+    """On CUDA: f32 products in f32 (TF32 off for cuBLAS and cuDNN, the
+    reference's f32 contract) and cuDNN's deterministic algorithms, so a
+    convolution's backward gives the same bits on every run (the per-step
+    and macro executors are held bit for bit). Nothing on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False

@@ -19,7 +19,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced, require_lm
 from repro_torch.models.lm import init_params
 from repro_torch.serve.engine import make_decode_fn, make_prefill_fn, resolve_device
 
@@ -86,6 +86,7 @@ def main(argv=None):
                     help="write the decode phase's Chrome trace here")
     args = ap.parse_args(argv)
 
+    require_lm(args.arch, "profile_serve")
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)

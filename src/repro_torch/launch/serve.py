@@ -21,7 +21,7 @@ import time
 import torch
 
 from repro_torch.checkpoint.io import fit_tree, load_checkpoint
-from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced, require_lm
 from repro_torch.models.lm import init_params
 from repro_torch.serve.engine import Engine, resolve_device
 
@@ -40,6 +40,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    require_lm(args.arch, "serve")
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)

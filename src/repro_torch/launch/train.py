@@ -100,7 +100,7 @@ import torch
 
 from repro_torch.checkpoint.io import (TrainState, fit_tree, load_latest_train_state,
                                        load_train_state, save_checkpoint)
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import get_config, get_reduced, require_lm
 from repro_torch.configs.base import MAMBA, RGLRU
 from repro_torch.core.executor import MacroCycleExecutor, list_strategies
 from repro_torch.data.synthetic import SyntheticLM
@@ -233,6 +233,7 @@ def parse_args(argv=None):
                          "kernel launches, peak device memory, cycle times and a "
                          "digest per replica row of its final carry")
     args = ap.parse_args(argv)
+    require_lm(args.arch, "train")
     if args.ckpt_every and not args.ckpt:
         ap.error("--ckpt-every requires --ckpt")
     return args

@@ -1,10 +1,11 @@
-"""Loss functions connecting the decoder LM to the DASO / sync steps
-(`repro/train/step.py`)."""
+"""Loss functions connecting the decoder LM and the ResNet to the DASO /
+sync steps (`repro/train/step.py`)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.cnn import resnet_apply
 from repro_torch.models.common import cross_entropy_loss
 from repro_torch.models.lm import forward
 
@@ -26,5 +27,26 @@ def make_lm_loss(cfg: ArchConfig):
         aux = {"moe_lb_loss": zero, "moe_z_loss": zero, "moe_drop_frac": zero,
                "ce": ce}
         return ce + aux["moe_lb_loss"] + aux["moe_z_loss"], aux
+
+    return loss_fn
+
+
+def make_resnet_loss(cfg, *, mutable_state: bool = False):
+    """ResNet loss (`repro/train/step.py::make_resnet_loss`). batch: images
+    (B,H,W,3), labels (B,), bn_state (the running statistics, read through).
+    The f32 log-softmax's mean NLL of the label; aux holds the accuracy and,
+    with `mutable_state`, the updated running statistics ("bn_state") for
+    the caller to thread back."""
+    def loss_fn(params, batch):
+        logits, new_state = resnet_apply(params["net"], batch["bn_state"],
+                                         batch["images"], cfg, train=True)
+        labels = batch["labels"]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -torch.take_along_dim(logp, labels[:, None].long(), dim=-1).mean()
+        acc = (logits.argmax(-1) == labels).float().mean()
+        aux = {"acc": acc}
+        if mutable_state:
+            aux["bn_state"] = new_state
+        return loss, aux
 
     return loss_fn
