@@ -63,6 +63,43 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                prompt 3072 > 2048, 8 new tokens): prefill rolls the ring,
                decode wraps it, and every step's logits are held against
                the plain teacher-forced forward
+  serve_moe    Engine.generate on granite-moe-3b-a800m at full size (32
+               layers, 40 experts top 8, bf16, seeded random weights): batch
+               4, prompt 1024, 32 new greedy tokens; K1 launches per prefill
+               (32) and in decode (0); every reference forward pinned to
+               the kernel path's expert indices (each layer's top-k per
+               token, recorded by patching `moe.top_k_lowest_index_first`):
+               K1 and plain attention differ by ulps, and each can move a
+               token's top-k set, so unpinned the layers carry whole expert
+               swaps (the unpinned error and its routing flips are printed,
+               unheld). The held logits are the timed prefill's, bit for bit
+               the recording prefill's. They are held to the plain forward
+               in f32: no farther from it than the plain bf16 forward, plus
+               8 ulps of its largest, that distance itself under a ceiling
+               of 4 + layers / 2 ulps (on an H100, over 32 layers the two
+               bf16 paths are 14 ulps apart, each 13 to 17 from f32; see
+               `pinned_hold`); the same at the first 2, 4, 8 and 16 layers,
+               and at 2 and 4 the two bf16 paths within 8 ulps of each
+               other. The prefill's drop fraction;
+               prefill + decode against a teacher-forced forward in f32
+               with 2 layers at capacity factor E / K (the reference tests'
+               `_no_drop`: a decode step drops nothing, a teacher-forced
+               group of 256 tokens may)
+  serve_moe_variants
+               moonshot-v1-16b-a3b (64 experts top 6 and a shared branch, MHA
+               16 / 16) and mixtral-8x22b (8 experts top 2, GQA 48 / 8,
+               window 4096, which covers the prompt) at full width, 2 layers
+               each (at full depth 57.8 and 281 GB in bf16), bf16: prefill
+               only at batch 4, prompt 1024; K1 at head_dim 128 twice per
+               prefill; the last logits held as serve_moe holds them, and
+               the two bf16 paths within 8 ulps of each other
+  train_moe    run_training with DASO on granite-moe-3b-a800m at full width,
+               4 of its 32 layers, f32, with the train cell's settings (R =
+               4, P = 16, b_max 4, sgd(0.9, 1e-4), lr 0.005, 2 x 256 tokens
+               per replica), macro executor: K2 per receive and K3 per
+               blocking step, the loss falls, every step's mean load-balance
+               and z losses finite and non-zero; ms per step by cycle shape,
+               peak, wire bytes per exchange, the drop fraction per layer
   train_check  at full width (1 layer, f32, R = 4): a receive and a blocking
                step, an int8 send and an int8 blocking step, and an ov_sync
                step with extra staleness 1 (int8), each through the kernels,
@@ -296,8 +333,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                also at P_eff 12.0 and 40 / 3); a
                wire_roundtrip of the parameters launches K3 and K4
   timing       each kernel, its plain version and the library call, at the
-               serving shapes (K1, K7, K8) and the training arena (K2 to K6);
-               K1's rows also give the bf16 kernel's tiles, ptxas's
+               serving shapes (K1 at head_dim 64, 256 and, at moonshot's and
+               mixtral's prefills, 128; K7, K8) and the training arena (K2 to
+               K6); K1's rows also give the bf16 kernel's tiles, ptxas's
                registers and spills for the instance, and the wrapper's
                host time per call; K2 to K4's the stream ring's choice,
                ptxas's registers and spills, and the achieved TB/s; K7's
@@ -362,7 +400,8 @@ from repro_torch.kernels.ref import attention_ref, attention_row_ratio  # noqa: 
 from repro_torch.kernels.rglru_scan import rglru_scan_fwd  # noqa: E402
 from repro_torch.kernels.ssm_scan import scan_config, ssm_scan_fwd  # noqa: E402
 from repro_torch.models.cnn import init_resnet, resnet_apply  # noqa: E402
-from repro_torch.models.lm import forward, init_params  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.lm import forward, init_params, layer_views  # noqa: E402
 from repro_torch.obs import meters  # noqa: E402
 from repro_torch.obs.trace import (Tracer, load_events, merge_streams,  # noqa: E402
                                    stream_path, validate_event)
@@ -381,6 +420,17 @@ from repro_torch.train.step import make_lm_loss, make_resnet_loss  # noqa: E402
 ARCH = "llama3.2-1b"
 MAMBA_ARCH = "falcon-mamba-7b"
 RGEMMA_ARCH = "recurrentgemma-9b"
+MOE_ARCH = "granite-moe-3b-a800m"
+# full width, 2 layers each: at full depth 57.8 GB and 281 GB in bf16
+MOE_VARIANTS, MOE_VARIANT_LAYERS = ("moonshot-v1-16b-a3b", "mixtral-8x22b"), 2
+# the MoE holds (`pinned_hold`), all on the kernel path's routing, in bf16
+# ulps of the f32 forward's largest last logit: the kernel path within the
+# plain bf16 forward's distance from the plain f32 forward plus
+# MOE_SLACK_ULPS; that distance, which grows with depth on both bf16 paths
+# alike, within `plain_bf16_ceiling_ulps`; and up to MOE_PAIR_LAYERS layers
+# the dense cells' rule between the two bf16 paths, MOE_SLACK_ULPS. serve_moe
+# also holds granite's first MOE_SWEEP_DEPTHS layers by the same rules.
+MOE_SLACK_ULPS, MOE_PAIR_LAYERS, MOE_SWEEP_DEPTHS = 8, 4, (2, 4, 8, 16)
 RING_PROMPT, RING_NEW = 3072, 8  # past recurrentgemma-9b's 2048-slot window
 BATCH, PROMPT, NEW = 4, 1024, 32
 # H100 SXM published dense peaks (NVIDIA data sheet)
@@ -506,6 +556,13 @@ CHECKS = [
     ("noncausal_window64_bf16", 2, 8, 2, 700, 700, 64, torch.bfloat16, 64, False),
     ("d32_ragged_500_bf16", 4, 32, 8, 500, 500, 32, torch.bfloat16, 0, True),
     ("d128_q_suffix_window_bf16", 2, 8, 2, 300, 1000, 128, torch.bfloat16, 200, True),
+    # head_dim 128 at the MoE variants' prefills: moonshot-v1-16b-a3b (MHA
+    # 16 / 16) and mixtral-8x22b (GQA 48 / 8, window 4096)
+    ("d128_moonshot_shape_bf16", 4, 16, 16, 1024, 1024, 128, torch.bfloat16, 0, True),
+    ("d128_mixtral_shape_bf16", 4, 48, 8, 1024, 1024, 128, torch.bfloat16, 4096, True),
+    # granite-moe-3b-a800m's prefill: GQA 24 / 8 (ratio 3) at head_dim 64
+    ("granite_shape_bf16", 4, 24, 8, 1024, 1024, 64, torch.bfloat16, 0, True),
+    ("granite_shape_f32", 4, 24, 8, 1024, 1024, 64, torch.float32, 0, True),
     ("sk1_bf16", 2, 8, 2, 1, 1, 64, torch.bfloat16, 0, True),
 ]
 
@@ -903,17 +960,30 @@ def mamba_decode_bytes(params, cache):
             * tok.element_size() + 2 * tensor_bytes(cache))
 
 
-def serve_cell(cfg, seed, want_prefill, decode_bytes):
+def plain_hold(cfg, params, prompts, prefill, st):
+    """The prefill's bf16 last logits against a teacher-forced forward's
+    through plain attention and the plain scans: within 8 ulps of the
+    largest. Returns (the prefill's last logits, max abs error, tolerance,
+    row additions)."""
+    with plain_scan():
+        want = forward(params, prompts, cfg, attn_impl="plain")["logits"][:, -1].float()
+    got = st["logits_last"].float()
+    peak = want.abs().max().item()
+    return got, (got - want).abs().max().item(), 8 * bf16_ulp(peak), {"max_abs_logit": peak}
+
+
+def serve_cell(cfg, seed, want_prefill, decode_bytes, hold=plain_hold):
     """Engine.generate at full size from seeded weights: batch BATCH, prompt
     PROMPT, NEW greedy tokens after a 2-token warm-up. Launches are counted
     per generate, per prefill (`want_prefill`, the other kernels none) and
     in decode (none); the prefill and the decode steps are timed apart. The
-    prefill's bf16 last logits are held against a teacher-forced forward
-    through plain attention and the plain scans: both round the mixers'
-    outputs, the residual and the logits to bf16 at different points, and
-    the scans sum in other orders, so a bf16 rounding flips now and then and
-    the layers carry it: 8 ulps of the largest logit. Returns (the phase's
-    row, params, the generator)."""
+    prefill's bf16 last logits are held by `hold`: by default against a
+    teacher-forced forward through plain attention and the plain scans
+    (`plain_hold`; `pinned_hold` for MoE): both round the mixers' outputs,
+    the residual and the logits to bf16 at different points, and the scans
+    sum in other orders, so a bf16 rounding flips now and then and the
+    layers carry it: 8 ulps of the largest logit. Returns (the phase's row,
+    params, the generator)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_params(cfg, gen, "cuda")
     n_params = sum(x.numel() for x in leaves(params))
@@ -955,13 +1025,8 @@ def serve_cell(cfg, seed, want_prefill, decode_bytes):
         peak = torch.cuda.max_memory_allocated()
         n_bytes = decode_bytes(params, cache)
 
-        got = st["logits_last"].float()
-        with plain_scan():
-            want = forward(params, prompts, cfg, attn_impl="plain")["logits"][:, -1].float()
-        peak_logit = want.abs().max().item()
-        err = (got - want).abs().max().item()
-        del prefill, decode, want
-        tol = 8 * bf16_ulp(peak_logit)
+        got, err, tol, held = hold(cfg, params, prompts, prefill, st)
+        del prefill, decode
         finite = bool(torch.isfinite(got).all())
         # random weights: the logits must still depend on the prompt (with
         # sinusoidal positions, amplitude 1 against token embeddings of std
@@ -987,8 +1052,8 @@ def serve_cell(cfg, seed, want_prefill, decode_bytes):
            "decode_bytes": n_bytes, "decode_bound_ms": 1e3 * n_bytes / PEAK_BYTES,
            "max_memory_allocated": peak,
            "bf16_last_logits_max_abs_err": err, "bf16_tolerance": tol,
-           "max_abs_logit": peak_logit, "last_logits_row_spread": row_spread,
-           "greedy_rows_distinct": len({tuple(r) for r in tokens.tolist()})}
+           "last_logits_row_spread": row_spread,
+           "greedy_rows_distinct": len({tuple(r) for r in tokens.tolist()}), **held}
     return row, params, gen
 
 
@@ -1142,6 +1207,253 @@ def serve_rgemma_ring(cfg, params, gen, want_prefill):
             "launches_per_generate": per_generate, "launches_per_prefill": per_prefill,
             "launches_in_decode": in_decode, "generate_s": gen_s,
             "bf16_step_logits_max_abs_err": errs, "bf16_tolerances": tols}
+
+
+@contextmanager
+def routing(record=None, replay=None):
+    """The MoE layers' top-k seen from outside, through
+    `moe.top_k_lowest_index_first`: each call's expert indices appended to
+    `record` (the layer runs on them as it would alone), or taken in order
+    from `replay`, the gates then this path's probabilities at those
+    indices. So a reference forward can run on the kernel path's routing.
+    A replay must use every recorded call."""
+    real, calls = moe.top_k_lowest_index_first, None if replay is None else iter(replay)
+
+    def seen(probs, k):
+        if calls is not None:
+            idx = next(calls)
+            return probs.gather(-1, idx), idx
+        vals, idx = real(probs, k)
+        record.append(idx)
+        return vals, idx
+
+    moe.top_k_lowest_index_first = seen
+    try:
+        yield
+    finally:
+        moe.top_k_lowest_index_first = real
+    if calls is not None and next(calls, None) is not None:
+        raise AssertionError("the replayed routing has more layers than the forward")
+
+
+def routing_flips(a, b):
+    """Per layer, the tokens whose top-k expert set differs between two
+    recorded routings."""
+    return [int((x.sort(-1).values != y.sort(-1).values).any(-1).sum()) for x, y in zip(a, b)]
+
+
+def plain_bf16_ceiling_ulps(n_layers):
+    """How far the plain bf16 forward may lie from the plain f32 forward on
+    one routing, in bf16 ulps of the largest logit, at `n_layers` layers:
+    4 + n / 2. Set above the readings on an H100 (granite-moe-3b-a800m at
+    2, 4, 8, 16 and 32 layers 2.1, 3.4, 5.5, 8.6 and 16.5; moonshot and
+    mixtral at 2 layers 2.0 and 1.4), so that a fault in the MoE or bf16
+    code, which both bf16 paths share, cannot widen the kernel path's limit
+    without bound."""
+    return 4 + n_layers / 2
+
+
+def pinned_distances(cfg, params, params_f32, prompts, kernel_last, kernel_idx, n_layers):
+    """The first `n_layers` layers' plain forwards in bf16 and in f32 (the
+    same weights upcast), both on the kernel path's routing `kernel_idx`,
+    against the kernel path's bf16 last logits `kernel_last`. Returns (the
+    distances in ulps of the f32 forward's largest last logit, the kernel
+    path's error against f32, the plain bf16 forward's aux)."""
+    f32 = cfg.replace(param_dtype=torch.float32, compute_dtype=torch.float32)
+    with routing(replay=kernel_idx):
+        out = forward(params, prompts, cfg, attn_impl="plain",
+                      layers=layer_views(cfg, params)[:n_layers])
+    plain = out["logits"][:, -1].float()
+    aux = {k: v.item() for k, v in out["aux"].items()}
+    del out
+    with routing(replay=kernel_idx):
+        want = forward(params_f32, prompts, f32, attn_impl="plain",
+                       layers=layer_views(f32, params_f32)[:n_layers])["logits"][:, -1]
+    peak = want.abs().max().item()
+    ulp = bf16_ulp(peak)
+    err = (kernel_last - want).abs().max().item()
+    dist = {"layers": n_layers, "max_abs_logit": peak, "ulp": ulp,
+            "kernel_vs_f32_ulps": err / ulp,
+            "plain_vs_f32_ulps": (plain - want).abs().max().item() / ulp,
+            "kernel_vs_plain_ulps": (kernel_last - plain).abs().max().item() / ulp}
+    return dist, err, aux
+
+
+def pinned_faults(dist):
+    """The MoE holds' failures at one depth (see MOE_SLACK_ULPS): the
+    kernel path no farther from f32 than the plain bf16 path plus the
+    slack, the plain bf16 path within its ceiling, and to MOE_PAIR_LAYERS
+    layers the two bf16 paths within the slack of each other."""
+    n, faults = dist["layers"], []
+    if not dist["kernel_vs_f32_ulps"] <= dist["plain_vs_f32_ulps"] + MOE_SLACK_ULPS:
+        faults.append("kernel path farther from f32 than plain bf16 + slack")
+    if not dist["plain_vs_f32_ulps"] <= plain_bf16_ceiling_ulps(n):
+        faults.append(f"plain bf16 past its ceiling {plain_bf16_ceiling_ulps(n)}")
+    if n <= MOE_PAIR_LAYERS and not dist["kernel_vs_plain_ulps"] <= MOE_SLACK_ULPS:
+        faults.append("kernel path farther from plain bf16 than the slack")
+    return faults
+
+
+def pinned_hold(cfg, params, prompts, prefill, st, sweep=()):
+    """The MoE hold, on one routing. The prefill runs again with its expert
+    indices recorded, its last logits bit for bit the timed prefill's `st`;
+    every reference forward then runs on that routing (K1 and plain
+    attention differ by bf16 ulps, and each such difference can move a
+    token's top-k set, which no ulp rule survives over the layers). The
+    reference is the plain forward in f32; `pinned_faults` holds the
+    kernel path to it, the plain bf16 path to its ceiling and, to
+    MOE_PAIR_LAYERS layers, the two bf16 paths to each other. The dense
+    cells' rule between the two bf16 paths alone does not hold at depth: on an
+    H100, over granite's 32 layers they are 14.4 ulps apart. Each depth of
+    `sweep` is held by the same rules on the kernel forward of the first
+    that many layers. The unpinned plain forward's error and routing flips
+    are printed unheld. The drop fraction (mean per layer) and the summed
+    lb / z losses are the pinned bf16 forward's. Returns (the prefill's last
+    logits, max abs error against the f32 forward, its tolerance, row
+    additions)."""
+    kernel_idx, plain_idx = [], []
+    with routing(record=kernel_idx):
+        again = prefill(params, prompts)["logits_last"]
+    if not same_bits(again, st["logits_last"]):
+        raise AssertionError(f"{cfg.name}: a second prefill's last logits differ from "
+                             "the timed prefill's")
+    if len(kernel_idx) != cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: {len(kernel_idx)} routed layers")
+    got = st["logits_last"].float()
+    params_f32 = tree_map(lambda x: x.float(), params)
+    dist, err, aux = pinned_distances(cfg, params, params_f32, prompts, got, kernel_idx,
+                                      cfg.n_layers)
+    depths, faults = [], {}
+    for n in sweep:
+        idx = []
+        with routing(record=idx):
+            last = forward(params, prompts, cfg, layers=layer_views(cfg, params)[:n])[
+                "logits"][:, -1].float()
+        depths.append(pinned_distances(cfg, params, params_f32, prompts, last, idx, n)[0])
+    del params_f32
+    torch.cuda.empty_cache()
+    with routing(record=plain_idx):
+        unpinned = forward(params, prompts, cfg, attn_impl="plain")["logits"][:, -1].float()
+    flips = routing_flips(kernel_idx, plain_idx)
+    for d in depths + [dist]:
+        if found := pinned_faults(d):
+            faults[d["layers"]] = found
+    held = {"routing": "every reference pinned to the kernel path's expert indices",
+            "reference": "the plain forward in f32 (weights upcast)",
+            "prefill_replay_bit_exact": True,
+            "max_abs_logit": dist["max_abs_logit"], "ulp": dist["ulp"],
+            "bf16_kernel_vs_f32_ulps": dist["kernel_vs_f32_ulps"],
+            "bf16_plain_vs_f32_ulps": dist["plain_vs_f32_ulps"],
+            "bf16_kernel_vs_plain_ulps": dist["kernel_vs_plain_ulps"],
+            "plain_bf16_ceiling_ulps": plain_bf16_ceiling_ulps(cfg.n_layers),
+            "pair_rule_held": cfg.n_layers <= MOE_PAIR_LAYERS,
+            "depth_sweep": depths, "pinned_faults": faults,
+            "moe_drop_frac": aux["moe_drop_frac"] / cfg.n_layers,
+            "moe_lb_loss_sum": aux["moe_lb_loss"], "moe_z_loss_sum": aux["moe_z_loss"],
+            "routed_tokens_per_layer": kernel_idx[0].shape[0] * kernel_idx[0].shape[1],
+            "unpinned_max_abs_err": (got - unpinned).abs().max().item(),
+            "unpinned_routing_flips": sum(flips), "unpinned_flips_by_layer": flips}
+    if faults:
+        emit({"phase": "pinned_hold", "arch": cfg.name, "failed": held})
+        raise AssertionError(f"{cfg.name} pinned hold: {faults}")
+    tol = dist["plain_vs_f32_ulps"] * dist["ulp"] + MOE_SLACK_ULPS * dist["ulp"]
+    return got, err, tol, held
+
+
+def moe_widths(cfg):
+    m = cfg.moe
+    return {"d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.head_dim, "window": cfg.sliding_window, "vocab": cfg.vocab_size,
+            "tie_embeddings": cfg.tie_embeddings, "n_experts": m.n_experts, "top_k": m.top_k,
+            "expert_d_ff": m.d_ff, "n_shared_experts": m.n_shared_experts,
+            "capacity_factor": m.capacity_factor, "group_size": m.group_size}
+
+
+def no_drop(cfg):
+    """Capacity factor E / K (the reference's `tests/test_serve.py::_no_drop`):
+    capacity depends on the group's length, so a decode step (S = 1, C = 1)
+    drops nothing while a teacher-forced forward over 256 tokens may drop the
+    same token; at E / K no group drops any."""
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts) / cfg.moe.top_k))
+
+
+def phase_serve_moe():
+    """granite-moe-3b-a800m at its published size through serve_cell, the
+    routing pinned for the bf16 hold; the f32 2-layer decode check at
+    capacity E / K."""
+    cfg = get_config(MOE_ARCH)
+    row, params, _ = serve_cell(
+        cfg, 11, {"flash_attention_fwd": cfg.n_layers},
+        lambda p, c: tensor_bytes(p) + tensor_bytes(c),
+        hold=lambda *a: pinned_hold(*a, sweep=MOE_SWEEP_DEPTHS))
+    del params
+    torch.cuda.empty_cache()
+    row["widths"] = moe_widths(cfg)
+    row["f32_2layer"] = {**serve_f32_check(no_drop(cfg), 2, 12, {"flash_attention_fwd": 2}),
+                         "capacity_factor": "E / K (no drops; see no_drop)"}
+    emit({"phase": "serve_moe", **row})
+    return row["launches_per_prefill"]
+
+
+def phase_serve_moe_variants():
+    """moonshot-v1-16b-a3b (64 experts top 6, a shared branch, MHA at head_dim
+    128) and mixtral-8x22b (8 experts top 2, GQA 48 / 8, window 4096: at
+    prompt 1024 the window covers the whole prompt) at full width, 2 layers
+    each, bf16: a warm-up prefill, three timed, K1 launches per prefill, and
+    the bf16 last logits held as serve_moe holds them. Returns
+    {arch: launches per prefill}."""
+    cells, launches = [], {}
+    none = {k["name"]: 0 for k in KERNELS}
+    for i, arch in enumerate(MOE_VARIANTS):
+        full = get_config(arch)
+        cfg = full.replace(n_layers=MOE_VARIANT_LAYERS)
+        gen = torch.Generator(device="cuda").manual_seed(20 + i)
+        params = init_params(cfg, gen, "cuda")
+        n_params = sum(x.numel() for x in leaves(params))
+        prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                                device="cuda")
+        prefill = make_prefill_fn(cfg, cache_len=PROMPT)
+        with torch.inference_mode():
+            prefill(params, prompts)
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                zero_counts()
+                t0 = time.perf_counter()
+                st = prefill(params, prompts)
+                sync()
+                times.append(1e3 * (time.perf_counter() - t0))
+                per_prefill = counts()
+            peak = torch.cuda.max_memory_allocated()
+            got, err, tol, held = pinned_hold(cfg, params, prompts, prefill, st)
+            finite = bool(torch.isfinite(got).all())
+        del params, got, prefill, st
+        torch.cuda.empty_cache()
+        cell = {"arch": arch, "layers": cfg.n_layers, "dtype": "bfloat16", "params": n_params,
+                "reduced": {"n_layers": [full.n_layers, cfg.n_layers],
+                            "why": "memory: at full depth the bf16 weights alone take "
+                                   f"{2 * full_param_count(full) / 1e9:.1f} GB"},
+                "widths": moe_widths(cfg), "batch": BATCH, "prompt": PROMPT,
+                "launches_per_prefill": per_prefill, "prefill_ms": statistics.median(times),
+                "prefill_ms_all": times, "max_memory_allocated": peak,
+                "bf16_last_logits_max_abs_err": err, "bf16_tolerance": tol, **held}
+        cells.append(cell)
+        launches[arch] = per_prefill
+        if per_prefill != {**none, "flash_attention_fwd": cfg.n_layers}:
+            emit({"phase": "serve_moe_variants", "failed": cell})
+            raise AssertionError(f"{arch} launches per prefill {per_prefill}")
+        if not (finite and err <= tol):
+            emit({"phase": "serve_moe_variants", "failed": cell})
+            raise AssertionError(f"{arch} bf16 prefill logits: max err {err} > {tol}")
+    emit({"phase": "serve_moe_variants", "cells": cells})
+    return launches
+
+
+def full_param_count(cfg):
+    """The parameters of `cfg` from its shapes, without allocating them."""
+    return sum(x.numel() for x in leaves(init_params(cfg, torch.Generator(), "meta")))
 
 
 def same_bits(a, b):
@@ -1447,8 +1759,8 @@ def plain_exchange():
             setattr(ops, n, f)
 
 
-def train_config(n_layers):
-    return get_config(ARCH).replace(n_layers=n_layers, param_dtype=torch.float32,
+def train_config(n_layers, arch=ARCH):
+    return get_config(arch).replace(n_layers=n_layers, param_dtype=torch.float32,
                                     compute_dtype=torch.float32)
 
 
@@ -1469,6 +1781,17 @@ TRAIN_CHECKS = [
     ({"wire_format": "int8", "overlap": "one_cycle"}, ("ov_start", "local"),
      (("ov_sync~1", 1, {"eq1_merge": 1, **INT8_EXCHANGE}),)),
 ]
+
+
+def pinned_copies(tensors):
+    """Host copies of card tensors in pinned memory (the caching host
+    allocator keeps the blocks for the next call), so the copies both ways
+    run at the link's rate and the comparison stays on the card."""
+    out = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in tensors]
+    for o, x in zip(out, tensors):
+        o.copy_(x, non_blocking=True)
+    sync()
+    return out
 
 
 def phase_train_check():
@@ -1495,17 +1818,19 @@ def phase_train_check():
             got = step(carry, batch, TRAIN_LR)
             sync()
             launched = {k: v - before[k] for k, v in counts().items() if v != before[k]}
-            got = [x.cpu() for x in leaves(got)]  # room on the card for the second step
+            got = pinned_copies(leaves(got))  # room on the card for the second step
             with plain_exchange():
                 want = step(carry, batch, TRAIN_LR)
-            identical = all(same_bits(a, b.cpu()) for a, b in zip(got, leaves(want)))
+            identical = all(same_bits(a.to("cuda", non_blocking=True), b)
+                            for a, b in zip(got, leaves(want), strict=True))
             del want
             row = {"mode": mode, "staleness": stale, "options": options,
                    "kernel_launches": launched, "carry_identical_to_plain": identical}
             if not identical:  # tell a nondeterministic local step from the exchange
                 again = step(carry, batch, TRAIN_LR)
                 row["kernel_path_repeat_identical"] = all(
-                    same_bits(a, b.cpu()) for a, b in zip(got, leaves(again)))
+                    same_bits(a.to("cuda", non_blocking=True), b)
+                    for a, b in zip(got, leaves(again), strict=True))
                 del again
             rows.append(row)
             del got
@@ -1546,10 +1871,10 @@ def cycle_rows(res):
 
 def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
                     strategy="daso", plan=None, supervise=None, lr=TRAIN_LR,
-                    steps=TRAIN_STEPS):
-    """run_training with `strategy` (DASO by default) at llama3.2-1b's
-    published widths, 4 layers, f32, R = 4; the counts are set to 0 just
-    before and read just after. Returns (result, its row, launch counts, the
+                    steps=TRAIN_STEPS, arch=ARCH):
+    """run_training with `strategy` (DASO by default) at `arch`'s (llama3.2-1b
+    by default) published widths, 4 layers, f32, R = 4; the counts are set
+    to 0 just before and read just after. Returns (result, its row, launch counts, the
     outermost level's base modes, params0). The per-step executor's row has
     the step ms by mode token, the macro executor's its ExecutorStats and
     the ms per step by cycle shape. `on_batch(step)` runs as each step's
@@ -1558,7 +1883,7 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
     `resilience.run_with_faults` on the macro executor instead (the strategy
     as run_training builds it, `supervise` its extra keyword arguments), and
     the result is the ResilienceReport. `steps` cuts the run short."""
-    cfg = train_config(TRAIN_LAYERS)
+    cfg = train_config(TRAIN_LAYERS, arch)
     params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(x.numel() for x in leaves(params0))
     data = replica_data(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, seed=0))
@@ -1599,14 +1924,14 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
               "alloc_retries": torch.cuda.memory_stats()["num_alloc_retries"] - retries}
     modes = [h[1] for h in res.controller.history]
     losses = res.losses
-    row = {"phase": name, "arch": ARCH, "strategy": strategy,
+    row = {"phase": name, "arch": arch, "strategy": strategy,
            "entry": "run_training" if plan is None else "resilience.run_with_faults",
            **loop_options,
            "widths": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
                       "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
                       "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
                       "tie_embeddings": cfg.tie_embeddings},
-           "reduced": {"n_layers": [get_config(ARCH).n_layers, TRAIN_LAYERS],
+           "reduced": {"n_layers": [get_config(arch).n_layers, TRAIN_LAYERS],
                        "why": why_reduced},
            "dtype": "float32", "params_per_replica": n_params,
            "replicas": TRAIN_R, "local_world": TRAIN_LOCAL_WORLD, "b_max": TRAIN_B_MAX,
@@ -2159,6 +2484,36 @@ def phase_train_macro(trained):
     del res, params0, params_r, opt_r
     torch.cuda.empty_cache()
     return out
+
+
+def phase_train_moe():
+    """run_training with DASO on granite-moe-3b-a800m at full width, 4 of its
+    32 layers, f32, R = 4, the train cell's settings, on the macro executor:
+    K2 / K3 launches as the modes imply, the loss falls, every step's mean
+    load-balance and z losses finite and non-zero. Prints ms per step by
+    cycle shape, the peak, wire bytes per exchange and the drop fraction per
+    layer, averaged over the steps."""
+    res, row, launches, modes, params0 = run_train_phase(
+        "train_moe", {"executor": "macro"}, TRAIN_WHY, arch=MOE_ARCH)
+    cfg = train_config(TRAIN_LAYERS, MOE_ARCH)
+    row["widths"].update(moe_widths(cfg))
+    check_launches(row, launches, train_launches(modes))
+    # each step's means over the replicas of the sums over the layers
+    aux = {k: [float(m[k]) for m in res.metrics]
+           for k in ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")}
+    row.update(wire_bytes_per_exchange={
+        t: compression.transfer_bytes(params0, wire_format=t) for t in ("f32", "bf16")},
+        moe_aux_by_step=aux,
+        moe_drop_frac_per_layer_mean=statistics.mean(aux["moe_drop_frac"]) / TRAIN_LAYERS)
+    bad = [k for k in ("moe_lb_loss", "moe_z_loss")
+           if len(aux[k]) != row["steps"] or not all(math.isfinite(v) and v != 0 for v in aux[k])]
+    del res, params0
+    torch.cuda.empty_cache()
+    if bad:
+        emit({**row, "failed": f"aux losses {bad} not finite and non-zero at every step"})
+        raise AssertionError(f"train_moe aux {bad}")
+    emit(row)
+    return launches
 
 
 # The topology cells: 4 replicas in 2 pods of 2 hosts (R = 4, P = 16, the
@@ -4089,12 +4444,45 @@ def rgemma_timing(check_rows, rglru_rows, rgemma_launches, reports):
     return lines
 
 
-def phase_timing(check_rows, serve_launches, path_launches, arena_parts, model_lines,
+def moe_timing(check_rows, variant_launches, reports):
+    """K1's lines at head_dim 128: at moonshot-v1-16b-a3b's prefill (MHA 16 /
+    16) and at mixtral-8x22b's (GQA 48 / 8, window 4096, which covers the
+    1024-token prompt, so SDPA's causal attention is the same function)."""
+    fa, lines = KERNELS[0], []
+    for i, (arch, case, name) in enumerate((
+            (MOE_VARIANTS[0], "d128_moonshot_shape_bf16", "flash_attention_fwd_d128"),
+            (MOE_VARIANTS[1], "d128_mixtral_shape_bf16", "flash_attention_fwd_d128_gqa"))):
+        cfg = get_config(arch)
+        Hq, Hk, D, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.sliding_window
+        q, k, v = qkv(BATCH, Hq, Hk, PROMPT, PROMPT, D, torch.bfloat16, seed=30 + i)
+        bound, by = attention_bound_ms(q, k, v, window)
+        row = next(r for r in check_rows if r["case"] == case)
+        lines.append({
+            "name": name, "route": fa["route"], "source": fa["source"],
+            "replaces": fa["replaces"], "launches": variant_launches[arch][fa["name"]],
+            "max_abs_err": row["max_abs_err"], "tolerance": row["tolerance"],
+            "row_ratio": row["row_ratio"],
+            "ms": cuda_ms(lambda: ops.flash_attention(q, k, v, window=window), 50),
+            "plain_ms": cuda_ms(lambda: attention_ref(q, k, v, window=window), 10),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 50),
+            "shape": [BATCH, Hq, Hk, PROMPT, PROMPT, D], "dtype": "bfloat16",
+            "window": window, "path": f"serve_moe_variants {arch} prefill (per prefill)",
+            **k1_extras(reports, q, k, v, window)})
+        del q, k, v
+    torch.cuda.empty_cache()
+    return lines
+
+
+def phase_timing(check_rows, serve_paths, path_launches, arena_parts, model_lines,
                  reports, resnet_rows):
     """Times of each kernel, its plain version and the library call (K1 at
     the llama serving shape, K2 to K6 at the training arena; `model_lines`
-    holds the lines of K7, K8 and K1 at head_dim 256 from `scan_timing` and
-    `rgemma_timing`), and the kernels line. `path_launches` holds each
+    holds the lines of K7, K8, K1 at head_dim 256 and K1 at head_dim 128
+    from `scan_timing`, `rgemma_timing` and `moe_timing`), and the kernels
+    line. `serve_paths`: each head_dim 64 serving path's launches per
+    prefill (llama's "serve", granite's "serve_moe"). `path_launches` holds each
     training path's launch counts: K2 and K3 report the train_macro phase's
     (the launcher's default executor), K5 and K6 the
     train_macro_int8_overlap phase's, and every comm kernel lists every
@@ -4112,7 +4500,8 @@ def phase_timing(check_rows, serve_launches, path_launches, arena_parts, model_l
     fa = KERNELS[0]
     lines = [{
         "name": fa["name"], "route": fa["route"], "source": fa["source"],
-        "replaces": fa["replaces"], "launches": serve_launches[fa["name"]],
+        "replaces": fa["replaces"], "launches": serve_paths["serve"][fa["name"]],
+        "launches_by_path": {path: n[fa["name"]] for path, n in serve_paths.items()},
         "max_abs_err": serve_row["max_abs_err"], "tolerance": serve_row["tolerance"],
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
@@ -4214,6 +4603,9 @@ def main():
     scan_line = scan_timing(scan_rows, mamba_launches, reports)
     rgemma_launches = phase_serve_rgemma()
     rgemma_lines = rgemma_timing(rows, rglru_rows, rgemma_launches, reports)
+    serve_moe_launches = phase_serve_moe()
+    moe_lines = moe_timing(rows, phase_serve_moe_variants(), reports)
+    moe_train_launches = phase_train_moe()
     phase_train_check()
     resume_launches = phase_train_resume()
     int8_per_step = phase_train_int8_overlap()
@@ -4248,7 +4640,7 @@ def main():
     empty_launches = phase_train_faults_empty(trained, macro)
     topo_2level_launches = phase_train_topo_2level(trained, macro)
     arena_parts = phase_arena(trained)
-    phase_timing(rows, serve_launches, {
+    phase_timing(rows, {"serve": serve_launches, "serve_moe": serve_moe_launches}, {
         "train": trained["launches"], "train_macro": macro["launches"],
         "train_int8_overlap": int8_per_step["launches"],
         "train_macro_int8_overlap": int8_macro["launches"],
@@ -4259,9 +4651,10 @@ def main():
         "launch_faults": launch_faults_launches, "train_faults_empty": empty_launches,
         **procs_launches, "live_kill": live_kill_launches,
         "train_macro_per_leaf": macro_per_leaf_launches, **overlap_per_leaf_launches,
-        **autotune_launches, **launch_autotune_launches, **resnet_launches},
+        **autotune_launches, **launch_autotune_launches, **resnet_launches,
+        "train_moe": moe_train_launches},
         arena_parts,
-        [scan_line] + rgemma_lines, reports, resnet_rows)
+        [scan_line] + rgemma_lines + moe_lines, reports, resnet_rows)
     emit_total()
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 from repro_torch.configs.base import (  # noqa: F401
     ARCH_IDS,
     ArchConfig,
+    MoEConfig,
     get_config,
     get_reduced,
     reduce_config,

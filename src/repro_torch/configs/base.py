@@ -4,10 +4,10 @@ Each registered architecture has one module in this package exporting
 CONFIG (the exact published shape). `get_reduced` derives a tiny
 same-family variant for CPU tests. The fields mirror the JAX package's
 `ArchConfig` for the layer kinds the port runs (causal, sliding-window and
-local attention with a dense SwiGLU FFN, the Mamba-1 mixer and the RG-LRU
-mixer); dtypes are `torch.dtype`s. `resnet50`, the paper's own CNN, has
-its own `ResNetConfig` and `reduced()` (`configs/resnet50.py`), as in the
-reference's registry.
+local attention with a dense SwiGLU FFN or a mixture of experts, the
+Mamba-1 mixer and the RG-LRU mixer); dtypes are `torch.dtype`s.
+`resnet50`, the paper's own CNN, has its own `ResNetConfig` and
+`reduced()` (`configs/resnet50.py`), as in the reference's registry.
 """
 from __future__ import annotations
 
@@ -30,6 +30,25 @@ RECURRENT_KINDS = (MAMBA, RGLRU)
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """The reference's `MoEConfig`, field for field, with its defaults.
+    `sharding` ("expert" or "tensor") places the experts on the JAX
+    package's device mesh; one card has no expert axis, so the port keeps
+    the field for parity and does not read it."""
+    n_experts: int
+    top_k: int
+    d_ff: int                     # per-expert hidden size
+    n_shared_experts: int = 0     # dense "shared expert" branch (DeepSeek-style)
+    capacity_factor: float = 1.25
+    # routing group length (GShard "groups"): capacity is allocated per
+    # group of this many tokens
+    group_size: int = 2048
+    sharding: str = "expert"
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
+
+
+@dataclass(frozen=True)
 class SSMConfig:  # Mamba-1
     d_state: int = 16
     d_conv: int = 4
@@ -47,15 +66,16 @@ class RGLRUConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # dense | ssm | hybrid
+    family: str                     # dense | ssm | moe | hybrid
     n_layers: int
     d_model: int
     n_heads: int
     n_kv_heads: int
     head_dim: int
-    d_ff: int                       # dense FFN hidden (0 for attention-free)
+    d_ff: int                       # dense FFN hidden (0 for attention-free / MoE)
     vocab_size: int
     layer_pattern: Tuple[str, ...] = (ATTN,)
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     rope_type: str = "standard"     # standard | none (sinusoidal positions)
@@ -108,6 +128,8 @@ class ArchConfig:
         if (any(k in (ATTN_SWA, ATTN_LOCAL) for k in self.layer_pattern)
                 and self.sliding_window <= 0):
             raise ValueError(f"{self.name}: windowed layers need sliding_window > 0")
+        if self.moe is not None and not 1 <= self.moe.top_k <= self.moe.n_experts:
+            raise ValueError(f"{self.name}: MoE top_k must be in [1, n_experts]")
         if self.rope_type not in ("standard", "none"):
             raise ValueError(f"{self.name}: rope_type {self.rope_type!r} is not ported")
 
@@ -126,6 +148,12 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
     while n_heads % n_kv:
         n_kv -= 1
     head_dim = max(8, d_model // max(n_heads, 1))
+    moe = cfg.moe
+    if moe is not None:
+        moe = dataclasses.replace(
+            moe, n_experts=min(4, moe.n_experts), top_k=min(2, moe.top_k),
+            d_ff=min(64, moe.d_ff),
+            n_shared_experts=min(1, moe.n_shared_experts))
     rglru = cfg.rglru
     if rglru is not None:
         rglru = dataclasses.replace(
@@ -133,7 +161,7 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
     return cfg.replace(
         n_layers=n_layers, d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv,
         head_dim=head_dim, d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
-        vocab_size=min(cfg.vocab_size, 512), rglru=rglru,
+        vocab_size=min(cfg.vocab_size, 512), moe=moe, rglru=rglru,
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
         long_context_window=min(cfg.long_context_window, 64)
         if cfg.long_context_window else 0,
@@ -142,6 +170,7 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
 
 
 ARCH_IDS = ("llama3.2-1b", "falcon-mamba-7b", "recurrentgemma-9b",
+            "granite-moe-3b-a800m", "moonshot-v1-16b-a3b", "mixtral-8x22b",
             "resnet50")  # the paper's own benchmark model (CNN family)
 
 

@@ -6,7 +6,9 @@ The port's LM keeps the JAX package's tree: {"embed": {"tok"}, "blocks":
 [unstacked remainder layers], "final_norm": {"scale"}, optionally "unembed":
 {"w"}}, weights in the (in, out) layout. So every leaf maps to a tensor of
 the same shape and dtype at the same path, whatever the tree (a DASO carry
-with its leading replica axis, an optimizer state). bf16 leaves arrive as
+with its leading replica axis, an optimizer state). An MoE block's leaves
+("moe": {"router", "we1", "we3", "we2", optionally "shared"}, "moe_norm")
+come across the same way: the router stays f32 beside bf16 experts. bf16 leaves arrive as
 numpy arrays of the ml_dtypes bfloat16 type, which torch cannot read; they go
 through f32, which is exact both ways.
 

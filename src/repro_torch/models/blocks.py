@@ -1,5 +1,5 @@
-"""Residual block assembly: mixer (attention / mamba / RG-LRU) + dense SwiGLU
-FFN."""
+"""Residual block assembly: mixer (attention / mamba / RG-LRU) + FFN (dense
+SwiGLU or mixture of experts)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,7 +11,10 @@ from repro_torch.configs.base import (ATTENTION_KINDS, ATTN, ATTN_LOCAL, ATTN_SW
 from repro_torch.models.attention import attn_apply, init_attn
 from repro_torch.models.common import dense_init, rms_norm, silu_mlp
 from repro_torch.models.mamba import init_mamba, init_mamba_cache, mamba_apply
+from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.rglru import init_rglru, init_rglru_cache, rglru_apply
+
+ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0, "moe_drop_frac": 0.0}
 
 
 def _init_ffn(generator, cfg, dtype, device):
@@ -31,7 +34,9 @@ def _check_kind(kind):
 
 
 def _has_ffn(cfg, kind) -> bool:
-    return kind != MAMBA and cfg.d_ff > 0
+    """A dense FFN or, when the config has one, the MoE (whose configs set
+    d_ff = 0)."""
+    return kind != MAMBA and (cfg.d_ff > 0 or cfg.moe is not None)
 
 
 def init_block(generator, cfg, kind, dtype, device):
@@ -43,7 +48,11 @@ def init_block(generator, cfg, kind, dtype, device):
     else:
         p = {"attn": init_attn(generator, cfg, dtype, device)}
     if _has_ffn(cfg, kind):
-        p["ffn"] = _init_ffn(generator, cfg, dtype, device)
+        if cfg.moe is not None:
+            p["moe"] = init_moe(generator, cfg, dtype, device)
+            p["moe_norm"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+        else:
+            p["ffn"] = _init_ffn(generator, cfg, dtype, device)
     return p
 
 
@@ -70,7 +79,9 @@ def block_window(cfg, kind, window_override: int) -> int:
 def apply_block(kind, p, x, positions, cfg, *, cache: Optional[dict] = None,
                 pos: Optional[int] = None, window_override: int = 0,
                 attn_impl: str = "kernel"):
-    """x (B,S,D) -> (x, cache); the cache tensors are written in place."""
+    """x (B,S,D) -> (x, cache, aux); the cache tensors are written in place.
+    aux: the MoE's losses and drop fraction (tensors), `ZERO_AUX` (Python
+    zeros, as the reference's) for a block without MoE."""
     _check_kind(kind)
     if kind == MAMBA:
         h = rms_norm(x, p["mamba"]["norm"], cfg.norm_eps)
@@ -83,7 +94,13 @@ def apply_block(kind, p, x, positions, cfg, *, cache: Optional[dict] = None,
                                   window=block_window(cfg, kind, window_override),
                                   cache=cache, pos=pos, impl=attn_impl)
     x = x + delta
+    aux = ZERO_AUX
     if _has_ffn(cfg, kind):
-        h = rms_norm(x, p["ffn"]["norm"], cfg.norm_eps)
-        x = x + silu_mlp(h, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
-    return x, cache
+        if cfg.moe is not None:
+            h = rms_norm(x, p["moe_norm"], cfg.norm_eps)
+            delta, aux = moe_apply(p["moe"], h, cfg)
+            x = x + delta
+        else:
+            h = rms_norm(x, p["ffn"]["norm"], cfg.norm_eps)
+            x = x + silu_mlp(h, p["ffn"]["w1"], p["ffn"]["w3"], p["ffn"]["w2"])
+    return x, cache, aux

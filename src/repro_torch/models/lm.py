@@ -13,7 +13,7 @@ Entry points:
   init_params(cfg, generator, device)           -> params dict
   init_cache(cfg, batch, cache_len, device=...) -> {"groups", "rem"}
   layer_views(cfg, params, cache=None)          -> per-layer views, in order
-  forward(params, tokens, cfg, ...)             -> {"logits", "cache"}
+  forward(params, tokens, cfg, ...)             -> {"logits", "aux", "cache"}
 """
 from __future__ import annotations
 
@@ -22,8 +22,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.blocks import (apply_block, block_window, init_block,
-                                       init_block_cache)
+from repro_torch.models.blocks import (ZERO_AUX, apply_block, block_window,
+                                       init_block, init_block_cache)
 from repro_torch.models.common import (dense_init, embed_init, rms_norm,
                                        sinusoidal_positions)
 from repro_torch.tree import tree_map
@@ -113,12 +113,40 @@ def layer_views(cfg: ArchConfig, params, cache=None):
     return out
 
 
+def _acc_aux(acc, aux):
+    """The reference's running sum of the layers' aux (`_acc_aux` from f32
+    zeros). A block without MoE gives Python zeros, which add nothing and
+    launch nothing; the first tensor term starts the f32 sum (0 + a is a,
+    exactly), so the sum is the reference's term for term."""
+    if aux is ZERO_AUX:
+        return acc
+    if acc is None:
+        return {k: v.float() for k, v in aux.items()}
+    return {k: acc[k] + aux[k] for k in acc}
+
+
+_ZEROS = {}
+
+
+def _zero_aux(device):
+    """The aux of a model without MoE: f32 zeros, one 0-d tensor per device
+    made once and shared (read only), so a dense forward, each decode step
+    among them, launches nothing for an aux the Engine never reads."""
+    zero = _ZEROS.get(device)
+    if zero is None:
+        with torch.inference_mode(False):
+            zero = _ZEROS[device] = torch.zeros((), dtype=torch.float32, device=device)
+    return dict.fromkeys(ZERO_AUX, zero)
+
+
 def forward(params, tokens, cfg: ArchConfig, *,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[dict] = None, pos: Optional[int] = None,
             window_override: int = 0, attn_impl: str = "kernel",
             layers: Optional[list] = None):
-    """tokens (B, S) int. Returns {"logits" (B,S,V), "cache"}.
+    """tokens (B, S) int. Returns {"logits" (B,S,V), "aux", "cache"}; aux
+    sums each MoE layer's losses and drop fraction over the layers (shared
+    f32 zeros for a model without MoE, `_zero_aux`).
 
     Prefill: cache from `init_cache`, filled in place. Decode: tokens (B,1),
     cache and pos (absolute position of the token) given. `layers`:
@@ -134,12 +162,16 @@ def forward(params, tokens, cfg: ArchConfig, *,
         x = x + sinusoidal_positions(positions, D).to(x.dtype)
     if layers is None:
         layers = layer_views(cfg, params, cache)
+    aux = None
     for kind, p, c in layers:
-        x, _ = apply_block(kind, p, x, positions, cfg, cache=c, pos=pos,
-                           window_override=window_override, attn_impl=attn_impl)
+        x, _, a = apply_block(kind, p, x, positions, cfg, cache=c, pos=pos,
+                              window_override=window_override, attn_impl=attn_impl)
+        aux = _acc_aux(aux, a)
+    if aux is None:
+        aux = _zero_aux(x.device)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["tok"].T
     else:
         logits = x @ params["unembed"]["w"]
-    return {"logits": logits, "cache": cache}
+    return {"logits": logits, "aux": aux, "cache": cache}

@@ -14,19 +14,20 @@ def make_lm_loss(cfg: ArchConfig):
     """loss_fn(params, batch) -> (total_loss, aux). batch: tokens (B,S),
     labels (B,S) (-1 = ignore), optional positions.
 
-    Attention runs the plain `multihead_attention` (`attn_impl="plain"`),
-    differentiated by autograd, as the JAX package trains through its jnp
-    attention: K1 has no backward. The dense models of the port have no
-    MoE losses; `aux` keeps them at zero so the total matches the
-    reference's."""
+    total = cross-entropy + the MoE's load-balance and router z losses,
+    summed over the layers by `forward` (zeros for a model without MoE);
+    aux holds those two, the drop fraction and "ce". Attention runs the
+    plain `multihead_attention` (`attn_impl="plain"`), differentiated by
+    autograd, as the JAX package trains through its jnp attention: K1 has
+    no backward."""
     def loss_fn(params, batch):
         out = forward(params, batch["tokens"], cfg,
                       positions=batch.get("positions"), attn_impl="plain")
         ce = cross_entropy_loss(out["logits"], batch["labels"])
-        zero = torch.zeros((), dtype=torch.float32, device=ce.device)
-        aux = {"moe_lb_loss": zero, "moe_z_loss": zero, "moe_drop_frac": zero,
-               "ce": ce}
-        return ce + aux["moe_lb_loss"] + aux["moe_z_loss"], aux
+        aux = dict(out["aux"])
+        total = ce + aux["moe_lb_loss"] + aux["moe_z_loss"]
+        aux["ce"] = ce
+        return total, aux
 
     return loss_fn
 
