@@ -100,6 +100,41 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                blocking step, the loss falls, every step's mean load-balance
                and z losses finite and non-zero; ms per step by cycle shape,
                peak, wire bytes per exchange, the drop fraction per layer
+  serve_dense128
+               qwen3-8b (qk-norm, GQA 32 / 8) and minitron-8b (GQA 32 / 8,
+               vocab 256000) at their published size (36 and 32 layers,
+               head_dim 128, bf16, seeded random weights): batch 4, prompt
+               1024, a warm-up, 3 timed prefills and 32 new greedy tokens
+               through Engine.generate; K1 launches n_layers per prefill and
+               none in decode; the timed prefill's last logits held as
+               serve_moe holds them, without a routing to pin (`dense_hold`:
+               no farther from the plain f32 forward than the plain bf16
+               forward plus 8 ulps, that distance under 4 + layers / 2 ulps,
+               and at 4 layers the two bf16 paths within 8 ulps of each
+               other); the f32 forward at full depth where its weights fit
+               beside the bf16 ones (`f32_depth`), else at the deepest depth
+               that fits, with the cut in `reduced`; prefill + decode
+               against a teacher-forced forward in f32 with 2 layers
+  serve_prefix qwen2-vl-2b (M-RoPE, GQA 12 / 2, tied, a 256-row stub prefix)
+               and musicgen-large (MHA 32 / 32 at head_dim 64, sinusoidal
+               positions, a 64-row stub prefix) at their published size (28
+               and 48 layers, bf16): as serve_dense128 with seeded stub
+               prefixes 0.1 x N(0, 1) in bf16 through
+               Engine.generate(..., prefix_embeds=), K1 at Sq = Sk = 1280 and
+               1088 (ragged against the D = 64 kernel's 128-row tile); for
+               qwen2-vl also one prefill on explicit (B, S, 3) positions whose
+               streams differ (the stub's 16 x 16 grid, t = 0, h = row, w =
+               col, then the text on all three), held by the same rules
+               (equal streams make M-RoPE plain RoPE, so the Engine's own
+               positions never exercise the sections); the f32 2-layer
+               check with the prefix
+  train_vlm    run_training with DASO on qwen2-vl-2b at full width, 4 of its
+               28 layers, f32, with the train cell's settings and 24 steps on
+               the macro executor, each replica's batch 2 x 256 tokens after
+               a seeded 256-row stub prefix (labels -1 over the prefix): K2
+               per receive and K3 per blocking step, the loss falls, the carry
+               finite; ms per step by cycle shape, peak, wire bytes per
+               exchange
   train_check  at full width (1 layer, f32, R = 4): a receive and a blocking
                step, an int8 send and an int8 blocking step, and an ov_sync
                step with extra staleness 1 (int8), each through the kernels,
@@ -142,7 +177,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                directory, merged at the end): the carry bit for bit the
                per-step run's and the losses bit for bit the untraced
                macro run's, the same launches; every event valid and the
-               merged file sorted; the cycle spans' steps add to 40 and
+               merged file sorted; the cycle spans' steps add to 32 and
                their per-level syncs to level_sync_counts; one compile
                instant per program built; one span of each overlap leg per
                overlap cycle; each cycle span at least its cycle's seconds;
@@ -240,7 +275,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                runs the launcher's train cell at full width, 1 of 16 layers,
                f32, on chip:4 x host:2@50e9 x pod:2@25e9 (the host syncs stay
                in a process, the pod exchange crosses processes over gloo),
-               16 steps, --ckpt at the end, once with 1 process and once with
+               10 steps, --ckpt at the end, once with 1 process and once with
                2 sharing the card; the second phase on the int8 wire with
                --overlap one_cycle --dispatch overlap (each ov_sync's gather
                on a helper thread beside the cycle's local steps). The losses,
@@ -301,11 +336,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                wire_roundtrip launches K3 and K4 once each; K2 to K4 bit
                for bit their plain versions there, with ms and bounds
   launch_ablation
-               python -m repro_torch.launch.ablation --steps 24 on the card
+               python -m repro_torch.launch.ablation --steps 12 on the card
                (the CNN's entry point): exits 0, prints every run, and the
                macro and per-step loss traces are equal
   train        run_training with DASO on llama3.2-1b at full width, 4 of its
-               16 layers, f32, R = 4 replicas: 40 steps on the per-step
+               16 layers, f32, R = 4 replicas: 32 steps on the per-step
                executor, K2 and K3 launches held to the schedule's receive
                and blocking steps, step time by mode, peak memory
   train_macro  the train cell through the macro-cycle executor (the
@@ -431,6 +466,14 @@ MOE_VARIANTS, MOE_VARIANT_LAYERS = ("moonshot-v1-16b-a3b", "mixtral-8x22b"), 2
 # the dense cells' rule between the two bf16 paths, MOE_SLACK_ULPS. serve_moe
 # also holds granite's first MOE_SWEEP_DEPTHS layers by the same rules.
 MOE_SLACK_ULPS, MOE_PAIR_LAYERS, MOE_SWEEP_DEPTHS = 8, 4, (2, 4, 8, 16)
+# the dense head_dim 128 cells and the prefix cells, at their published size
+DENSE128_ARCHS = ("qwen3-8b", "minitron-8b")
+PREFIX_ARCHS = ("qwen2-vl-2b", "musicgen-large")
+VLM_ARCH, VLM_STEPS = "qwen2-vl-2b", 24
+# what an f32 plain forward needs beside its weights at batch 4, prompt
+# 1024 (f32 logits over a 256000-token vocabulary take 4.2 GB): `f32_depth`
+# keeps this much of the card free
+F32_WORK_BYTES = 12e9
 RING_PROMPT, RING_NEW = 3072, 8  # past recurrentgemma-9b's 2048-slot window
 BATCH, PROMPT, NEW = 4, 1024, 32
 # H100 SXM published dense peaks (NVIDIA data sheet)
@@ -441,9 +484,11 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}  # tests/test_kernels.py
 # train phase: llama3.2-1b at its published widths, depth cut for memory.
 # lr: the quickstart's 0.05 (tuned at d_model 128) diverges at this width
 # with sgd(0.9, 1e-4) (NaN by step 34), 0.02 oscillates, 0.01 trains
-# noisily, 0.005 trains smoothly (PERF.md, Findings)
+# noisily, 0.005 trains smoothly (PERF.md, Findings). Steps: 32 (40 until the
+# dense and prefix cells joined the script; the wall's budget, PERF.md §7)
+# still give warm-up, cycling and cool-down phases (3 + 26 + 3 steps)
 TRAIN_LAYERS, TRAIN_R, TRAIN_LOCAL_WORLD, TRAIN_B_MAX = 4, 4, 4, 4
-TRAIN_STEPS, TRAIN_SEQ, TRAIN_PER, TRAIN_LR = 40, 256, 2, 0.005
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_PER, TRAIN_LR = 32, 256, 2, 0.005
 
 KERNELS = [{
     "name": "flash_attention_fwd",
@@ -564,6 +609,14 @@ CHECKS = [
     ("granite_shape_bf16", 4, 24, 8, 1024, 1024, 64, torch.bfloat16, 0, True),
     ("granite_shape_f32", 4, 24, 8, 1024, 1024, 64, torch.float32, 0, True),
     ("sk1_bf16", 2, 8, 2, 1, 1, 64, torch.bfloat16, 0, True),
+    # the prefills of serve_dense128 and serve_prefix: qwen3-8b and
+    # minitron-8b (GQA 32 / 8, head_dim 128), qwen2-vl-2b (GQA 12 / 2, a
+    # group of 6, prefix 256 + prompt 1024) and musicgen-large (MHA at
+    # head_dim 64, prefix 64 + prompt 1024: ragged against the 128-row tile)
+    ("qwen3_shape_bf16", 4, 32, 8, 1024, 1024, 128, torch.bfloat16, 0, True),
+    ("minitron_shape_bf16", 4, 32, 8, 1024, 1024, 128, torch.bfloat16, 0, True),
+    ("qwen2vl_prefix_shape_bf16", 4, 12, 2, 1280, 1280, 128, torch.bfloat16, 0, True),
+    ("musicgen_prefix_shape_bf16", 4, 32, 32, 1088, 1088, 64, torch.bfloat16, 0, True),
 ]
 
 
@@ -830,28 +883,31 @@ def serve_f32_check(cfg, n_layers, seed, want):
     """Prefill through the kernels + 6 decode steps against a teacher-forced
     forward through plain attention and the plain scans, f32 (TF32 off),
     full width, `n_layers` layers, at tests/test_serve.py's 2e-3. `want`:
-    the launches of the prefill (decode launches none)."""
+    the launches of the prefill (decode launches none). A config with a
+    stub prefix (`prefix_embed_len`) takes a seeded one, 0.1 x N(0, 1),
+    before the tokens, as tests/test_serve.py does."""
     cfg = cfg.replace(n_layers=n_layers, param_dtype=torch.float32,
                       compute_dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_params(cfg, gen, "cuda")
-    B, S, S0 = 2, 256, 250
+    B, S, S0, P = 2, 256, 250, cfg.prefix_embed_len
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    pe = stub_prefix(cfg, B, gen, torch.float32)
     with torch.inference_mode():
         with plain_scan():
-            full = forward(params, toks, cfg, attn_impl="plain")["logits"]
+            full = forward(params, toks, cfg, attn_impl="plain", prefix_embeds=pe)["logits"]
         zero_counts()
-        st = make_prefill_fn(cfg, cache_len=S)(params, toks[:, :S0])
+        st = make_prefill_fn(cfg, cache_len=P + S)(params, toks[:, :S0], prefix_embeds=pe)
         per_prefill = counts()
         zero_counts()
         decode = make_decode_fn(cfg)
         cache, logits = st["cache"], [st["logits_last"]]
         for i in range(S - S0):
-            out = decode(params, cache, toks[:, S0 + i:S0 + i + 1], S0 + i)
+            out = decode(params, cache, toks[:, S0 + i:S0 + i + 1], P + S0 + i)
             logits.append(out["logits"])
             cache = out["cache"]
         in_decode = counts()
-        errs = [(full[:, S0 - 1 + i] - lg).abs().max().item()
+        errs = [(full[:, P + S0 - 1 + i] - lg).abs().max().item()
                 for i, lg in enumerate(logits)]
     del params, full, cache, st
     torch.cuda.empty_cache()
@@ -862,7 +918,17 @@ def serve_f32_check(cfg, n_layers, seed, want):
     if not max(errs) < 2e-3:
         raise AssertionError(f"f32 prefill/decode vs teacher forcing: {errs}")
     return {"max_abs_err": max(errs), "tolerance": 2e-3, "steps": len(errs),
-            "layers": n_layers, "launches_per_prefill": want}
+            "layers": n_layers, "prefix": P, "launches_per_prefill": want}
+
+
+def stub_prefix(cfg, batch, gen, dtype):
+    """The vlm / audio frontend's stub: 0.1 x N(0, 1) embeddings (batch,
+    prefix_embed_len, d_model) from `gen`, as the reference's tests make
+    them; None for a config without a prefix."""
+    if not cfg.prefix_embed_len:
+        return None
+    return (0.1 * torch.randn((batch, cfg.prefix_embed_len, cfg.d_model), generator=gen,
+                              device="cuda")).to(dtype)
 
 
 # K7 checks: (name, B, S, Di, N, dtype, random h0, dt_rank: Bm / Cm as column
@@ -974,9 +1040,12 @@ def plain_hold(cfg, params, prompts, prefill, st):
 
 def serve_cell(cfg, seed, want_prefill, decode_bytes, hold=plain_hold):
     """Engine.generate at full size from seeded weights: batch BATCH, prompt
-    PROMPT, NEW greedy tokens after a 2-token warm-up. Launches are counted
-    per generate, per prefill (`want_prefill`, the other kernels none) and
-    in decode (none); the prefill and the decode steps are timed apart. The
+    PROMPT, NEW greedy tokens after a 2-token warm-up; a config with a stub
+    prefix (`prefix_embed_len`) takes a seeded one in bf16 (`stub_prefix`)
+    before every prompt, and `hold` gets it as `prefix`. Launches are
+    counted per generate, per prefill (`want_prefill`, the other kernels
+    none) and in decode (none); three prefills are timed (the median
+    reported), then the decode steps. The
     prefill's bf16 last logits are held by `hold`: by default against a
     teacher-forced forward through plain attention and the plain scans
     (`plain_hold`; `pinned_hold` for MoE): both round the mixers' outputs,
@@ -989,14 +1058,15 @@ def serve_cell(cfg, seed, want_prefill, decode_bytes, hold=plain_hold):
     n_params = sum(x.numel() for x in leaves(params))
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
                             device="cuda")
-    eng = Engine(cfg, params, max_len=PROMPT + NEW, device="cuda")
-    eng.generate(prompts, 2)  # warm-up: kernel load, cuBLAS handles
+    pe, P = stub_prefix(cfg, BATCH, gen, cfg.compute_dtype), cfg.prefix_embed_len
+    eng = Engine(cfg, params, max_len=P + PROMPT + NEW, device="cuda")
+    eng.generate(prompts, 2, prefix_embeds=pe)  # warm-up: kernel load, cuBLAS handles
     sync()
     torch.cuda.reset_peak_memory_stats()
 
     zero_counts()
     t0 = time.perf_counter()
-    tokens = eng.generate(prompts, NEW)
+    tokens = eng.generate(prompts, NEW, prefix_embeds=pe)
     sync()
     gen_s = time.perf_counter() - t0
     per_generate = counts()
@@ -1005,27 +1075,32 @@ def serve_cell(cfg, seed, want_prefill, decode_bytes, hold=plain_hold):
         raise AssertionError(f"bad tokens {tokens.shape} {tokens.dtype}")
 
     with torch.inference_mode():
-        prefill = make_prefill_fn(cfg, cache_len=PROMPT + NEW)
+        prefill = make_prefill_fn(cfg, cache_len=P + PROMPT + NEW)
         decode = make_decode_fn(cfg)
         sync()
-        zero_counts()
-        t0 = time.perf_counter()
-        st = prefill(params, prompts)
-        sync()
-        prefill_ms = 1e3 * (time.perf_counter() - t0)
-        per_prefill = counts()
+        times = []
+        for _ in range(3):
+            st = None
+            zero_counts()
+            t0 = time.perf_counter()
+            st = prefill(params, prompts, prefix_embeds=pe)
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+            per_prefill = counts()
+        prefill_ms = statistics.median(times)
         zero_counts()
         cache, nxt = st["cache"], st["logits_last"].argmax(-1, keepdim=True)
         t0 = time.perf_counter()
         for i in range(NEW - 1):
-            nxt = decode(params, cache, nxt, PROMPT + i)["logits"].argmax(-1, keepdim=True)
+            nxt = decode(params, cache, nxt, P + PROMPT + i)["logits"].argmax(-1, keepdim=True)
         sync()
         decode_ms = 1e3 * (time.perf_counter() - t0) / (NEW - 1)
         in_decode = counts()
         peak = torch.cuda.max_memory_allocated()
         n_bytes = decode_bytes(params, cache)
 
-        got, err, tol, held = hold(cfg, params, prompts, prefill, st)
+        got, err, tol, held = hold(cfg, params, prompts, prefill, st,
+                                   **({} if pe is None else {"prefix": pe}))
         del prefill, decode
         finite = bool(torch.isfinite(got).all())
         # random weights: the logits must still depend on the prompt (with
@@ -1045,6 +1120,7 @@ def serve_cell(cfg, seed, want_prefill, decode_bytes, hold=plain_hold):
         raise AssertionError(f"bf16 prefill logits: max err {err} > {tol} (finite={finite})")
     row = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": "bfloat16",
            "params": n_params, "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW,
+           "prefix": P, "prefill_ms_all": times,
            "launches_per_generate": per_generate, "launches_per_prefill": per_prefill,
            "launches_in_decode": in_decode,
            "generate_s": gen_s, "tokens_per_s": BATCH * NEW / gen_s,
@@ -1253,22 +1329,26 @@ def plain_bf16_ceiling_ulps(n_layers):
     return 4 + n_layers / 2
 
 
-def pinned_distances(cfg, params, params_f32, prompts, kernel_last, kernel_idx, n_layers):
+def pinned_distances(cfg, params, params_f32, prompts, kernel_last, kernel_idx, n_layers,
+                     **fwd):
     """The first `n_layers` layers' plain forwards in bf16 and in f32 (the
-    same weights upcast), both on the kernel path's routing `kernel_idx`,
-    against the kernel path's bf16 last logits `kernel_last`. Returns (the
-    distances in ulps of the f32 forward's largest last logit, the kernel
-    path's error against f32, the plain bf16 forward's aux)."""
-    f32 = cfg.replace(param_dtype=torch.float32, compute_dtype=torch.float32)
+    same weights upcast; `params_f32` may hold only those layers), both on
+    the kernel path's routing `kernel_idx` (empty for a model without MoE),
+    against the kernel path's bf16 last logits `kernel_last`. `fwd`: the
+    forwards' prefix_embeds / positions. Returns (the distances in ulps of
+    the f32 forward's largest last logit, the kernel path's error against
+    f32, the plain bf16 forward's aux)."""
+    f32 = cfg.replace(n_layers=n_layers, param_dtype=torch.float32,
+                      compute_dtype=torch.float32)
     with routing(replay=kernel_idx):
         out = forward(params, prompts, cfg, attn_impl="plain",
-                      layers=layer_views(cfg, params)[:n_layers])
+                      layers=layer_views(cfg, params)[:n_layers], **fwd)
     plain = out["logits"][:, -1].float()
     aux = {k: v.item() for k, v in out["aux"].items()}
     del out
     with routing(replay=kernel_idx):
         want = forward(params_f32, prompts, f32, attn_impl="plain",
-                       layers=layer_views(f32, params_f32)[:n_layers])["logits"][:, -1]
+                       layers=layer_views(f32, params_f32)[:n_layers], **fwd)["logits"][:, -1]
     peak = want.abs().max().item()
     ulp = bf16_ulp(peak)
     err = (kernel_last - want).abs().max().item()
@@ -1449,6 +1529,229 @@ def phase_serve_moe_variants():
             raise AssertionError(f"{arch} bf16 prefill logits: max err {err} > {tol}")
     emit({"phase": "serve_moe_variants", "cells": cells})
     return launches
+
+
+def f32_depth(cfg, params):
+    """The deepest first-layers cut whose weights, upcast to f32, fit in the
+    card's free memory beside what is there (the bf16 weights, the Engine's
+    cache) with F32_WORK_BYTES to spare: `cfg.n_layers` where all fit. The
+    layers are one stacked pattern slot (a dense or prefix config)."""
+    if len(params["blocks"]) != 1 or params["rem"]:
+        raise AssertionError(f"{cfg.name}: f32_depth takes one stacked pattern slot")
+    per_layer = sum(x[0].numel() for x in leaves(params["blocks"])) * 4
+    rest = sum(x.numel() for k, v in params.items() if k not in ("blocks", "rem")
+               for x in leaves(v)) * 4
+    free = torch.cuda.mem_get_info()[0]
+    return max(0, min(cfg.n_layers, int((free - F32_WORK_BYTES - rest) // per_layer)))
+
+
+def f32_first_layers(params, n):
+    """The weights of the first `n` layers (one stacked slot) and the rest,
+    upcast to f32."""
+    out = {k: tree_map(lambda x: x.float(), v) for k, v in params.items()
+           if k not in ("blocks", "rem")}
+    out["blocks"] = [tree_map(lambda x: x[:n].float(), b) for b in params["blocks"]]
+    out["rem"] = []
+    return out
+
+
+def dense_hold(cfg, params, prompts, prefill, st, prefix=None, positions=None):
+    """serve_moe's hold without a routing to pin (`pinned_faults` on the
+    distances of `pinned_distances`): the kernel path's bf16 last logits no
+    farther from the plain f32 forward than the plain bf16 forward plus
+    MOE_SLACK_ULPS, that distance within `plain_bf16_ceiling_ulps`, and at
+    MOE_PAIR_LAYERS layers the two bf16 paths within MOE_SLACK_ULPS of each
+    other. The f32 forward runs at `f32_depth`: at full depth where the
+    upcast weights fit, else on the first that many layers, held against
+    the kernel forward of those layers (the cut is in the row's "reduced").
+    `prefix` / `positions` go to every forward, as the prefill took them.
+    Returns (the prefill's last logits, max abs error against the f32
+    forward, its tolerance, row additions)."""
+    fwd = {"prefix_embeds": prefix, "positions": positions}
+    got = st["logits_last"].float()
+    n = f32_depth(cfg, params)
+    if n < MOE_PAIR_LAYERS:
+        raise AssertionError(f"{cfg.name}: {n} f32 layers fit beside the bf16 weights")
+
+    def kernel_last(depth):
+        if depth == cfg.n_layers:
+            return got
+        return forward(params, prompts, cfg, layers=layer_views(cfg, params)[:depth],
+                       **fwd)["logits"][:, -1].float()
+
+    params_f32 = f32_first_layers(params, n)
+    dist, err, _ = pinned_distances(cfg, params, params_f32, prompts, kernel_last(n), [],
+                                    n, **fwd)
+    pair = pinned_distances(cfg, params, params_f32, prompts, kernel_last(MOE_PAIR_LAYERS),
+                            [], MOE_PAIR_LAYERS, **fwd)[0]
+    del params_f32
+    torch.cuda.empty_cache()
+    faults = {d["layers"]: f for d in (pair, dist) if (f := pinned_faults(d))}
+    held = {"reference": "the plain forward in f32 (weights upcast)",
+            "f32_layers": n, "max_abs_logit": dist["max_abs_logit"], "ulp": dist["ulp"],
+            "bf16_kernel_vs_f32_ulps": dist["kernel_vs_f32_ulps"],
+            "bf16_plain_vs_f32_ulps": dist["plain_vs_f32_ulps"],
+            "bf16_kernel_vs_plain_ulps": dist["kernel_vs_plain_ulps"],
+            "plain_bf16_ceiling_ulps": plain_bf16_ceiling_ulps(n),
+            "pair_rule_depth": pair, "dense_faults": faults}
+    if n < cfg.n_layers:
+        held["reduced"] = {"f32_reference_layers": [cfg.n_layers, n],
+                           "why": "memory: the f32 weights of every layer do not fit "
+                                  "beside the bf16 ones"}
+    if faults:
+        emit({"phase": "dense_hold", "arch": cfg.name, "failed": held})
+        raise AssertionError(f"{cfg.name} dense hold: {faults}")
+    tol = (dist["plain_vs_f32_ulps"] + MOE_SLACK_ULPS) * dist["ulp"]
+    return got, err, tol, held
+
+
+def lm_decode_bytes(params, cache):
+    """What one decode step of an attention LM must move: every weight once
+    (of a separate token embedding table only the batch's rows) and the KV
+    cache."""
+    tok = params["embed"]["tok"]
+    unread = 0 if "unembed" not in params else (
+        tensor_bytes(tok) - BATCH * tok[0].numel() * tok.element_size())
+    return tensor_bytes(params) - unread + tensor_bytes(cache)
+
+
+def dense_widths(cfg):
+    return {"d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+            "tie_embeddings": cfg.tie_embeddings, "qk_norm": cfg.qk_norm,
+            "rope_type": cfg.rope_type, "rope_theta": cfg.rope_theta,
+            "prefix_embed_len": cfg.prefix_embed_len}
+
+
+def dense_cell(arch, seed):
+    """One config at its published size through serve_cell (`dense_hold`)
+    and the f32 2-layer prefill + decode check.
+    Returns (the row, params, the generator)."""
+    cfg = get_config(arch)
+    row, params, gen = serve_cell(cfg, seed, {"flash_attention_fwd": cfg.n_layers},
+                                  lm_decode_bytes, hold=dense_hold)
+    row["widths"] = dense_widths(cfg)
+    row["f32_2layer"] = serve_f32_check(cfg, 2, seed + 1, {"flash_attention_fwd": 2})
+    return row, params, gen
+
+
+def phase_serve_dense128():
+    """qwen3-8b and minitron-8b at their published size (`dense_cell`).
+    Returns {arch: launches per prefill}."""
+    cells, launches = [], {}
+    for i, arch in enumerate(DENSE128_ARCHS):
+        row, params, _ = dense_cell(arch, 40 + 2 * i)
+        del params
+        torch.cuda.empty_cache()
+        cells.append(row)
+        launches[arch] = row["launches_per_prefill"]
+    emit({"phase": "serve_dense128", "cells": cells})
+    return launches
+
+
+def mrope_grid_positions(batch, prefix, prompt, gen):
+    """(B, S, 3) positions whose streams differ: the stub prefix as a
+    square grid (t = 0, h = row, w = col), then the text counting on from
+    the grid's largest on all three streams, each row offset by a seeded
+    0..3 (so rows differ too)."""
+    side = math.isqrt(prefix)
+    if side * side != prefix:
+        raise AssertionError(f"a {prefix}-row prefix is not a square grid")
+    i = torch.arange(prefix, device="cuda")
+    grid = torch.stack([torch.zeros_like(i), i // side, i % side], -1)
+    text = side + torch.arange(prompt, device="cuda")[:, None].expand(prompt, 3)
+    pos = torch.cat([grid, text])[None] + torch.randint(
+        0, 4, (batch, 1, 1), generator=gen, device="cuda")
+    return pos.to(torch.int32)
+
+
+def mrope_streams_check(cfg, params, gen):
+    """One kernel-path prefill of `cfg` (M-RoPE) on `mrope_grid_positions`,
+    held by `dense_hold` against the plain forwards on the same positions;
+    K1 launches n_layers times."""
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                            device="cuda")
+    pe = stub_prefix(cfg, BATCH, gen, cfg.compute_dtype)
+    pos = mrope_grid_positions(BATCH, cfg.prefix_embed_len, PROMPT, gen)
+    prefill = make_prefill_fn(cfg, cache_len=cfg.prefix_embed_len + PROMPT)
+    with torch.inference_mode():
+        zero_counts()
+        st = prefill(params, prompts, prefix_embeds=pe, positions=pos)
+        launches = counts()
+        got, err, tol, held = dense_hold(cfg, params, prompts, prefill, st, prefix=pe,
+                                         positions=pos)
+        finite = bool(torch.isfinite(got).all())
+        # the sections matter: the same prefill on the Engine's tiled positions
+        tiled = prefill(params, prompts, prefix_embeds=pe)["logits_last"].float()
+        moved = (tiled - got).abs().max().item()
+    none = {k["name"]: 0 for k in KERNELS}
+    row = {"positions": "stub as a 16 x 16 grid (t = 0, h = row, w = col), then text "
+                        "on all three streams, rows offset by a seeded 0..3",
+           "distinct_streams": [bool((pos[..., 0] != pos[..., 1]).any()),
+                                bool((pos[..., 1] != pos[..., 2]).any())],
+           "launches_per_prefill": launches, "bf16_last_logits_max_abs_err": err,
+           "bf16_tolerance": tol, "vs_tiled_positions_max_abs_diff": moved, **held}
+    if launches != {**none, "flash_attention_fwd": cfg.n_layers} or not (
+            finite and err <= tol and moved > 0 and all(row["distinct_streams"])):
+        emit({"phase": "serve_prefix", "failed": {"mrope_streams": row}})
+        raise AssertionError(f"{cfg.name} M-RoPE streams prefill: {row}")
+    return row
+
+
+def phase_serve_prefix():
+    """qwen2-vl-2b and musicgen-large at their published size with their
+    stub prefixes (`dense_cell`), and qwen2-vl's prefill on distinct M-RoPE
+    streams (`mrope_streams_check`). Returns {arch: launches per prefill}."""
+    cells, launches = [], {}
+    for i, arch in enumerate(PREFIX_ARCHS):
+        row, params, gen = dense_cell(arch, 50 + 2 * i)
+        if get_config(arch).rope_type == "mrope":
+            row["mrope_streams"] = mrope_streams_check(get_config(arch), params, gen)
+        del params
+        torch.cuda.empty_cache()
+        cells.append(row)
+        launches[arch] = row["launches_per_prefill"]
+    emit({"phase": "serve_prefix", "cells": cells})
+    return launches
+
+
+def dense_timing(check_rows, launches, reports):
+    """K1's lines at the prefills of serve_dense128 and serve_prefix: GQA 32 /
+    8 at head_dim 128 (qwen3-8b, minitron-8b), GQA 12 / 2 at head_dim 128
+    over prefix 256 + prompt 1024 (qwen2-vl-2b) and MHA 32 / 32 at head_dim
+    64 over prefix 64 + prompt 1024 (musicgen-large). SDPA's causal mask is
+    the kernel's at Sq = Sk."""
+    fa, lines = KERNELS[0], []
+    for i, (arch, case) in enumerate((
+            ("qwen3-8b", "qwen3_shape_bf16"), ("minitron-8b", "minitron_shape_bf16"),
+            ("qwen2-vl-2b", "qwen2vl_prefix_shape_bf16"),
+            ("musicgen-large", "musicgen_prefix_shape_bf16"))):
+        cfg = get_config(arch)
+        Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        S = cfg.prefix_embed_len + PROMPT
+        q, k, v = qkv(BATCH, Hq, Hk, S, S, D, torch.bfloat16, seed=60 + i)
+        bound, by = attention_bound_ms(q, k, v, 0)
+        row = next(r for r in check_rows if r["case"] == case)
+        if row["shape"] != [BATCH, Hq, Hk, S, S, D]:
+            raise AssertionError(f"check case {case} is not {arch}'s prefill shape")
+        lines.append({
+            "name": f"flash_attention_fwd_{arch.replace('-', '_').replace('.', '_')}",
+            "route": fa["route"], "source": fa["source"], "replaces": fa["replaces"],
+            "launches": launches[arch][fa["name"]],
+            "max_abs_err": row["max_abs_err"], "tolerance": row["tolerance"],
+            "row_ratio": row["row_ratio"],
+            "ms": cuda_ms(lambda: ops.flash_attention(q, k, v), 50),
+            "plain_ms": cuda_ms(lambda: attention_ref(q, k, v), 10),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=Hq != Hk), 50),
+            "shape": [BATCH, Hq, Hk, S, S, D], "dtype": "bfloat16", "window": 0,
+            "path": f"{'serve_prefix' if cfg.prefix_embed_len else 'serve_dense128'} "
+                    f"{arch} prefill (per prefill)",
+            **k1_extras(reports, q, k, v, 0)})
+        del q, k, v
+    torch.cuda.empty_cache()
+    return lines
 
 
 def full_param_count(cfg):
@@ -1869,6 +2172,26 @@ def cycle_rows(res):
     return rows
 
 
+def prefix_data(data, cfg, seed):
+    """`data` with the config's stub prefix in every replica batch: seeded
+    0.1 x N(0, 1) embeddings (R, PER, prefix_embed_len, d_model) in the
+    compute dtype, drawn per step on the card, and labels -1 over them
+    (the labels cover the spliced length)."""
+    P = cfg.prefix_embed_len
+
+    def with_prefix(step):
+        b = data(step)
+        g = torch.Generator(device="cuda").manual_seed(seed * 1_000_003 + step)
+        b["prefix_embeds"] = (0.1 * torch.randn((TRAIN_R, TRAIN_PER, P, cfg.d_model),
+                                                generator=g, device="cuda")
+                              ).to(cfg.compute_dtype)
+        ignore = torch.full((TRAIN_R, TRAIN_PER, P), -1, dtype=b["labels"].dtype,
+                            device="cuda")
+        b["labels"] = torch.cat([ignore, b["labels"]], -1)
+        return b
+    return with_prefix
+
+
 def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
                     strategy="daso", plan=None, supervise=None, lr=TRAIN_LR,
                     steps=TRAIN_STEPS, arch=ARCH):
@@ -1882,11 +2205,14 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
     run_training. With a fault `plan` the run goes through
     `resilience.run_with_faults` on the macro executor instead (the strategy
     as run_training builds it, `supervise` its extra keyword arguments), and
-    the result is the ResilienceReport. `steps` cuts the run short."""
+    the result is the ResilienceReport. `steps` cuts the run short. A
+    config with a stub prefix takes one in every batch (`prefix_data`)."""
     cfg = train_config(TRAIN_LAYERS, arch)
     params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(x.numel() for x in leaves(params0))
     data = replica_data(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, seed=0))
+    if cfg.prefix_embed_len:
+        data = prefix_data(data, cfg, 0)
     if on_batch is not None:
         make_batch = data
 
@@ -1936,6 +2262,7 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
            "dtype": "float32", "params_per_replica": n_params,
            "replicas": TRAIN_R, "local_world": TRAIN_LOCAL_WORLD, "b_max": TRAIN_B_MAX,
            "lr": lr, "optimizer": "sgd(0.9, 1e-4)", "seq_len": TRAIN_SEQ,
+           "prefix_rows": cfg.prefix_embed_len,
            "seqs_per_replica": TRAIN_PER, "steps": steps,
            "mode_counts": {m: modes.count(m) for m in sorted(set(modes))},
            "controller": type(res.controller).__name__,
@@ -2516,6 +2843,35 @@ def phase_train_moe():
     return launches
 
 
+VLM_WHY = ("memory: at its 28 layers qwen2-vl-2b holds 1.54 B params a replica, 24.7 GB "
+           "per f32 copy of the 4 replicas, and the carry holds three (params, momentum, "
+           "in-flight); 4 layers hold 420.6 M a replica")
+
+
+def phase_train_vlm():
+    """run_training with DASO on qwen2-vl-2b at full width, 4 of its 28
+    layers, f32, R = 4, the train cell's settings and VLM_STEPS steps, on
+    the macro executor, every replica batch with a stub prefix
+    (`prefix_data`): K2 / K3 launches as the modes imply, the loss falls,
+    the final carry finite. Prints ms per step by cycle shape, the peak and
+    wire bytes per exchange."""
+    res, row, launches, modes, params0 = run_train_phase(
+        "train_vlm", {"executor": "macro"}, VLM_WHY, arch=VLM_ARCH, steps=VLM_STEPS)
+    row["widths"].update(dense_widths(train_config(TRAIN_LAYERS, VLM_ARCH)))
+    check_launches(row, launches, train_launches(modes))
+    row["carry_finite"] = all(bool(torch.isfinite(x).all()) for x in leaves(res.carry)
+                              if x.is_floating_point())
+    row["wire_bytes_per_exchange"] = {
+        t: compression.transfer_bytes(params0, wire_format=t) for t in ("f32", "bf16")}
+    del res, params0
+    torch.cuda.empty_cache()
+    if not row["carry_finite"]:
+        emit({**row, "failed": "carry not finite"})
+        raise AssertionError("train_vlm: the final carry is not finite")
+    emit(row)
+    return launches
+
+
 # The topology cells: 4 replicas in 2 pods of 2 hosts (R = 4, P = 16, the
 # train cell's sizes). The host links run at twice the pod links' rate, so
 # the lowering gives the host level B_host = round(4 * 25 / 50) = 2: the
@@ -2854,7 +3210,7 @@ def phase_train_baselines():
 
 # replica 1 straggles x1.5 from step 8 to 20, replica 2 is down from step 10
 # to 22, and the network between the nodes runs at half its bandwidth from
-# step 14 to 28: all inside the cycling phase (steps 4 to 35)
+# step 14 to 28: all inside the cycling phase (steps 3 to 28)
 FAULT_EVENTS = [{"step": 8, "kind": "straggle", "replica": 1, "factor": 1.5},
                 {"step": 10, "kind": "crash", "replica": 2},
                 {"step": 14, "kind": "degrade_dcn", "factor": 0.5},
@@ -3114,8 +3470,11 @@ def phase_launch_faults():
 
 # train_procs: the 3-level train cell at 1 of 16 layers (PROCS_WHY), once in
 # one process and once in two (one pod each), both through the process
-# launcher; live_kill: a supervised two-process run at --tiny size
-PROCS_LAYERS, PROCS_STEPS, PROCS_TIMEOUT = 1, 16, 420
+# launcher; live_kill: a supervised two-process run at --tiny size. 10 steps
+# (16 until the dense and prefix cells joined the script; the wall's budget)
+# keep every mode: blocking, send, receive and local (int8 + one_cycle:
+# ov_start, one ov_sync, blocking), 4 gathers an exchange run where 16 took 6
+PROCS_LAYERS, PROCS_STEPS, PROCS_TIMEOUT = 1, 10, 420
 PROCS_ARGS = ["--full", "--layers", str(PROCS_LAYERS), "--dtype", "float32",
               "--topology", TOPO_SPEC, "--steps", str(PROCS_STEPS),
               "--per-node-batch", str(TRAIN_PER), "--seq-len", str(TRAIN_SEQ),
@@ -3376,7 +3735,9 @@ RESNET_LOOP = dict(n_steps=RESNET_STEPS, n_replicas=RESNET_R, local_world=4, b_m
 # same ReLUs); each ReLU the f32 forward flips within 1e-3 of its layer's
 # largest input
 RESNET_LOSS_RTOL, RESNET_REL_TOL = 1e-4, 1e-3
-ABLATION_STEPS, ABLATION_TIMEOUT = 24, 600
+# 12 steps (24 until the dense and prefix cells joined the script): every run
+# still prints its line and the executors' traces stay equal
+ABLATION_STEPS, ABLATION_TIMEOUT = 12, 600
 
 
 def resnet_data(cfg):
@@ -3744,7 +4105,7 @@ DRIFT_LINE = re.compile(r"max \|loss trace drift\|\s+(\S+)")
 
 
 def phase_launch_ablation():
-    """`python -m repro_torch.launch.ablation --steps 24` on the card, the
+    """`python -m repro_torch.launch.ablation --steps 12` on the card, the
     user's entry point for the CNN: exits 0, every run's line printed, and
     the macro and per-step loss traces equal (drift 0)."""
     env = dict(os.environ)
@@ -3937,8 +4298,10 @@ def phase_train_procs_per_leaf(fused):
         ("checkpoint", not ck),
         ("gathers", any(g["calls"] != f["calls"] * n_leaves
                         for g, f in zip(gathers, fused["gathers"]))),
-        ("bytes", any(g["payload_bytes_per_exchange"] * g["calls"]
-                      != f["payload_bytes_per_exchange"] * f["calls"]
+        # the runs' payload bytes by dtype, exact integers (a per-exchange
+        # mean times the calls rounds: 44 gathers of 10 steps gave
+        # 1940951039.9999998 against 1940951040.0)
+        ("bytes", any(g["payload_bytes_by_dtype"] != f["payload_bytes_by_dtype"]
                       for g, f in zip(gathers, fused["gathers"]))),
         ("launches", any({k: r["launches"][k] for k in PROCS_COMM}
                          != {k: want[k] for k in PROCS_COMM} for r in reps))) if bad]
@@ -4479,8 +4842,9 @@ def phase_timing(check_rows, serve_paths, path_launches, arena_parts, model_line
                  reports, resnet_rows):
     """Times of each kernel, its plain version and the library call (K1 at
     the llama serving shape, K2 to K6 at the training arena; `model_lines`
-    holds the lines of K7, K8, K1 at head_dim 256 and K1 at head_dim 128
-    from `scan_timing`, `rgemma_timing` and `moe_timing`), and the kernels
+    holds the lines of K7, K8, K1 at head_dim 256, K1 at head_dim 128 and
+    K1 at the dense and prefix configs' prefills from `scan_timing`,
+    `rgemma_timing`, `moe_timing` and `dense_timing`), and the kernels
     line. `serve_paths`: each head_dim 64 serving path's launches per
     prefill (llama's "serve", granite's "serve_moe"). `path_launches` holds each
     training path's launch counts: K2 and K3 report the train_macro phase's
@@ -4605,7 +4969,10 @@ def main():
     rgemma_lines = rgemma_timing(rows, rglru_rows, rgemma_launches, reports)
     serve_moe_launches = phase_serve_moe()
     moe_lines = moe_timing(rows, phase_serve_moe_variants(), reports)
+    dense_lines = dense_timing(rows, {**phase_serve_dense128(), **phase_serve_prefix()},
+                               reports)
     moe_train_launches = phase_train_moe()
+    vlm_train_launches = phase_train_vlm()
     phase_train_check()
     resume_launches = phase_train_resume()
     int8_per_step = phase_train_int8_overlap()
@@ -4652,9 +5019,9 @@ def main():
         **procs_launches, "live_kill": live_kill_launches,
         "train_macro_per_leaf": macro_per_leaf_launches, **overlap_per_leaf_launches,
         **autotune_launches, **launch_autotune_launches, **resnet_launches,
-        "train_moe": moe_train_launches},
+        "train_moe": moe_train_launches, "train_vlm": vlm_train_launches},
         arena_parts,
-        [scan_line] + rgemma_lines + moe_lines, reports, resnet_rows)
+        [scan_line] + rgemma_lines + moe_lines + dense_lines, reports, resnet_rows)
     emit_total()
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

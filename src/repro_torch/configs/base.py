@@ -3,9 +3,11 @@
 Each registered architecture has one module in this package exporting
 CONFIG (the exact published shape). `get_reduced` derives a tiny
 same-family variant for CPU tests. The fields mirror the JAX package's
-`ArchConfig` for the layer kinds the port runs (causal, sliding-window and
-local attention with a dense SwiGLU FFN or a mixture of experts, the
-Mamba-1 mixer and the RG-LRU mixer); dtypes are `torch.dtype`s.
+`ArchConfig`, field for field: causal, sliding-window and local attention
+(with qk-norm, standard RoPE, M-RoPE or sinusoidal positions) with a dense
+SwiGLU FFN or a mixture of experts, the Mamba-1 mixer and the RG-LRU mixer,
+and the vlm / audio families' stub prefix embeddings; dtypes are
+`torch.dtype`s.
 `resnet50`, the paper's own CNN, has its own `ResNetConfig` and
 `reduced()` (`configs/resnet50.py`), as in the reference's registry.
 """
@@ -66,7 +68,7 @@ class RGLRUConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # dense | ssm | moe | hybrid
+    family: str                     # dense | ssm | moe | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -78,13 +80,18 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
-    rope_type: str = "standard"     # standard | none (sinusoidal positions)
+    qk_norm: bool = False           # RMS norm of q and k over head_dim
+    rope_type: str = "standard"     # standard | mrope | none (sinusoidal positions)
     rope_theta: float = 10000.0
     sliding_window: int = 0         # window for attn_swa / attn_local layers
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     # window of the sliding-window variant dense archs use for long contexts
     long_context_window: int = 0
+    # vlm / audio: the frontend's embeddings (batch, prefix_embed_len,
+    # d_model) are spliced before the token embeddings; the frontends are
+    # stubs in the reference too, so callers pass seeded embeddings
+    prefix_embed_len: int = 0
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
     source: str = ""
@@ -130,8 +137,8 @@ class ArchConfig:
             raise ValueError(f"{self.name}: windowed layers need sliding_window > 0")
         if self.moe is not None and not 1 <= self.moe.top_k <= self.moe.n_experts:
             raise ValueError(f"{self.name}: MoE top_k must be in [1, n_experts]")
-        if self.rope_type not in ("standard", "none"):
-            raise ValueError(f"{self.name}: rope_type {self.rope_type!r} is not ported")
+        if self.rope_type not in ("standard", "mrope", "none"):
+            raise ValueError(f"{self.name}: unknown rope_type {self.rope_type!r}")
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
@@ -139,7 +146,7 @@ class ArchConfig:
 
 def reduce_config(cfg: ArchConfig) -> ArchConfig:
     """Tiny same-family variant for CPU tests (<= 2 pattern repeats,
-    d_model <= 256, f32) — the same reduction as the JAX package's."""
+    d_model <= 256, prefix <= 8 rows, f32) — the same reduction as the JAX package's."""
     pat = cfg.layer_pattern
     n_layers = len(pat) if len(pat) > 1 else 2
     d_model = min(cfg.d_model, 256)
@@ -165,12 +172,14 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
         long_context_window=min(cfg.long_context_window, 64)
         if cfg.long_context_window else 0,
+        prefix_embed_len=min(cfg.prefix_embed_len, 8),
         param_dtype=torch.float32, compute_dtype=torch.float32,
     )
 
 
 ARCH_IDS = ("llama3.2-1b", "falcon-mamba-7b", "recurrentgemma-9b",
             "granite-moe-3b-a800m", "moonshot-v1-16b-a3b", "mixtral-8x22b",
+            "qwen3-8b", "minitron-8b", "qwen2-vl-2b", "musicgen-large",
             "resnet50")  # the paper's own benchmark model (CNN family)
 
 

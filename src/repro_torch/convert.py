@@ -8,7 +8,9 @@ The port's LM keeps the JAX package's tree: {"embed": {"tok"}, "blocks":
 the same shape and dtype at the same path, whatever the tree (a DASO carry
 with its leading replica axis, an optimizer state). An MoE block's leaves
 ("moe": {"router", "we1", "we3", "we2", optionally "shared"}, "moe_norm")
-come across the same way: the router stays f32 beside bf16 experts. bf16 leaves arrive as
+come across the same way: the router stays f32 beside bf16 experts. So do a
+qk-norm config's per-layer "q_norm" / "k_norm" scales (head_dim,) in
+"attn", which `init_attn` adds as the reference's does. bf16 leaves arrive as
 numpy arrays of the ml_dtypes bfloat16 type, which torch cannot read; they go
 through f32, which is exact both ways.
 

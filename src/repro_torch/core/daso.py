@@ -528,8 +528,10 @@ def microbatched_value_and_grad(loss_fn: Callable, n_micro: int):
     back to each floating leaf's dtype (integer leaves stay sums).
 
     Every batch leaf is chunked, as in the reference (`repro/core/daso.py:
-    526-528`), so a ResNet batch's "bn_state" would be cut across channels:
-    the reference then fails inside batch norm, and the port refuses such a
+    526-528`): a vlm / audio batch's "prefix_embeds" (B, P, D) and its
+    labels over the spliced length (B, P + S) split along B with the
+    tokens. A ResNet batch's "bn_state" would be cut across channels: the
+    reference then fails inside batch norm, and the port refuses such a
     batch with a ValueError."""
     vg = value_and_grad(loss_fn)
     if n_micro <= 1:

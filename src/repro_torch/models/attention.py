@@ -11,8 +11,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import dense_init, rms_norm
-from repro_torch.models.rope import apply_rope
+from repro_torch.models.common import dense_init, head_rms_norm, rms_norm
+from repro_torch.models.rope import apply_mrope, apply_rope
 
 NEG_INF = -1e30
 
@@ -86,8 +86,10 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0):
 
 
 def init_attn(generator, cfg, dtype, device):
+    """The projections and the pre-norm scale; under qk_norm also the zero
+    q_norm / k_norm scales (head_dim,), which draw nothing from `generator`."""
     D, Hq, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    p = {
         "wq": dense_init(generator, (D, Hq * hd), dtype, device),
         "wk": dense_init(generator, (D, K * hd), dtype, device),
         "wv": dense_init(generator, (D, K * hd), dtype, device),
@@ -95,6 +97,10 @@ def init_attn(generator, cfg, dtype, device):
                          scale=1.0 / (2 * cfg.n_layers) ** 0.5),
         "norm": torch.zeros((D,), dtype=dtype, device=device),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+    return p
 
 
 def kernel_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -113,7 +119,9 @@ def attn_apply(p, x, positions, cfg, *, window: int = 0,
 
     Prefill: cache is None, or a cache dict to fill. Decode: x is (B,1,D),
     cache holds K/V, pos is the absolute position. The cache tensors are
-    written in place and the same dict is returned.
+    written in place and the same dict is returned. positions: (B,S), or
+    (B,S,3) under M-RoPE. q and k are normalised (qk_norm) and rotated
+    before either path, so decode caches the key prefill would have.
     """
     B, S, D = x.shape
     Hq, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -121,8 +129,13 @@ def attn_apply(p, x, positions, cfg, *, window: int = 0,
     q = (h @ p["wq"]).reshape(B, S, Hq, hd)
     k = (h @ p["wk"]).reshape(B, S, K, hd)
     v = (h @ p["wv"]).reshape(B, S, K, hd)
+    if cfg.qk_norm:
+        q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = head_rms_norm(k, p["k_norm"], cfg.norm_eps)
     if cfg.rope_type == "standard":  # "none": lm.forward adds sinusoidal positions
         q, k = apply_rope(q, k, positions, cfg.rope_theta)
+    elif cfg.rope_type == "mrope":
+        q, k = apply_mrope(q, k, positions, cfg.rope_theta)
 
     if cache is not None and pos is not None and S == 1:  # decode
         S_c = cache["k"].shape[1]

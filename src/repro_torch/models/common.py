@@ -16,6 +16,13 @@ def rms_norm(x, scale, eps=1e-6):
     return (x * (1.0 + scale.float())).to(dt)
 
 
+def head_rms_norm(x, scale, eps=1e-6):
+    """qk-norm: RMS over the head_dim of (B, S, H, D) tensors, in f32, times
+    (1 + scale), cast back (`repro/models/common.py::head_rms_norm`, the
+    same function as `rms_norm` over the last axis)."""
+    return rms_norm(x, scale, eps)
+
+
 def _trunc_normal(shape, std, dtype, device, generator):
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)

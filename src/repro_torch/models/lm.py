@@ -140,13 +140,21 @@ def _zero_aux(device):
 
 
 def forward(params, tokens, cfg: ArchConfig, *,
+            prefix_embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[dict] = None, pos: Optional[int] = None,
             window_override: int = 0, attn_impl: str = "kernel",
             layers: Optional[list] = None):
-    """tokens (B, S) int. Returns {"logits" (B,S,V), "aux", "cache"}; aux
+    """tokens (B, S_tok) int. Returns {"logits" (B,S,V), "aux", "cache"}; aux
     sums each MoE layer's losses and drop fraction over the layers (shared
     f32 zeros for a model without MoE, `_zero_aux`).
+
+    prefix_embeds (B, P, D): the vlm / audio frontends' stub embeddings,
+    spliced before the token embeddings, so S = P + S_tok and the logits
+    cover the spliced length. positions: (B,S), or (B,S,3) under M-RoPE;
+    by default arange(S) for every row, tiled to the three streams under
+    M-RoPE. Under rope_type "none" the sinusoidal positions take stream 0
+    of 3-D positions.
 
     Prefill: cache from `init_cache`, filled in place. Decode: tokens (B,1),
     cache and pos (absolute position of the token) given. `layers`:
@@ -154,12 +162,16 @@ def forward(params, tokens, cfg: ArchConfig, *,
     calls (decode).
     """
     x = params["embed"]["tok"][tokens]
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     B, S, D = x.shape
     if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=x.device).expand(B, S)
+        positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+        if cfg.rope_type == "mrope":
+            positions = positions[..., None].expand(B, S, 3)
     if cfg.rope_type == "none":
-        x = x + sinusoidal_positions(positions, D).to(x.dtype)
+        pos1 = positions if positions.dim() == 2 else positions[..., 0]
+        x = x + sinusoidal_positions(pos1, D).to(x.dtype)
     if layers is None:
         layers = layer_views(cfg, params, cache)
     aux = None

@@ -18,15 +18,23 @@ from repro_torch.device import resolve_device
 from repro_torch.models.lm import forward, init_cache, layer_views
 
 
+def _decode_positions(cfg: ArchConfig, batch: int, pos: int, device):
+    """The one new token's positions: (B,1) at `pos`, tiled to (B,1,3) under
+    M-RoPE (`repro/serve/engine.py::_decode_positions`)."""
+    p = torch.full((batch, 1), pos, dtype=torch.int32, device=device)
+    return p[..., None].expand(batch, 1, 3) if cfg.rope_type == "mrope" else p
+
+
 def make_prefill_fn(cfg: ArchConfig, *, cache_len: int,
                     window_override: int = 0):
-    """prefill(params, tokens, positions=None) -> {"logits_last" (B,V),
-    "cache"}. The cache holds `cache_len` positions; the prompt fills the
-    first S slots."""
-    def prefill(params, tokens, positions=None):
+    """prefill(params, tokens, prefix_embeds=None, positions=None) ->
+    {"logits_last" (B,V), "cache"}. The cache holds `cache_len` positions;
+    the prefix and the prompt fill the first P + S slots."""
+    def prefill(params, tokens, prefix_embeds=None, positions=None):
         cache = init_cache(cfg, tokens.shape[0], cache_len, device=tokens.device,
                            window_override=window_override)
-        out = forward(params, tokens, cfg, positions=positions, cache=cache,
+        out = forward(params, tokens, cfg, prefix_embeds=prefix_embeds,
+                      positions=positions, cache=cache,
                       window_override=window_override)
         return {"logits_last": out["logits"][:, -1], "cache": out["cache"]}
 
@@ -44,8 +52,7 @@ def make_decode_fn(cfg: ArchConfig, *, window_override: int = 0):
         p, c = held["pair"]
         if p is not params or c is not cache:
             held.update(pair=(params, cache), layers=layer_views(cfg, params, cache))
-        positions = torch.full(token.shape, pos, dtype=torch.int32,
-                               device=token.device)
+        positions = _decode_positions(cfg, token.shape[0], pos, token.device)
         out = forward(params, token, cfg, positions=positions, cache=cache,
                       pos=pos, window_override=window_override,
                       layers=held["layers"])
@@ -77,18 +84,23 @@ class Engine:
     @torch.inference_mode()
     def generate(self, prompts: torch.Tensor, max_new_tokens: int, *,
                  temperature: float = 0.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 prefix_embeds: Optional[torch.Tensor] = None):
         """prompts (B, S_prompt) int -> (B, max_new_tokens) int32, as the
-        reference engine returns."""
-        if prompts.device.type != self.device.type:
-            raise ValueError(f"prompts on {prompts.device}, Engine on {self.device}")
+        reference engine returns. prefix_embeds (B, P, D): stub frontend
+        embeddings spliced before the prompt; they take the first P cache
+        slots and positions."""
+        for name, t in (("prompts", prompts), ("prefix_embeds", prefix_embeds)):
+            if t is not None and t.device.type != self.device.type:
+                raise ValueError(f"{name} on {t.device}, Engine on {self.device}")
         S = prompts.shape[1]
-        if not self.window_override and S + max_new_tokens - 1 > self.max_len:
-            raise ValueError(f"prompt {S} + {max_new_tokens} new tokens exceed "
-                             f"max_len {self.max_len}")
-        state = self._prefill(self.params, prompts)
+        prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+        if not self.window_override and prefix + S + max_new_tokens - 1 > self.max_len:
+            raise ValueError(f"prefix {prefix} + prompt {S} + {max_new_tokens} new tokens "
+                             f"exceed max_len {self.max_len}")
+        state = self._prefill(self.params, prompts, prefix_embeds=prefix_embeds)
         cache, logits = state["cache"], state["logits_last"]
-        pos = S  # next absolute position
+        pos = S + prefix  # next absolute position
         outs = []
         for t in range(max_new_tokens):
             if temperature > 0.0:

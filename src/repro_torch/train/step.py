@@ -12,7 +12,8 @@ from repro_torch.models.lm import forward
 
 def make_lm_loss(cfg: ArchConfig):
     """loss_fn(params, batch) -> (total_loss, aux). batch: tokens (B,S),
-    labels (B,S) (-1 = ignore), optional positions.
+    labels (B,P+S) (-1 = ignore), optional prefix_embeds (B,P,D) (the
+    labels then cover the spliced length) and positions.
 
     total = cross-entropy + the MoE's load-balance and router z losses,
     summed over the layers by `forward` (zeros for a model without MoE);
@@ -22,6 +23,7 @@ def make_lm_loss(cfg: ArchConfig):
     no backward."""
     def loss_fn(params, batch):
         out = forward(params, batch["tokens"], cfg,
+                      prefix_embeds=batch.get("prefix_embeds"),
                       positions=batch.get("positions"), attn_impl="plain")
         ce = cross_entropy_loss(out["logits"], batch["labels"])
         aux = dict(out["aux"])
