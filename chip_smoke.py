@@ -40,6 +40,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   rglru_check  hold K8 against its plain version, bit for bit: f32 and bf16
                a / gx, zero and random h0, S = 1, W = 4100 (ragged edge),
                and the serving prefill's (4, 1024, 4096)
+  scan_bwd_check
+               hold K7-bwd (through its binding) against its plain backward
+               run in f64 on the same inputs and random cotangents of y and
+               h_final: each of dx, ddt, dA, dBm, dCm, dh0 within 1e-4 of its
+               largest magnitude (f32 outputs) or one bf16 ulp of it (2^-7,
+               the bf16 gradients of bf16 x / Bm / Cm), and two launches the
+               same bits; scan_check's sweep, then falcon-mamba-7b's train
+               shape (2, 256, 8192, 16) f32 with and without a cotangent of
+               h_final
+  rglru_bwd_check
+               hold K8-bwd against its plain backward bit for bit, with and
+               without a cotangent of h_final: rglru_check's sweep and
+               recurrentgemma-9b's train shape (2, 256, 4096)
   serve        Engine.generate on llama3.2-1b at full size (16 layers, bf16,
                seeded random weights): batch 4, prompt 1024, 32 new greedy
                tokens. K1 launches per prefill are counted; the prefill's
@@ -135,6 +148,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                per receive and K3 per blocking step, the loss falls, the carry
                finite; ms per step by cycle shape, peak, wire bytes per
                exchange
+  recurrent_grad_hold
+               at the recurrent train cells' widths (1 layer, f32), one
+               replica's loss gradient through K7 / K7-bwd and K8 / K8-bwd
+               against the same gradient with ops.ssm_scan / ops.rglru_scan
+               swapped for their plain versions (autograd through
+               kernels/ref.py): every leaf within 1e-3 of its largest
+               magnitude, each kernel launched once on the kernel path and
+               never on the plain one
+  train_mamba  run_training with DASO on falcon-mamba-7b at its published
+               widths (d_model 4096, d_inner 8192, N 16, dt_rank 256, vocab
+               65,024), 1 of its 64 layers, f32, the train cell's settings (R
+               = 4, P = 16, b_max 4, sgd(0.9, 1e-4), lr 0.005, 2 x 256 tokens
+               per replica) and 16 steps on the macro executor: the loss
+               falls, the carry finite, K2 per receive and K3 per blocking
+               step (each at least once), K7 and K7-bwd once per layer,
+               replica and step, K1 never; ms per step by cycle shape, peak,
+               wire bytes per exchange
+  train_rgemma the same on recurrentgemma-9b at its published widths
+               (lru_width 4096, d_ff 12,288, vocab 256,000), 1 of its 38
+               layers (an RG-LRU block and its MLP) at R = 2 (P = 8): K8 and
+               K8-bwd once per replica and step
   train_check  at full width (1 layer, f32, R = 4): a receive and a blocking
                step, an int8 send and an int8 blocking step, and an ov_sync
                step with extra staleness 1 (int8), each through the kernels,
@@ -379,7 +413,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                inner loop's SASS instructions per exp (cuobjdump) and the
                issue floor they give (fp32_issue_ms), TB/s, exps/s and host
                time per call; K6's library call is the broadcast product
-               through views
+               through views; K7-bwd and K8-bwd at the train cells' shapes
+               (with the plain backward's time) and at the serving
+               prefill's, each beside its bound
 Every phase line carries "wall_seconds", its share of the run (the seconds
 since the previous phase line). Then a "timing" phase line, the `kernels`
 line, the total line (the whole run's seconds and each phase's), the card's
@@ -432,8 +468,9 @@ from repro_torch.kernels.comm_kernels import (bf16_pack_fwd, bf16_unpack_fwd,  #
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.launch.distributed import row_digests  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, attention_row_ratio  # noqa: E402
-from repro_torch.kernels.rglru_scan import rglru_scan_fwd  # noqa: E402
-from repro_torch.kernels.ssm_scan import scan_config, ssm_scan_fwd  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd  # noqa: E402
+from repro_torch.kernels.ssm_scan import (scan_config, ssm_scan_bwd,  # noqa: E402
+                                          ssm_scan_bwd_scratch, ssm_scan_fwd)
 from repro_torch.models.cnn import init_resnet, resnet_apply  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.lm import forward, init_params, layer_views  # noqa: E402
@@ -538,6 +575,21 @@ KERNELS = [{
     "source": "src/repro_torch/csrc/rglru_scan.cu",
     "replaces": "src/repro/kernels/rglru_scan.py:16",
     "counter": rglru_scan_fwd,
+}, {
+    # the backwards have no Pallas kernel: the JAX package differentiates
+    # the two scans with jax.grad; "replaces" names the function it
+    # differentiates
+    "name": "ssm_scan_bwd",
+    "route": "cuda",
+    "source": "src/repro_torch/csrc/ssm_scan_bwd.cu",
+    "replaces": "src/repro/models/mamba.py:62",
+    "counter": ssm_scan_bwd,
+}, {
+    "name": "rglru_scan_bwd",
+    "route": "cuda",
+    "source": "src/repro_torch/csrc/rglru_scan_bwd.cu",
+    "replaces": "src/repro/models/mamba.py:101",
+    "counter": rglru_scan_bwd,
 }]
 SOURCES = sorted({os.path.basename(k["source"])[:-3] for k in KERNELS})
 COMM_KERNELS = [k for k in KERNELS if k["source"].endswith("comm_kernels.cu")]
@@ -911,7 +963,7 @@ def serve_f32_check(cfg, n_layers, seed, want):
                 for i, lg in enumerate(logits)]
     del params, full, cache, st
     torch.cuda.empty_cache()
-    none = {k["name"]: 0 for k in KERNELS}
+    none = no_launches()
     if per_prefill != {**none, **want} or in_decode != none:
         raise AssertionError(f"f32 {n_layers}-layer launches: prefill {per_prefill}, "
                              f"decode {in_decode}, expected prefill {want}")
@@ -1111,7 +1163,7 @@ def serve_cell(cfg, seed, want_prefill, decode_bytes, hold=plain_hold):
     torch.cuda.empty_cache()
     if not row_spread > 0:
         raise AssertionError(f"{cfg.name} last logits do not depend on the prompt")
-    none = {k["name"]: 0 for k in KERNELS}
+    none = no_launches()
     if per_prefill != {**none, **want_prefill} or in_decode != none \
             or per_generate != per_prefill:
         raise AssertionError(f"{cfg.name} launches: prefill {per_prefill}, decode "
@@ -1133,15 +1185,18 @@ def serve_cell(cfg, seed, want_prefill, decode_bytes, hold=plain_hold):
     return row, params, gen
 
 
+def mamba_widths(cfg):
+    return {"d_model": cfg.d_model, "d_inner": cfg.d_inner, "d_state": cfg.ssm.d_state,
+            "d_conv": cfg.ssm.d_conv, "dt_rank": cfg.dt_rank, "vocab": cfg.vocab_size,
+            "tie_embeddings": cfg.tie_embeddings}
+
+
 def phase_serve_mamba():
     cfg = get_config(MAMBA_ARCH)
     row, params, _ = serve_cell(cfg, 3, {"ssm_scan": cfg.n_layers}, mamba_decode_bytes)
     del params
     torch.cuda.empty_cache()
-    row["widths"] = {"d_model": cfg.d_model, "d_inner": cfg.d_inner,
-                     "d_state": cfg.ssm.d_state, "d_conv": cfg.ssm.d_conv,
-                     "dt_rank": cfg.dt_rank, "vocab": cfg.vocab_size,
-                     "tie_embeddings": cfg.tie_embeddings}
+    row["widths"] = mamba_widths(cfg)
     row["f32_2layer"] = serve_f32_check(cfg, 2, 4, {"ssm_scan": 2})
     emit({"phase": "serve_mamba", **row})
     return row["launches_per_generate"]
@@ -1194,6 +1249,102 @@ def phase_rglru_check():
     return rows
 
 
+# K7-bwd against the plain backward run in f64 (`ref.ssm_scan_bwd_ref` on f64
+# upcasts of the same inputs and cotangents), each output's largest error
+# scaled to its largest magnitude: 1e-4 for the f32 outputs (the f32 plain
+# backward sits near 1e-6 of it at the train shape's sizes; the kernel sums
+# dBm / dCm over the channels and dA over the batch in other orders), one
+# bf16 ulp at the top (2^-7) for the bf16 gradients of bf16 x / Bm / Cm.
+SCAN_BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+SCAN_BWD_OUTS = ("dx", "ddt", "dA", "dBm", "dCm", "dh0")
+MAMBA_TRAIN_SHAPE = (2, 256, 8192, 16)  # (TRAIN_PER, TRAIN_SEQ, d_inner, d_state)
+RGEMMA_TRAIN_SHAPE = (2, 256, 4096)     # (TRAIN_PER, TRAIN_SEQ, lru_width)
+# every K7 case with a random cotangent of h_final, then the train shape (f32,
+# Bm / Cm as views at dt_rank 256) with one and without (training's)
+SCAN_BWD_CHECKS = [case + (True,) for case in SCAN_CHECKS] + [
+    ("train_shape_f32", *MAMBA_TRAIN_SHAPE, torch.float32, False, 256, True),
+    ("train_shape_f32_no_dh", *MAMBA_TRAIN_SHAPE, torch.float32, False, 256, False)]
+RGLRU_BWD_CHECKS = RGLRU_CHECKS + [("train_shape_f32", *RGEMMA_TRAIN_SHAPE, torch.float32,
+                                    False)]
+
+
+def scaled_err(got, want):
+    """max |got - want| over max |want| (0 where both are 0), in want's dtype."""
+    err = (got.to(want.dtype) - want).abs().max()
+    return (err / want.abs().max().clamp_min(torch.finfo(want.dtype).tiny)).item()
+
+
+def cotangents(shapes, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=g, device="cuda") for s in shapes]
+
+
+def phase_scan_bwd_check():
+    """K7-bwd through its binding against the f64 plain backward, each of its
+    six outputs within SCAN_BWD_RTOL of its largest magnitude, and two
+    launches on the same inputs the same bits."""
+    lib, rows = ops.kernel_library("ssm_scan_bwd"), []
+    for i, (name, B, S, Di, N, dtype, random_h0, dt_rank, with_dh) in enumerate(
+            SCAN_BWD_CHECKS):
+        args = scan_inputs(B, S, Di, N, dtype, random_h0, dt_rank, seed=400 + i)
+        dy, dh = cotangents(((B, S, Di), (B, Di, N)), seed=500 + i)
+        dh = dh if with_dh else None
+        got = ssm_scan_bwd(lib, *args, dy, dh)
+        again = ssm_scan_bwd(lib, *args, dy, dh)
+        sync()
+        deterministic = all(same_bits(a, b) for a, b in zip(got, again, strict=True))
+        del again
+        want = ref.ssm_scan_bwd_ref(*(t.double() for t in args), dy.double(),
+                                    None if dh is None else dh.double())
+        errs = {o: scaled_err(a, w) for o, a, w in zip(SCAN_BWD_OUTS, got, want, strict=True)}
+        tols = {o: SCAN_BWD_RTOL[a.dtype] for o, a in zip(SCAN_BWD_OUTS, got)}
+        rows.append({"case": name, "shape": [B, S, Di, N], "dtype": str(dtype),
+                     "random_h0": random_h0, "dt_rank": dt_rank, "dh": with_dh,
+                     "scaled_err": errs, "tolerance": tols,
+                     "max_abs_err": max((a.double() - w).abs().max().item()
+                                        for a, w in zip(got, want)),
+                     "two_launches_identical": deterministic})
+        del args, dy, dh, got, want
+        if not (deterministic and all(math.isfinite(e) and e <= tols[o]
+                                      for o, e in errs.items())):
+            emit({"phase": "scan_bwd_check", "failed": rows[-1]})
+            raise AssertionError(f"ssm_scan_bwd check {name}: {rows[-1]}")
+    torch.cuda.empty_cache()
+    emit({"phase": "scan_bwd_check", "cases": rows,
+          "worst_scaled_err": {o: max(r["scaled_err"][o] for r in rows)
+                               for o in SCAN_BWD_OUTS}})
+    return rows
+
+
+def phase_rglru_bwd_check():
+    """K8-bwd through its binding against the plain backward, bit for bit,
+    with a random cotangent of h_final and without one; the states hs are
+    K8's."""
+    lib, rows = ops.kernel_library("rglru_scan_bwd"), []
+    for i, (name, B, S, W, dtype, random_h0) in enumerate(RGLRU_BWD_CHECKS):
+        a, gx, h0 = rglru_inputs(B, S, W, dtype, random_h0, seed=600 + i)
+        hs, _ = ops.rglru_scan(a, gx, h0)
+        dhs, dh = cotangents(((B, S, W), (B, W)), seed=700 + i)
+        for cot in (dh, None):
+            got = rglru_scan_bwd(lib, a, h0, hs, dhs, cot)
+            sync()
+            want = ref.rglru_scan_bwd_ref(a, gx, h0, hs, dhs, cot)
+            exact = all(same_bits(x, w) for x, w in zip(got, want, strict=True))
+            err = max((x.float() - w.float()).abs().max().item()
+                      for x, w in zip(got, want))
+            rows.append({"case": name, "shape": [B, S, W], "dtype": str(dtype),
+                         "random_h0": random_h0, "dh": cot is not None,
+                         "bit_exact": exact, "max_abs_err": err})
+            del got, want
+            if not exact:
+                emit({"phase": "rglru_bwd_check", "failed": rows[-1]})
+                raise AssertionError(f"rglru_scan_bwd check {name}: not bit-exact ({err})")
+        del a, gx, h0, hs, dhs, dh
+    torch.cuda.empty_cache()
+    emit({"phase": "rglru_bwd_check", "cases": rows})
+    return rows
+
+
 def rgemma_decode_bytes(params, cache):
     """What one decode step must move: every weight once (the tied
     embedding table is read whole by the unembedding), the KV caches read,
@@ -1201,6 +1352,14 @@ def rgemma_decode_bytes(params, cache):
     recurrent = sum(tensor_bytes(c) for c in cache["groups"] + cache["rem"]
                     if "h" in c)
     return tensor_bytes(params) + tensor_bytes(cache) + recurrent
+
+
+def rgemma_widths(cfg):
+    return {"d_model": cfg.d_model, "lru_width": cfg.lru_width,
+            "conv_width": cfg.rglru.conv_width, "c_exponent": cfg.rglru.c_exponent,
+            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+            "window": cfg.sliding_window, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+            "tie_embeddings": cfg.tie_embeddings}
 
 
 def phase_serve_rgemma():
@@ -1214,12 +1373,7 @@ def phase_serve_rgemma():
     ring = serve_rgemma_ring(cfg, params, gen, row["launches_per_prefill"])
     del params
     torch.cuda.empty_cache()
-    row["widths"] = {"d_model": cfg.d_model, "lru_width": cfg.lru_width,
-                     "conv_width": cfg.rglru.conv_width,
-                     "c_exponent": cfg.rglru.c_exponent, "n_heads": cfg.n_heads,
-                     "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
-                     "window": cfg.sliding_window, "d_ff": cfg.d_ff,
-                     "vocab": cfg.vocab_size, "tie_embeddings": cfg.tie_embeddings}
+    row["widths"] = rgemma_widths(cfg)
     row["f32_5layer"] = serve_f32_check(
         cfg, 5, 6, {"rglru_scan": 4, "flash_attention_fwd": 1})
     emit({"phase": "serve_rgemma", **row})
@@ -1268,7 +1422,7 @@ def serve_rgemma_ring(cfg, params, gen, want_prefill):
         finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
     del eng, cache, st, full, logits
     torch.cuda.empty_cache()
-    none = {k["name"]: 0 for k in KERNELS}
+    none = no_launches()
     if slots != {cfg.sliding_window} or not RING_PROMPT > cfg.sliding_window:
         raise AssertionError(f"ring caches hold {slots} slots, window {cfg.sliding_window}")
     if per_prefill != want_prefill or per_generate != want_prefill or in_decode != none:
@@ -1484,7 +1638,7 @@ def phase_serve_moe_variants():
     the bf16 last logits held as serve_moe holds them. Returns
     {arch: launches per prefill}."""
     cells, launches = [], {}
-    none = {k["name"]: 0 for k in KERNELS}
+    none = no_launches()
     for i, arch in enumerate(MOE_VARIANTS):
         full = get_config(arch)
         cfg = full.replace(n_layers=MOE_VARIANT_LAYERS)
@@ -1684,7 +1838,7 @@ def mrope_streams_check(cfg, params, gen):
         # the sections matter: the same prefill on the Engine's tiled positions
         tiled = prefill(params, prompts, prefix_embeds=pe)["logits_last"].float()
         moved = (tiled - got).abs().max().item()
-    none = {k["name"]: 0 for k in KERNELS}
+    none = no_launches()
     row = {"positions": "stub as a 16 x 16 grid (t = 0, h = row, w = col), then text "
                         "on all three streams, rows offset by a seeded 0..3",
            "distinct_streams": [bool((pos[..., 0] != pos[..., 1]).any()),
@@ -1778,6 +1932,11 @@ def card_arena(n, seed, dtype=torch.float32, offset=0, edges=False):
 
 def counts():
     return {k["name"]: k["counter"].launches for k in KERNELS}
+
+
+def no_launches():
+    """Every kernel's count at 0: the base of each path's expected counts."""
+    return dict.fromkeys((k["name"] for k in KERNELS), 0)
 
 
 def zero_counts():
@@ -2067,10 +2226,10 @@ def train_config(n_layers, arch=ARCH):
                                     compute_dtype=torch.float32)
 
 
-def replica_data(src):
+def replica_data(src, replicas=TRAIN_R):
     def data(step):
-        b = src.batch(TRAIN_R * TRAIN_PER, step, device="cuda")
-        return {k: v.reshape((TRAIN_R, TRAIN_PER) + v.shape[1:]) for k, v in b.items()}
+        b = src.batch(replicas * TRAIN_PER, step, device="cuda")
+        return {k: v.reshape((replicas, TRAIN_PER) + v.shape[1:]) for k, v in b.items()}
     return data
 
 
@@ -2194,11 +2353,12 @@ def prefix_data(data, cfg, seed):
 
 def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
                     strategy="daso", plan=None, supervise=None, lr=TRAIN_LR,
-                    steps=TRAIN_STEPS, arch=ARCH):
+                    steps=TRAIN_STEPS, arch=ARCH, layers=TRAIN_LAYERS, replicas=TRAIN_R):
     """run_training with `strategy` (DASO by default) at `arch`'s (llama3.2-1b
-    by default) published widths, 4 layers, f32, R = 4; the counts are set
-    to 0 just before and read just after. Returns (result, its row, launch counts, the
-    outermost level's base modes, params0). The per-step executor's row has
+    by default) published widths, `layers` layers (4), f32, R = `replicas`
+    (4); the counts are set to 0 just before and read just after. Returns
+    (result, its row, launch counts, the outermost level's base modes,
+    params0). The per-step executor's row has
     the step ms by mode token, the macro executor's its ExecutorStats and
     the ms per step by cycle shape. `on_batch(step)` runs as each step's
     batch is made, before the step's clock starts; `tracer` goes to
@@ -2207,10 +2367,11 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
     as run_training builds it, `supervise` its extra keyword arguments), and
     the result is the ResilienceReport. `steps` cuts the run short. A
     config with a stub prefix takes one in every batch (`prefix_data`)."""
-    cfg = train_config(TRAIN_LAYERS, arch)
+    cfg = train_config(layers, arch)
     params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(x.numel() for x in leaves(params0))
-    data = replica_data(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, seed=0))
+    data = replica_data(SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, seed=0),
+                        replicas)
     if cfg.prefix_embed_len:
         data = prefix_data(data, cfg, 0)
     if on_batch is not None:
@@ -2219,7 +2380,7 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
         def data(step):
             on_batch(step)
             return make_batch(step)
-    loop_cfg = TrainLoopConfig(strategy=strategy, n_steps=steps, n_replicas=TRAIN_R,
+    loop_cfg = TrainLoopConfig(strategy=strategy, n_steps=steps, n_replicas=replicas,
                                local_world=TRAIN_LOCAL_WORLD, b_max=TRAIN_B_MAX,
                                lr=lr, device="cuda", **loop_options)
     sync()
@@ -2257,10 +2418,10 @@ def run_train_phase(name, loop_options, why_reduced, on_batch=None, tracer=None,
                       "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
                       "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
                       "tie_embeddings": cfg.tie_embeddings},
-           "reduced": {"n_layers": [get_config(arch).n_layers, TRAIN_LAYERS],
+           "reduced": {"n_layers": [get_config(arch).n_layers, layers],
                        "why": why_reduced},
            "dtype": "float32", "params_per_replica": n_params,
-           "replicas": TRAIN_R, "local_world": TRAIN_LOCAL_WORLD, "b_max": TRAIN_B_MAX,
+           "replicas": replicas, "local_world": TRAIN_LOCAL_WORLD, "b_max": TRAIN_B_MAX,
            "lr": lr, "optimizer": "sgd(0.9, 1e-4)", "seq_len": TRAIN_SEQ,
            "prefix_rows": cfg.prefix_embed_len,
            "seqs_per_replica": TRAIN_PER, "steps": steps,
@@ -2306,9 +2467,8 @@ def int8_overlap_launches(modes):
     """One f32 arena: K5 and K6 once per ov_sync and once per blocking
     step, K2 once per ov_sync step, K3 and K4 never."""
     n_sync, n_blocking = modes.count("ov_sync"), modes.count("blocking")
-    return {"flash_attention_fwd": 0, "eq1_merge": n_sync, "bf16_pack": 0,
-            "bf16_unpack": 0, "quantize_int8": n_sync + n_blocking,
-            "dequantize_int8": n_sync + n_blocking, "ssm_scan": 0, "rglru_scan": 0}
+    return {**no_launches(), "eq1_merge": n_sync, "quantize_int8": n_sync + n_blocking,
+            "dequantize_int8": n_sync + n_blocking}
 
 
 def phase_train_int8_overlap():
@@ -2768,10 +2928,8 @@ TRAIN_WHY = ("memory: the carry holds params, momentum and the in-flight buffer 
 def train_launches(modes):
     """One floating arena (all params f32): one K2 launch per receive step,
     one K3 launch per blocking step."""
-    return {"flash_attention_fwd": 0,
-            "eq1_merge": sum(m in ("receive", "send_receive") for m in modes),
-            "bf16_pack": modes.count("blocking"), "bf16_unpack": 0, "quantize_int8": 0,
-            "dequantize_int8": 0, "ssm_scan": 0, "rglru_scan": 0}
+    return {**no_launches(), "eq1_merge": sum(m in ("receive", "send_receive") for m in modes),
+            "bf16_pack": modes.count("blocking")}
 
 
 def phase_train():
@@ -2868,6 +3026,191 @@ def phase_train_vlm():
     if not row["carry_finite"]:
         emit({**row, "failed": "carry not finite"})
         raise AssertionError("train_vlm: the final carry is not finite")
+    emit(row)
+    return launches
+
+
+# The recurrent train cells: the train cell's settings at the published
+# widths of falcon-mamba-7b and recurrentgemma-9b, 1 layer each, RECURRENT_STEPS
+# steps (warm-up, cycling with receive steps and a blocking cool-down)
+RECURRENT_STEPS = 16
+# What a step's peak holds, as the allocator's history of these cells shows
+# it (the memory.traced_run rows): 4 (5R + 5) bytes a param
+PEAK_COPIES = ("the carry's params and momentum and the step's new ones (4R f32 copies), "
+               "the receive merge's params (R), one replica's gradient and its update's "
+               "params and momentum (3), the in-flight mean and params0 (2)")
+RECURRENT_CELLS = {
+    "train_mamba": (MAMBA_ARCH, TRAIN_R, ("ssm_scan", "ssm_scan_bwd"), (
+        "memory: a step peaks at 4 (5R + 5) bytes a param, 100 at R = 4: "
+        f"{PEAK_COPIES}; 1 of falcon-mamba-7b's 64 layers holds 637,992,960 params a "
+        "replica, 63.8 GB, and 2 layers (743,305,216) would take 74.3 GB, within 10 GB "
+        "of the 84.2 GB the allocator may hold on the card")),
+    "train_rgemma": (RGEMMA_ARCH, 2, ("rglru_scan", "rglru_scan_bwd"), (
+        "memory: a step peaks at 4 (5R + 5) bytes a param: "
+        f"{PEAK_COPIES}; 1 of recurrentgemma-9b's 38 layers (one RG-LRU block and its "
+        "MLP) holds 1,283,502,080 params a replica, most of them the tied 1.05 B-param "
+        "embedding: 128 GB at R = 4, and at R = 2 (P = 8) 77.0 GB, 7.1 GB below the "
+        "84.2 GB the allocator may hold on the card")),
+}
+# recurrent_grad_hold: each leaf of one replica's loss gradient through the
+# kernels within this share of the leaf's largest magnitude of the same
+# gradient with the scans' plain versions (f32 sums in other orders, carried
+# through one layer; a wiring fault, such as a dropped Bm / Cm gradient,
+# moves a leaf by its own size)
+GRAD_HOLD_RTOL = 1e-3
+
+
+# the caching allocator's history of a traced run: events kept at most
+MEMORY_EVENTS = 2_000_000
+
+
+def frame_key(frames):
+    """"file:line function" of the innermost frame of the port (or of this
+    script) among an allocation's Python frames, innermost first; blocks
+    asked for where no Python frame runs (autograd's backward thread)
+    count as "autograd backward"."""
+    for f in frames:
+        path = f["filename"]
+        if "repro_torch/" in path:
+            return f"{path.split('repro_torch/')[-1]}:{f['line']} {f['name']}"
+        if path.endswith("chip_smoke.py"):
+            return f"chip_smoke.py:{f['line']} {f['name']}"
+    return "autograd backward" if not frames else f"{frames[0]['filename']}:{frames[0]['line']}"
+
+
+def peak_composition(fn):
+    """fn() under the caching allocator's history. Returns (fn's result, a
+    row): the largest net bytes allocated while fn ran (the blocks live
+    before it excluded, as `peak_above_start` counts them), the bytes of
+    the blocks live at that moment by `frame_key`, largest first, and the
+    event count."""
+    torch.cuda.memory._record_memory_history(max_entries=MEMORY_EVENTS, context="alloc",
+                                             stacks="python")
+    try:
+        out = fn()
+        sync()
+        trace = torch.cuda.memory._snapshot()["device_traces"][torch.cuda.current_device()]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    events = [e for e in trace if e["action"] in ("alloc", "free_completed")]
+    net = best = 0
+    at = -1
+    for i, e in enumerate(events):
+        net += e["size"] if e["action"] == "alloc" else -e["size"]
+        if net > best:
+            best, at = net, i
+    live = {}
+    for e in events[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        else:
+            live.pop(e["addr"], None)
+    by_frame = collections.Counter()
+    for e in live.values():
+        by_frame[frame_key(e.get("frames", []))] += e["size"]
+    return out, {"traced_peak_above_start": best, "live_at_peak": dict(by_frame.most_common()),
+                 "events": len(trace), "events_capped": len(trace) >= MEMORY_EVENTS}
+
+
+def recurrent_layers(cfg):
+    """The mamba and RG-LRU layers of `cfg` (layer i has pattern slot i mod
+    the pattern's length)."""
+    kinds = [cfg.layer_pattern[i % len(cfg.layer_pattern)] for i in range(cfg.n_layers)]
+    return sum(k in ("mamba", "rglru") for k in kinds)
+
+
+def phase_recurrent_grad_hold():
+    """At the train cells' widths (1 layer, f32), one replica's loss gradient
+    (`daso.value_and_grad` of `make_lm_loss`, 2 x 256 tokens) through K7 /
+    K7-bwd and K8 / K8-bwd, against the same gradient with `ops.ssm_scan` /
+    `ops.rglru_scan` swapped for their plain versions (autograd through
+    kernels/ref.py, as `plain_scan` swaps them): every leaf within
+    GRAD_HOLD_RTOL of its largest magnitude, the kernels launched once each
+    on the kernel path and never on the plain one. Returns the kernel path's
+    launches by arch."""
+    rows, out = [], {}
+    for name, (arch, _, kernels, _) in RECURRENT_CELLS.items():
+        cfg = train_config(1, arch)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7), "cuda")
+        src = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, seed=7)
+        batch = {k: v[0] for k, v in replica_data(src, 1)(0).items()}
+        vg = daso.value_and_grad(make_lm_loss(cfg))
+        zero_counts()
+        (loss, _), grads = vg(params, batch)
+        sync()
+        launched = counts()
+        with plain_scan():
+            zero_counts()
+            (plain_loss, _), plain = vg(params, batch)
+            sync()
+            plain_launched = counts()
+        errs = [scaled_err(a, b) for a, b in zip(leaves(grads), leaves(plain), strict=True)]
+        want = {**no_launches(), kernels[0]: 1, kernels[1]: 1}
+        row = {"arch": arch, "layers": 1, "params": sum(x.numel() for x in leaves(params)),
+               "loss": loss.item(), "plain_loss": plain_loss.item(),
+               "worst_leaf_scaled_err": max(errs), "leaf_scaled_errs": errs,
+               "tolerance": GRAD_HOLD_RTOL, "launches": launched,
+               "plain_launches": plain_launched}
+        rows.append(row)
+        out[arch] = launched
+        del params, grads, plain, loss, plain_loss
+        torch.cuda.empty_cache()
+        faults = [what for what, bad in (
+            ("leaf", not all(math.isfinite(e) and e <= GRAD_HOLD_RTOL for e in errs)),
+            ("launches", launched != want), ("plain launches", plain_launched != no_launches()))
+            if bad]
+        if faults:
+            emit({"phase": "recurrent_grad_hold", "failed": faults, **row})
+            raise AssertionError(f"recurrent_grad_hold {arch}: {faults}")
+    emit({"phase": "recurrent_grad_hold", "archs": rows})
+    return out
+
+
+def phase_train_recurrent(name):
+    """run_training with DASO at the published widths of the cell's arch, 1
+    layer, f32, the train cell's settings at the cell's R, RECURRENT_STEPS
+    steps on the macro executor: the loss falls, the final carry is finite,
+    K2 / K3 launch as the modes imply (each at least once), the scan and its
+    backward once per recurrent layer, replica and step, K1 never (attention
+    trains plain). Prints ms per step by cycle shape, the peak and the wire
+    bytes per exchange. Then runs the cell again under the allocator's
+    history (`peak_composition`, untimed): what is live at the peak, and
+    the room the card had left there."""
+    arch, replicas, kernels, why = RECURRENT_CELLS[name]
+    torch.cuda.empty_cache()
+    free, card = torch.cuda.mem_get_info()
+    room = free + torch.cuda.memory_reserved()  # what the allocator may hold
+    res, row, launches, modes, params0 = run_train_phase(
+        name, {"executor": "macro"}, why, arch=arch, layers=1, replicas=replicas,
+        steps=RECURRENT_STEPS)
+    cfg = train_config(1, arch)
+    row["widths"].update(mamba_widths(cfg) if arch == MAMBA_ARCH else rgemma_widths(cfg))
+    per_step = recurrent_layers(cfg) * replicas
+    want = {**train_launches(modes), kernels[0]: per_step * RECURRENT_STEPS,
+            kernels[1]: per_step * RECURRENT_STEPS}
+    check_launches(row, launches, want)
+    row["carry_finite"] = all(bool(torch.isfinite(x).all()) for x in leaves(res.carry)
+                              if x.is_floating_point())
+    row["wire_bytes_per_exchange"] = {
+        t: compression.transfer_bytes(params0, wire_format=t) for t in ("f32", "bf16")}
+    del res, params0
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    traced_peak, composition = peak_composition(lambda: run_train_phase(
+        name, {"executor": "macro"}, why, arch=arch, layers=1, replicas=replicas,
+        steps=RECURRENT_STEPS)[1]["max_memory_allocated"])
+    torch.cuda.empty_cache()
+    row["memory"].update(card_bytes=card, room_at_start=room,
+                         room_left_at_peak=room - row["max_memory_allocated"],
+                         traced_run={"allocated_before": start,
+                                     "max_memory_allocated": traced_peak, **composition})
+    faults = [what for what, bad in (
+        ("carry not finite", not row["carry_finite"]),
+        ("no receive step", want["eq1_merge"] < 1),
+        ("no blocking step", want["bf16_pack"] < 1)) if bad]
+    if faults:
+        emit({**row, "failed": faults})
+        raise AssertionError(f"{name}: {faults}")
     emit(row)
     return launches
 
@@ -3094,7 +3437,7 @@ def baseline_launches(name, modes):
     push and per blocking step."""
     n_ex = sum(m in EXCHANGE_MODES for m in modes)
     n_blk = modes.count("blocking")
-    out = dict.fromkeys((k["name"] for k in KERNELS), 0)
+    out = no_launches()
     if name == "gossip":
         out.update(quantize_int8=n_ex + n_blk, dequantize_int8=n_ex + n_blk)
     elif name == "easgd":
@@ -4147,9 +4490,8 @@ def overlap_launches(modes):
     """One f32 arena on the paper's wires under one_cycle: K2 once per
     ov_sync (the merge), K3 once per blocking step; the cycling exchange
     is f32 and launches nothing."""
-    return {"flash_attention_fwd": 0, "eq1_merge": modes.count("ov_sync"),
-            "bf16_pack": modes.count("blocking"), "bf16_unpack": 0, "quantize_int8": 0,
-            "dequantize_int8": 0, "ssm_scan": 0, "rglru_scan": 0}
+    return {**no_launches(), "eq1_merge": modes.count("ov_sync"),
+            "bf16_pack": modes.count("blocking")}
 
 
 def n_floating_leaves(params0):
@@ -4807,6 +5149,110 @@ def rgemma_timing(check_rows, rglru_rows, rgemma_launches, reports):
     return lines
 
 
+def scan_bwd_bound(x, Bm, dx, n_states, exp_rate):
+    """K7-bwd's least time: the larger of its exps (2 B S Di N: the states
+    recomputed once, then the reverse sweep) at the card's exp rate and its
+    bytes (x, dt, dy, Bm, Cm, A and h0 read, dx, ddt, dBm, dCm, dA and dh0
+    written, each once) at the memory rate. Returns (ms, by, bytes, exps)."""
+    B, S, Di = x.shape
+    bc = 2 * B * S * n_states * Bm.element_size()
+    state = B * Di * n_states * 4
+    nbytes = (x.numel() * x.element_size() + 2 * B * S * Di * 4 + bc + Di * n_states * 4
+              + state + dx.numel() * dx.element_size() + B * S * Di * 4 + bc
+              + Di * n_states * 4 + state)
+    exps = 2 * B * S * Di * n_states
+    bytes_ms, exp_ms = 1e3 * nbytes / PEAK_BYTES, 1e3 * exps / exp_rate
+    return max(bytes_ms, exp_ms), "operations" if exp_ms >= bytes_ms else "bytes", \
+        nbytes, exps
+
+
+def bwd_timing(scan_bwd_rows, rglru_bwd_rows, train_paths, grad_hold, reports):
+    """The backward kernels' lines: K7-bwd and K8-bwd at the train cells'
+    shapes (f32, as training hands them over: Bm / Cm as views at dt_rank
+    256, no cotangent of h_final) with the plain backward's time beside
+    them, and at the serving prefill's shapes (K7-bwd with bf16 x / Bm / Cm),
+    each beside its bound. Launches are the train phases'."""
+    rate, clock = mufu_exps_per_s()
+    lines = []
+    # K7-bwd
+    kern = next(k for k in KERNELS if k["name"] == "ssm_scan_bwd")
+    lib = ops.kernel_library("ssm_scan_bwd")
+    cfg = get_config(MAMBA_ARCH)
+    shapes = {}
+    for which, (B, S, dtype) in (("train", (TRAIN_PER, TRAIN_SEQ, torch.float32)),
+                                 ("serve", (BATCH, PROMPT, torch.bfloat16))):
+        Di, N = cfg.d_inner, cfg.ssm.d_state
+        args = scan_inputs(B, S, Di, N, dtype, False, cfg.dt_rank, seed=11)
+        (dy,) = cotangents(((B, S, Di),), seed=12)
+        ms = cuda_ms(lambda: ssm_scan_bwd(lib, *args, dy), 10)
+        bound, by, nbytes, exps = scan_bwd_bound(args[0], args[3], args[0], N, rate)
+        shapes[which] = {"shape": [B, S, Di, N], "dtype": str(dtype), "ms": ms,
+                         "bound_ms": bound, "bound_by": by, "bytes": nbytes, "exps": exps,
+                         "bound_share": bound / ms,
+                         "scratch_bytes": 4 * ssm_scan_bwd_scratch(lib, B, S, Di, N)}
+        if which == "train":
+            shapes[which]["plain_ms"] = cuda_ms(
+                lambda: ref.ssm_scan_bwd_ref(*args, dy, None), 2, warmup=1)
+        del args, dy
+    row = next(r for r in scan_bwd_rows if r["case"] == "train_shape_f32_no_dh")
+    train = shapes["train"]
+    name, regs = next((n, r) for n, r in ptxas_instances(reports["ssm_scan_bwd"]).items()
+                      if "ssm_scan_bwd_kernelIfLi16EE" in n)
+    lines.append({
+        "name": kern["name"], "route": kern["route"], "source": kern["source"],
+        "replaces": kern["replaces"],
+        "replaces_note": "no Pallas kernel: the JAX package differentiates "
+                         "mamba.selective_scan (a chunked associative scan) with jax.grad",
+        "launches": train_paths["train_mamba"][kern["name"]],
+        "launches_by_path": {"train_mamba": train_paths["train_mamba"][kern["name"]],
+                             "recurrent_grad_hold": grad_hold[MAMBA_ARCH][kern["name"]]},
+        "max_abs_err": row["max_abs_err"], "scaled_err": row["scaled_err"],
+        "tolerance": row["tolerance"],
+        "ms": train["ms"], "plain_ms": train["plain_ms"], "bound_ms": train["bound_ms"],
+        "bound_by": train["bound_by"], "library_ms": None,
+        "library": "none: no single PyTorch call computes a selective scan's backward",
+        "exp_rate": rate, **clock, "ptxas": {"instance": name, **regs},
+        "path": "train_mamba (one per layer, replica and step)", "shapes": shapes})
+    torch.cuda.empty_cache()
+
+    # K8-bwd
+    k8 = next(k for k in KERNELS if k["name"] == "rglru_scan_bwd")
+    lib = ops.kernel_library("rglru_scan_bwd")
+    W = get_config(RGEMMA_ARCH).lru_width
+    shapes = {}
+    for which, B, S in (("train", TRAIN_PER, TRAIN_SEQ), ("serve", BATCH, PROMPT)):
+        a, gx, h0 = rglru_inputs(B, S, W, torch.float32, False, seed=13)
+        hs, _ = ops.rglru_scan(a, gx, h0)
+        (dhs,) = cotangents(((B, S, W),), seed=14)
+        # a, hs and dhs read, da and dgx written; h0 read and dh0 written
+        nbytes = (5 * B * S * W + 2 * B * W) * 4
+        bound, by = bytes_bound(nbytes)
+        ms = cuda_ms(lambda: rglru_scan_bwd(lib, a, h0, hs, dhs), 20)
+        shapes[which] = {"shape": [B, S, W], "dtype": "float32", "ms": ms, "bound_ms": bound,
+                         "bound_by": by, "bytes": nbytes, "bound_share": bound / ms}
+        if which == "train":
+            shapes[which]["plain_ms"] = cuda_ms(
+                lambda: ref.rglru_scan_bwd_ref(a, gx, h0, hs, dhs, None), 2, warmup=1)
+        del a, gx, h0, hs, dhs
+    row = next(r for r in rglru_bwd_rows if r["case"] == "train_shape_f32" and not r["dh"])
+    train = shapes["train"]
+    lines.append({
+        "name": k8["name"], "route": k8["route"], "source": k8["source"],
+        "replaces": k8["replaces"],
+        "replaces_note": "no Pallas kernel: the JAX package differentiates "
+                         "mamba.linear_recurrence (a chunked associative scan) with jax.grad",
+        "launches": train_paths["train_rgemma"][k8["name"]],
+        "launches_by_path": {"train_rgemma": train_paths["train_rgemma"][k8["name"]],
+                             "recurrent_grad_hold": grad_hold[RGEMMA_ARCH][k8["name"]]},
+        "max_abs_err": row["max_abs_err"], "bit_exact": row["bit_exact"],
+        "ms": train["ms"], "plain_ms": train["plain_ms"], "bound_ms": train["bound_ms"],
+        "bound_by": train["bound_by"], "library_ms": None,
+        "library": "none: no single PyTorch call computes a linear recurrence's backward",
+        "path": "train_rgemma (one per RG-LRU layer, replica and step)", "shapes": shapes})
+    torch.cuda.empty_cache()
+    return lines
+
+
 def moe_timing(check_rows, variant_launches, reports):
     """K1's lines at head_dim 128: at moonshot-v1-16b-a3b's prefill (MHA 16 /
     16) and at mixtral-8x22b's (GQA 48 / 8, window 4096, which covers the
@@ -4962,6 +5408,8 @@ def main():
     phase_comm_check()
     scan_rows = phase_scan_check()
     rglru_rows = phase_rglru_check()
+    scan_bwd_rows = phase_scan_bwd_check()
+    rglru_bwd_rows = phase_rglru_bwd_check()
     serve_launches = phase_serve()
     mamba_launches = phase_serve_mamba()
     scan_line = scan_timing(scan_rows, mamba_launches, reports)
@@ -4973,6 +5421,14 @@ def main():
                                reports)
     moe_train_launches = phase_train_moe()
     vlm_train_launches = phase_train_vlm()
+    grad_hold = phase_recurrent_grad_hold()
+    recurrent_train = {name: phase_train_recurrent(name) for name in RECURRENT_CELLS}
+    bwd_lines = bwd_timing(scan_bwd_rows, rglru_bwd_rows, recurrent_train, grad_hold, reports)
+    for line, kern, serve_path, train_path in (
+            (scan_line, "ssm_scan", ("serve_mamba", mamba_launches), "train_mamba"),
+            (rgemma_lines[0], "rglru_scan", ("serve_rgemma", rgemma_launches), "train_rgemma")):
+        line["launches_by_path"] = {serve_path[0]: serve_path[1][kern],
+                                    train_path: recurrent_train[train_path][kern]}
     phase_train_check()
     resume_launches = phase_train_resume()
     int8_per_step = phase_train_int8_overlap()
@@ -5019,9 +5475,9 @@ def main():
         **procs_launches, "live_kill": live_kill_launches,
         "train_macro_per_leaf": macro_per_leaf_launches, **overlap_per_leaf_launches,
         **autotune_launches, **launch_autotune_launches, **resnet_launches,
-        "train_moe": moe_train_launches, "train_vlm": vlm_train_launches},
+        "train_moe": moe_train_launches, "train_vlm": vlm_train_launches, **recurrent_train},
         arena_parts,
-        [scan_line] + rgemma_lines + moe_lines + dense_lines, reports, resnet_rows)
+        [scan_line] + rgemma_lines + bwd_lines + moe_lines + dense_lines, reports, resnet_rows)
     emit_total()
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,7 +4,9 @@ sources at first use.
 A wrapper takes its kernel's plain version (`ref.py`) only for tensors on
 the CPU. For CUDA tensors it builds the kernel (once per process, with
 `nvcc` for sm_90a, into `build/` beside the sources) and launches it, or
-raises.
+raises. The two scans are `torch.autograd.Function`s whose backward is
+again a kernel on the card (K7-bwd, K8-bwd) and the plain backward on the
+CPU.
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ from repro_torch.kernels import ssm_scan as scan
 from repro_torch.kernels.flash_attention import check_inputs, flash_attention_fwd
 from repro_torch.kernels.ref import (attention_ref, bf16_pack_ref, bf16_unpack_ref,
                                      dequantize_int8_block_ref, eq1_merge_ref,
-                                     quantize_int8_block_ref, rglru_scan_ref,
-                                     ssm_scan_ref)
+                                     quantize_int8_block_ref, rglru_scan_bwd_ref,
+                                     rglru_scan_ref, ssm_scan_bwd_ref, ssm_scan_ref)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -93,7 +95,9 @@ def launch_counts() -> dict:
             "quantize_int8": comm.quantize_int8_fwd.launches,
             "dequantize_int8": comm.dequantize_int8_fwd.launches,
             "ssm_scan": scan.ssm_scan_fwd.launches,
-            "rglru_scan": rglru.rglru_scan_fwd.launches}
+            "rglru_scan": rglru.rglru_scan_fwd.launches,
+            "ssm_scan_bwd": scan.ssm_scan_bwd.launches,
+            "rglru_scan_bwd": rglru.rglru_scan_bwd.launches}
 
 
 class CopyMeter:
@@ -143,25 +147,78 @@ def _on_card(name: str, t) -> bool:
     return True
 
 
+class _SsmScan(torch.autograd.Function):
+    """K7 forward and K7-bwd backward on the card, the plain versions of
+    both on the CPU. Saves the inputs (the backward recomputes the states
+    from them)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, h0)
+        if not _on_card("ssm_scan", x):
+            return ssm_scan_ref(x, dt, A, Bm, Cm, h0)
+        return scan.ssm_scan_fwd(kernel_library("ssm_scan"), x, dt, A, Bm, Cm, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, Bm, Cm, h0 = ctx.saved_tensors
+        if dy is None:  # only h_final was used
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        if not _on_card("ssm_scan", x):
+            grads = ssm_scan_bwd_ref(x, dt, A, Bm, Cm, h0, dy, dh)
+        else:
+            grads = scan.ssm_scan_bwd(kernel_library("ssm_scan_bwd"), x, dt, A, Bm, Cm,
+                                      h0, contiguous(dy),
+                                      None if dh is None else contiguous(dh))
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+class _RglruScan(torch.autograd.Function):
+    """K8 forward and K8-bwd backward on the card, the plain versions of
+    both on the CPU. Saves a, h0 and the states hs."""
+
+    @staticmethod
+    def forward(ctx, a, gx, h0):
+        ctx.set_materialize_grads(False)
+        if not _on_card("rglru_scan", a):
+            hs, h = rglru_scan_ref(a, gx, h0)
+        else:
+            hs, h = rglru.rglru_scan_fwd(kernel_library("rglru_scan"), a, gx, h0)
+        ctx.save_for_backward(a, h0, hs)
+        return hs, h
+
+    @staticmethod
+    def backward(ctx, dhs, dh):
+        a, h0, hs = ctx.saved_tensors
+        if dhs is None:  # only h_final was used
+            dhs = torch.zeros(hs.shape, dtype=torch.float32, device=hs.device)
+        if not _on_card("rglru_scan", a):
+            # gx's dtype is a's, which is all the plain backward reads of gx
+            grads = rglru_scan_bwd_ref(a, a, h0, hs, dhs, dh)
+        else:
+            grads = rglru.rglru_scan_bwd(kernel_library("rglru_scan_bwd"), a, h0, hs,
+                                         contiguous(dhs),
+                                         None if dh is None else contiguous(dh))
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
 def ssm_scan(x, dt, A, Bm, Cm, h0):
     """Mamba-1 selective scan (K7): x, dt (B,S,Di); A (Di,N) f32; Bm, Cm
     (B,S,N); h0 (B,Di,N) f32 -> (y (B,S,Di) f32, h_final (B,Di,N) f32).
-    Forward only: raises NotImplementedError when a gradient is asked for."""
+    Differentiable in every input, the backward K7-bwd on the card; without
+    a gradient to take (torch.no_grad, serving) nothing is saved."""
     scan.check_inputs(x, dt, A, Bm, Cm, h0)
-    if not _on_card("ssm_scan", x):
-        return ssm_scan_ref(x, dt, A, Bm, Cm, h0)
-    return scan.ssm_scan_fwd(kernel_library("ssm_scan"), x, dt, A, Bm, Cm, h0)
+    return _SsmScan.apply(x, dt, A, Bm, Cm, h0)
 
 
 def rglru_scan(a, gx, h0):
     """RG-LRU diagonal recurrence h_t = a_t * h_{t-1} + gx_t (K8): a, gx
     (B,S,W) of one dtype; h0 (B,W) f32 -> (hs (B,S,W) f32, h_final (B,W)
-    f32). Forward only: raises NotImplementedError when a gradient is asked
-    for."""
+    f32). Differentiable in every input, the backward K8-bwd on the card;
+    without a gradient to take (torch.no_grad, serving) nothing is saved."""
     rglru.check_inputs(a, gx, h0)
-    if not _on_card("rglru_scan", a):
-        return rglru_scan_ref(a, gx, h0)
-    return rglru.rglru_scan_fwd(kernel_library("rglru_scan"), a, gx, h0)
+    return _RglruScan.apply(a, gx, h0)
 
 
 def eq1_merge(local, stale, *, staleness: int, global_world,

@@ -44,34 +44,106 @@ def attention_row_ratio(out, ref32, ulps: int = ROW_ULPS) -> float:
     return (err / limit).max().item()
 
 
+def _work(*ts):
+    """The plain scans' arithmetic dtype: f32, or f64 where an input is f64
+    (the gradient checks run the plain versions in f64)."""
+    return torch.float64 if any(t.dtype == torch.float64 for t in ts) else torch.float32
+
+
 def ssm_scan_ref(x, dt, A, Bm, Cm, h0):
     """Mamba selective scan, sequential over t, all in f32
     (`repro/kernels/ref.py::ssm_scan_ref`): h_t = exp(dt_t A) h_{t-1} +
     (dt_t x_t) B_t, y_t = sum_n h_t C_t. x, dt (B,S,Di); A (Di,N); Bm, Cm
-    (B,S,N); h0 (B,Di,N). Returns (y (B,S,Di) f32, h_final (B,Di,N) f32)."""
-    h = h0.float()
-    A = A.float()
+    (B,S,N); h0 (B,Di,N). Returns (y (B,S,Di) f32, h_final (B,Di,N) f32);
+    f64 throughout where an input is f64."""
+    w = _work(x, dt, A, Bm, Cm, h0)
+    h = h0.to(w)
+    A = A.to(w)
     ys = []
     for t in range(x.shape[1]):
-        dt_t = dt[:, t].float()
+        dt_t = dt[:, t].to(w)
         da = torch.exp(dt_t[..., None] * A)
-        db = (dt_t * x[:, t].float())[..., None] * Bm[:, t].float()[:, None, :]
+        db = (dt_t * x[:, t].to(w))[..., None] * Bm[:, t].to(w)[:, None, :]
         h = da * h + db
-        ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t].float()))
+        ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t].to(w)))
     return torch.stack(ys, dim=1), h
+
+
+def ssm_scan_bwd_ref(x, dt, A, Bm, Cm, h0, dy, dh):
+    """The backward of `ssm_scan_ref`: an explicit reverse loop over t in
+    f32 (f64 where an input is f64), without autograd. dy (B,S,Di) is the
+    cotangent of y, dh (B,Di,N) that of h_final (None: zeros). The forward
+    states are recomputed from h0. The state adjoint g (B,Di,N) starts at
+    dh; for t = S-1 .. 0, with da_t = exp(dt_t A) and h_{-1} = h0:
+        g += dy_t C_t;  dC_t = sum_d dy_t h_t;  dB_t = sum_d g dt_t x_t;
+        dx_t = dt_t sum_n g B_t;  ddt_t = sum_n g (A da_t h_{t-1} + x_t B_t);
+        dA += sum_b g dt_t da_t h_{t-1};  g = da_t g
+    and dh0 = g. Returns (dx, ddt, dA, dBm, dCm, dh0), each in its input's
+    dtype (dBm and dCm contiguous)."""
+    w = _work(x, dt, A, Bm, Cm, h0, dy)
+    S = x.shape[1]
+    A_w = A.to(w)
+    hs = [h0.to(w)]  # hs[t + 1] = h_t
+    for t in range(S):
+        dt_t = dt[:, t].to(w)
+        db = (dt_t * x[:, t].to(w))[..., None] * Bm[:, t].to(w)[:, None, :]
+        hs.append(torch.exp(dt_t[..., None] * A_w) * hs[-1] + db)
+    g = torch.zeros_like(hs[0]) if dh is None else dh.to(w)
+    dx, ddt, dBm, dCm = [None] * S, [None] * S, [None] * S, [None] * S
+    dA = torch.zeros_like(A_w)
+    for t in range(S - 1, -1, -1):
+        dt_t, x_t, dy_t = dt[:, t].to(w), x[:, t].to(w), dy[:, t].to(w)
+        B_t, C_t = Bm[:, t].to(w), Cm[:, t].to(w)
+        da = torch.exp(dt_t[..., None] * A_w)
+        g = g + dy_t[..., None] * C_t[:, None, :]
+        dCm[t] = torch.einsum("bd,bdn->bn", dy_t, hs[t + 1])
+        dBm[t] = torch.einsum("bdn,bd->bn", g, dt_t * x_t)
+        dx[t] = dt_t * torch.einsum("bdn,bn->bd", g, B_t)
+        dah = da * hs[t]
+        ddt[t] = (g * (A_w * dah + x_t[..., None] * B_t[:, None, :])).sum(-1)
+        dA = dA + (g * dt_t[..., None] * dah).sum(0)
+        g = da * g
+    return (torch.stack(dx, 1).to(x.dtype), torch.stack(ddt, 1).to(dt.dtype),
+            dA.to(A.dtype), torch.stack(dBm, 1).to(Bm.dtype),
+            torch.stack(dCm, 1).to(Cm.dtype), g.to(h0.dtype))
 
 
 def rglru_scan_ref(a, gx, h0):
     """Diagonal recurrence h_t = a_t * h_{t-1} + gx_t, sequential over t, in
     f32 (`repro/kernels/ref.py::rglru_scan_ref`): the product and the sum
     are two roundings, as K8 computes them. a, gx (B,S,W); h0 (B,W).
-    Returns (hs (B,S,W) f32, h_final (B,W) f32)."""
-    h = h0.float()
+    Returns (hs (B,S,W) f32, h_final (B,W) f32); f64 throughout where an
+    input is f64."""
+    w = _work(a, gx, h0)
+    h = h0.to(w)
     hs = []
     for t in range(a.shape[1]):
-        h = a[:, t].float() * h + gx[:, t].float()
+        h = a[:, t].to(w) * h + gx[:, t].to(w)
         hs.append(h)
     return torch.stack(hs, dim=1), h
+
+
+def rglru_scan_bwd_ref(a, gx, h0, hs, dhs, dh):
+    """The backward of `rglru_scan_ref`: an explicit reverse loop over t in
+    f32 (f64 where an input is f64), without autograd. hs (B,S,W) are the
+    forward's states, dhs their cotangent, dh that of h_final (None: no
+    term). The adjoint is g_{S-1} = dhs_{S-1} + dh and g_t = dhs_t + a_{t+1}
+    g_{t+1}, the product and the sum two roundings, as the backward kernel
+    computes them; then dgx_t = g_t, da_t = g_t h_{t-1} (h_{-1} = h0) and
+    dh0 = a_0 g_0. Returns (da, dgx, dh0), each in its input's dtype."""
+    w = _work(a, gx, h0, hs, dhs)
+    S = a.shape[1]
+    da, dgx = [None] * S, [None] * S
+    g = dhs[:, S - 1].to(w)
+    if dh is not None:
+        g = g + dh.to(w)
+    for t in range(S - 1, -1, -1):
+        if t < S - 1:
+            g = dhs[:, t].to(w) + a[:, t + 1].to(w) * g
+        dgx[t] = g
+        da[t] = g * (hs[:, t - 1].to(w) if t else h0.to(w))
+    return (torch.stack(da, 1).to(a.dtype), torch.stack(dgx, 1).to(gx.dtype),
+            (a[:, 0].to(w) * g).to(h0.dtype))
 
 
 def eq1_merge_ref(local, stale, *, staleness, global_world, extra_staleness=0):

@@ -1,6 +1,8 @@
-"""Binding of the hand-written selective-scan kernel (`csrc/ssm_scan.cu`,
+"""Bindings of the hand-written selective-scan kernel (`csrc/ssm_scan.cu`,
 K7), the port of the Pallas TPU kernel `repro/kernels/ssm_scan.py
-::_ssm_kernel`.
+::_ssm_kernel`, and of its backward (`csrc/ssm_scan_bwd.cu`, K7-bwd), which
+has no Pallas counterpart (the JAX package differentiates its scan with
+jax.grad).
 
 x, dt (B, S, Di); A (Di, N); Bm, Cm (B, S, N); h0 (B, Di, N). x, Bm and Cm
 share one dtype (f32 or bf16); dt, A and h0 are f32. x, dt, Bm and Cm may be
@@ -17,8 +19,6 @@ import torch
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_STATE = 32   # the kernel's largest instance: 8 states in each of 4 lanes
 MAX_BATCH = 65535  # the kernel's grid.y
-SSM_NO_BACKWARD = ("ssm_scan has no backward: training through the selective "
-                   "scan is not ported (ROADMAP item 23)")
 
 
 def check_inputs(x, dt, A, Bm, Cm, h0) -> None:
@@ -53,9 +53,6 @@ def check_inputs(x, dt, A, Bm, Cm, h0) -> None:
     for name, t in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm), ("h0", h0)):
         if t.device != x.device:
             raise ValueError(f"ssm_scan: {name} on {t.device}, x on {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, Bm, Cm, h0)):
-        raise NotImplementedError(SSM_NO_BACKWARD)
 
 
 def ssm_scan_fwd(lib: ctypes.CDLL, x, dt, A, Bm, Cm, h0):
@@ -102,3 +99,56 @@ def scan_config(lib: ctypes.CDLL, dtype, N: int) -> dict:
     if err:
         raise RuntimeError(f"ssm_scan_config: cudaError {err}")
     return dict(zip(_CONFIG_FIELDS, out))
+
+
+def ssm_scan_bwd(lib: ctypes.CDLL, x, dt, A, Bm, Cm, h0, dy, dh=None):
+    """Launch K7-bwd from `lib` (the scan kernel and its partial-sum kernel,
+    counted as one launch) on the CUDA inputs of a K7 call already passed
+    through `check_inputs`, dy (B, S, Di) f32 contiguous and dh (B, Di, N)
+    f32 contiguous or None. Returns (dx, ddt, dA, dBm, dCm, dh0), new and
+    contiguous, each in its input's dtype."""
+    if x.device.type != "cuda":
+        raise ValueError(f"ssm_scan_bwd: needs CUDA tensors, got {x.device}")
+    B, S, Di = x.shape
+    N = A.shape[1]
+    for name, t, shape in (("dy", dy, (B, S, Di)), ("dh", dh, (B, Di, N))):
+        if t is not None and (t.shape != shape or t.dtype != torch.float32
+                              or not t.is_contiguous() or t.device != x.device):
+            raise ValueError(f"ssm_scan_bwd: {name} must be a contiguous f32 {shape} "
+                             f"on {x.device}")
+    dx = torch.empty((B, S, Di), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((B, S, Di), dtype=torch.float32, device=x.device)
+    dA = torch.empty((Di, N), dtype=torch.float32, device=x.device)
+    dBm = torch.empty((B, S, N), dtype=Bm.dtype, device=x.device)
+    dCm = torch.empty((B, S, N), dtype=Cm.dtype, device=x.device)
+    dh0 = torch.empty((B, Di, N), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(ssm_scan_bwd_scratch(lib, B, S, Di, N), dtype=torch.float32,
+                          device=x.device)
+    fn = lib.ssm_scan_bwd
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [
+        ctypes.c_int64] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    strides = [s for t in (x, dt, Bm, Cm) for s in (t.stride(0), t.stride(1))]
+    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+             h0.data_ptr(), dy.data_ptr(), None if dh is None else dh.data_ptr(),
+             dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(),
+             dh0.data_ptr(), scratch.data_ptr(), int(x.dtype == torch.bfloat16),
+             B, S, Di, N, *strides, stream)
+    if err:
+        raise RuntimeError(f"ssm_scan_bwd: launch failed with cudaError {err}")
+    ssm_scan_bwd.launches += 1
+    return dx, ddt, dA, dBm, dCm, dh0
+
+
+ssm_scan_bwd.launches = 0
+
+
+def ssm_scan_bwd_scratch(lib: ctypes.CDLL, B: int, S: int, Di: int, N: int) -> int:
+    """The f32 scratch values of one K7-bwd call, as the kernel's source
+    sizes them: the tile checkpoints, the channel blocks' partial sums of
+    dBm and dCm and the per-batch partials of dA."""
+    fn = lib.ssm_scan_bwd_scratch
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int64
+    return fn(B, S, Di, N, (ctypes.c_int64 * 3)())

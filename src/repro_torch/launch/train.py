@@ -101,7 +101,6 @@ import torch
 from repro_torch.checkpoint.io import (TrainState, fit_tree, load_latest_train_state,
                                        load_train_state, save_checkpoint)
 from repro_torch.configs import get_config, get_reduced, require_lm
-from repro_torch.configs.base import MAMBA, RGLRU
 from repro_torch.core.executor import MacroCycleExecutor, list_strategies
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.device import resolve_device
@@ -241,12 +240,6 @@ def parse_args(argv=None):
 
 def build_config(args):
     cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
-    if MAMBA in cfg.layer_pattern:
-        raise SystemExit(f"train: {args.arch} needs a backward through the selective "
-                         f"scan, which is not ported (ROADMAP item 23)")
-    if RGLRU in cfg.layer_pattern:
-        raise SystemExit(f"train: {args.arch} needs a backward through the RG-LRU "
-                         f"scan (K8), which is not ported (ROADMAP item 23)")
     if args.tiny:
         if args.full:
             raise SystemExit("train: --tiny and --full are mutually exclusive")

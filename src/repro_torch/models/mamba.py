@@ -1,10 +1,11 @@
 """Mamba-1 selective SSM mixer (Falcon-Mamba style), `repro/models/mamba.py`.
 
-Prefill runs the selective scan through K7 (`kernels/ops.py::ssm_scan`),
-which computes what the reference's chunked `associative_scan` computes;
-one-token decode takes the reference's fast path in plain PyTorch. The
-decode cache {"conv", "h"} is written in place. `linear_recurrence`, the
-diagonal recurrence the RG-LRU mixer scans, runs through K8.
+Prefill and training run the selective scan through K7 (`kernels/ops.py::
+ssm_scan`), which computes what the reference's chunked `associative_scan`
+computes; under autograd its backward is K7-bwd. One-token decode takes
+the reference's fast path in plain PyTorch. The decode cache {"conv", "h"}
+is written in place. `linear_recurrence`, the diagonal recurrence the
+RG-LRU mixer scans, runs through K8 (backward K8-bwd).
 """
 from __future__ import annotations
 
@@ -57,19 +58,22 @@ def init_mamba_cache(cfg, batch, dtype, device):
 
 def selective_scan(xh, dt, A, Bm, Cm, h0):
     """y_t = C_t . h_t with h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t, through
-    K7 on the card. xh (B,S,Di); dt (B,S,Di) f32; A (Di,N) f32; Bm, Cm
-    (B,S,N); h0 (B,Di,N) f32. Returns (y (B,S,Di) in xh's dtype, h f32)."""
+    K7 on the card; under autograd (training's forward is this prefill path
+    with grad enabled) the gradients of every input come from K7-bwd. xh
+    (B,S,Di); dt (B,S,Di) f32; A (Di,N) f32; Bm, Cm (B,S,N); h0 (B,Di,N)
+    f32. Returns (y (B,S,Di) in xh's dtype, h f32)."""
     y, h = ops.ssm_scan(xh, dt, A, Bm, Cm, h0)
     return y.to(xh.dtype), h
 
 
 def linear_recurrence(da, db, h0):
     """Diagonal recurrence h_t = da_t * h_{t-1} + db_t along axis 1 of
-    (B,S,W) tensors, through K8 on the card (the reference computes it with
-    a chunked associative scan). h0 (B,W) f32. Returns (hs (B,S,W) f32,
-    h_final (B,W) f32): the reference's scan multiplies every step by the
-    f32 state, so its hs is f32 whatever db's dtype (its docstring says
-    db's)."""
+    (B,S,W) tensors, through K8 on the card, and under autograd its
+    gradients through K8-bwd (the reference computes it with a chunked
+    associative scan and differentiates that). h0 (B,W) f32. Returns (hs
+    (B,S,W) f32, h_final (B,W) f32): the reference's scan multiplies every
+    step by the f32 state, so its hs is f32 whatever db's dtype (its
+    docstring says db's)."""
     return ops.rglru_scan(da, db, h0)
 
 

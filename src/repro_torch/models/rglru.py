@@ -5,9 +5,9 @@ r_t = sigmoid(W_a x_t + b_a), i_t = sigmoid(W_i x_t + b_i),
 log a_t = -c * softplus(Lambda) * r_t,
 h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t).
 
-Prefill scans the recurrence through K8 (`models/mamba.py::
-linear_recurrence`); one-token decode steps the state in plain PyTorch, as
-the reference does. The decode cache {"conv", "h"} is written in place.
+Prefill and training scan the recurrence through K8 (`models/mamba.py::
+linear_recurrence`; under autograd the backward is K8-bwd); one-token
+decode steps the state in plain PyTorch, as the reference does. The decode cache {"conv", "h"} is written in place.
 """
 from __future__ import annotations
 

@@ -1,8 +1,10 @@
 """Pure-function optimizers in the functional init / update form of
 `repro/optim/optimizers.py`: `update(grads, state, params, lr) ->
 (new_params, new_state)` on trees of tensors, new tensors out, nothing
-updated in place. The paper's node-local optimizer is SGD with momentum
-0.9 and weight decay 1e-4; DASO wraps whichever it is given."""
+given updated in place (an update writes into its own temporaries, so a
+leaf's outputs need at most one temporary beside them). The paper's
+node-local optimizer is SGD with momentum 0.9 and weight decay 1e-4;
+DASO wraps whichever it is given."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -35,13 +37,16 @@ def sgd(momentum: float = 0.9, weight_decay: float = 1e-4,
         mus = leaves(state["mu"]) if momentum else [None] * len(gs)
         new_p, new_mu = [], []
         for g, p, mu in zip(gs, leaves(params), mus):
+            # each line rounds as g + wd * p, momentum * mu + g, g + momentum
+            # * mu and p - lr * g do (a product, then a sum), in place in
+            # the product: IEEE sums commute, and p + (-lr) * g is p - lr * g
             g = g.float()
             if weight_decay:
-                g = g + weight_decay * p.float()
+                g = torch.mul(p.float(), weight_decay).add_(g)
             if momentum:
-                mu = momentum * mu + g
-                g = g + momentum * mu if nesterov else mu
-            new_p.append((p.float() - lr * g).to(p.dtype))
+                mu = torch.mul(mu, momentum).add_(g)
+                g = torch.mul(mu, momentum).add_(g) if nesterov else mu
+            new_p.append(torch.mul(g, -lr).add_(p.float()).to(p.dtype))
             new_mu.append(mu)
         if not momentum:
             return unflatten(treedef, new_p), state

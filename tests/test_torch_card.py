@@ -18,10 +18,10 @@ from repro_torch.kernels import comm_kernels, ops
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.ref import (attention_ref, attention_row_ratio, bf16_pack_ref,
                                      bf16_unpack_ref, dequantize_int8_block_ref, eq1_merge_ref,
-                                     quantize_int8_block_ref, rglru_scan_ref,
-                                     ssm_scan_ref)
-from repro_torch.kernels.rglru_scan import rglru_scan_fwd
-from repro_torch.kernels.ssm_scan import scan_config, ssm_scan_fwd
+                                     quantize_int8_block_ref, rglru_scan_bwd_ref,
+                                     rglru_scan_ref, ssm_scan_bwd_ref, ssm_scan_ref)
+from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
+from repro_torch.kernels.ssm_scan import scan_config, ssm_scan_bwd, ssm_scan_fwd
 from repro_torch.models.lm import forward, init_params
 from repro_torch.serve.engine import Engine, make_decode_fn, make_prefill_fn
 from repro_torch.train.loop import TrainLoopConfig, run_training
@@ -505,10 +505,49 @@ def test_ssm_scan_fills_the_card_in_one_wave(cuda):
     assert ctas * cfg["threads"] / 32 / sms >= 24
 
 
-def test_ssm_scan_refuses_a_gradient_on_the_card(cuda):
-    x, dt, A, Bm, Cm, h0 = _scan_inputs(cuda, 1, 8, 64, 16, False, 0, torch.float32, 0)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        ops.ssm_scan(x, dt.requires_grad_(), A, Bm, Cm, h0)
+# K7-bwd against the plain backward run in f64, each output's largest error
+# scaled to its largest magnitude: 1e-4 for f32 outputs (the f32 plain
+# backward sits near 1e-6 there; the kernel sums dBm / dCm over the channels
+# and dA over the batch in other orders), one bf16 ulp at the top (2^-7) for
+# the bf16 gradients of bf16 x / Bm / Cm
+SCAN_BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
+def scaled_err(got, want64):
+    return ((got.double() - want64).abs().max() / want64.abs().max().clamp_min(1e-300)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Di,N,random_h0,dt_rank", SCAN_CASES)
+def test_ssm_scan_bwd_kernel_matches_plain(cuda, B, S, Di, N, random_h0, dt_rank, dtype):
+    """K7-bwd (through ops.ssm_scan under autograd and through its binding)
+    against `ssm_scan_bwd_ref` in f64 on the same inputs, with a random
+    cotangent of y and of h_final; two launches give the same bits."""
+    args = _scan_inputs(cuda, B, S, Di, N, random_h0, dt_rank, dtype, seed=S + Di + N + 1)
+    g = torch.Generator(device=cuda).manual_seed(S + N)
+    dy = torch.randn((B, S, Di), generator=g, device=cuda)
+    dh = torch.randn((B, Di, N), generator=g, device=cuda)
+    lib = ops.kernel_library("ssm_scan_bwd")
+    before = ssm_scan_bwd.launches
+    got = ssm_scan_bwd(lib, *args, dy, dh)
+    again = ssm_scan_bwd(lib, *args, dy, dh)
+    torch.cuda.synchronize()
+    assert ssm_scan_bwd.launches == before + 2
+    want = ssm_scan_bwd_ref(*(t.double() for t in args), dy.double(), dh.double())
+    for name, a, b, w in zip(("dx", "ddt", "dA", "dBm", "dCm", "dh0"), got, again, want):
+        assert a.dtype == (dtype if name in ("dx", "dBm", "dCm") else torch.float32)
+        assert torch.equal(a, b), f"{name}: two launches differ"
+        assert scaled_err(a, w) <= SCAN_BWD_RTOL[a.dtype], (name, scaled_err(a, w))
+    # the same through autograd (contiguous copies of the inputs: the views
+    # are held above): the kernels launch, and the gradients agree
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    before = ssm_scan_fwd.launches, ssm_scan_bwd.launches
+    y, h = ops.ssm_scan(*leaves)
+    grads = torch.autograd.grad((y * dy).sum() + (h * dh).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (ssm_scan_fwd.launches, ssm_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for name, a, w in zip(("dx", "ddt", "dA", "dBm", "dCm", "dh0"), grads, want):
+        assert scaled_err(a, w) <= SCAN_BWD_RTOL[a.dtype], (name, scaled_err(a, w))
 
 
 def test_mamba_serving_goes_through_the_kernel(cuda):
@@ -572,10 +611,29 @@ def test_rglru_scan_kernel_bit_exact(cuda, B, S, W, random_h0, dtype):
     assert torch.equal(h.view(torch.int32), hr.view(torch.int32))
 
 
-def test_rglru_scan_refuses_a_gradient_on_the_card(cuda):
-    a, gx, h0 = _rglru_inputs(cuda, 1, 8, 64, False, torch.float32, 0)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        ops.rglru_scan(a.requires_grad_(), gx, h0)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,W,random_h0", RGLRU_CASES)
+def test_rglru_scan_bwd_kernel_bit_exact(cuda, B, S, W, random_h0, dtype):
+    """K8-bwd against `rglru_scan_bwd_ref` bit for bit, with and without a
+    cotangent of h_final, and through ops.rglru_scan under autograd."""
+    a, gx, h0 = _rglru_inputs(cuda, B, S, W, random_h0, dtype, seed=S + W + 1)
+    hs, _ = ops.rglru_scan(a, gx, h0)
+    g = torch.Generator(device=cuda).manual_seed(S + W)
+    dhs = torch.randn((B, S, W), generator=g, device=cuda)
+    dh = torch.randn((B, W), generator=g, device=cuda)
+    lib = ops.kernel_library("rglru_scan_bwd")
+    for cot in (dh, None):
+        before = rglru_scan_bwd.launches
+        got = rglru_scan_bwd(lib, a, h0, hs, dhs, cot)
+        torch.cuda.synchronize()
+        assert rglru_scan_bwd.launches == before + 1
+        for x, w in zip(got, rglru_scan_bwd_ref(a, gx, h0, hs, dhs, cot), strict=True):
+            assert x.dtype == w.dtype and torch.equal(x, w)
+    leaves = [t.detach().clone().requires_grad_() for t in (a, gx, h0)]
+    hs2, h2 = ops.rglru_scan(*leaves)
+    grads = torch.autograd.grad((hs2 * dhs).sum() + (h2 * dh).sum(), leaves)
+    for x, w in zip(grads, rglru_scan_bwd_ref(a, gx, h0, hs, dhs, dh), strict=True):
+        assert torch.equal(x, w)
 
 
 def test_rgemma_serving_goes_through_the_kernels(cuda):

@@ -257,6 +257,23 @@ def test_scan_checks_are_inputs_the_kernel_takes(chip_smoke):
     assert any(case[-1] == 7 and case[5] == torch.bfloat16 for case in chip_smoke.SCAN_CHECKS)
 
 
+def test_bwd_checks_cover_the_sweep_and_the_train_shapes(chip_smoke):
+    """K7-bwd is held on every K7 case plus the train shape with and without
+    a cotangent of h_final, and K8-bwd on every K8 case plus its train
+    shape; every K7-bwd case passes the wrapper's checks."""
+    from repro_torch.kernels import ssm_scan as scan
+    bwd = chip_smoke.SCAN_BWD_CHECKS
+    assert [c[:-1] for c in bwd[:len(chip_smoke.SCAN_CHECKS)]] == chip_smoke.SCAN_CHECKS
+    assert {(c[1:5], c[-1]) for c in bwd[len(chip_smoke.SCAN_CHECKS):]} == {
+        (chip_smoke.MAMBA_TRAIN_SHAPE, True), (chip_smoke.MAMBA_TRAIN_SHAPE, False)}
+    for name, B, S, Di, N, dtype, random_h0, dt_rank, with_dh in bwd:
+        scan.check_inputs(*_meta_scan_inputs(B, S, Di, N, dtype, dt_rank))
+    rg = chip_smoke.RGLRU_BWD_CHECKS
+    assert rg[:len(chip_smoke.RGLRU_CHECKS)] == chip_smoke.RGLRU_CHECKS
+    assert tuple(rg[-1][1:4]) == chip_smoke.RGEMMA_TRAIN_SHAPE
+    assert chip_smoke.SCAN_BWD_RTOL == {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
 SASS = """
 \tcode for sm_90a
 \t\tFunction : _ZN5ssm_scan_kernelI13__nv_bfloat16Li16ELb1EEEvNS_4ArgsENS_4MapsE

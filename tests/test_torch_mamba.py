@@ -130,13 +130,27 @@ def test_ssm_scan_rejects_what_the_kernel_does_not_take(case):
 
 
 def test_ssm_scan_refuses_a_gradient():
-    """K7 has no backward (the Pallas kernel has none either): asking for a
-    gradient raises instead of returning a tensor without a grad_fn."""
-    x, dt, A, Bm, Cm, h0 = (torch.from_numpy(a) for a in _scan_inputs(1, 1, 4, 8, 4))
-    with pytest.raises(NotImplementedError, match="item 23"):
-        ops.ssm_scan(x.requires_grad_(), dt, A, Bm, Cm, h0)
+    """The gradient K7 once refused: ops.ssm_scan differentiates every input
+    (through the plain backward on the CPU), within 1e-4 of the largest
+    magnitude of jax.grad of the reference's chunked `selective_scan`, with
+    cotangents of y and h_final; under torch.no_grad nothing is recorded."""
+    arrays = _scan_inputs(1, 2, 12, 8, 4, random_h0=True)
+    rng = _rng(2)
+    dy = rng.standard_normal((2, 12, 8), dtype=np.float32)
+    dh = rng.standard_normal((2, 8, 4), dtype=np.float32)
+    _, pull = jax.vjp(lambda *a: jax_mamba.selective_scan(*a, chunk=4),
+                      *(jnp.asarray(a) for a in arrays))
+    want = pull((jnp.asarray(dy), jnp.asarray(dh)))
+    xs = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    y, h = ops.ssm_scan(*xs)
+    got = torch.autograd.grad((y * torch.from_numpy(dy)).sum()
+                              + (h * torch.from_numpy(dh)).sum(), xs)
+    for g, w in zip(got, want, strict=True):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max()
     with torch.no_grad():
-        ops.ssm_scan(x, dt, A, Bm, Cm, h0)
+        y, _ = ops.ssm_scan(*xs)
+    assert y.grad_fn is None
 
 
 # -- the mixer's parts ---------------------------------------------------------------
